@@ -8,7 +8,8 @@ JSON line per phase:
 
 1. device and toolchain;
 2. the kernel build (one nvcc per source, in parallel);
-3. the sine engines of ``csrc/sine.cuh`` against ``ops/fastmath.py``;
+3. the sine engines of ``csrc/sine.cuh`` and their cosines against
+   ``ops/fastmath.py``;
 4. the fused field kernel against its plain PyTorch version at the
    flagship width (rs_semantic 8x512), f32 and bf16, both head variants;
 5. the compositing kernel against its plain version;
@@ -18,7 +19,18 @@ JSON line per phase:
    solar-correction render runs the sigma+sun-only field variant;
 7. CUDA-event times of each kernel and its plain version at the serve
    shapes, beside the least time the card could take; the field kernel is
-   held against its plain version at that shape too.
+   held against its plain version at that shape too;
+8. the backward kernels at the flagship width: K1's residuals, the heads
+   backward (K2) and the trunk backward (K4, both engines) against their
+   plain versions, f32 and bf16, both head variants, and run twice for
+   bitwise-equal gradients; the compositing backward (K5) against autograd
+   of its plain version;
+9. training: five flagship RS-Semantic steps (1,024 rays + 1,024 depth
+   rays, every loss term on) through the kernels, with the launch counts
+   of every kernel and no plain version; one 32-ray step held against the
+   same step on the CPU; one step with the "stored" trunk backward held
+   against "recompute"; CUDA-event times of each kernel at the training
+   shapes.
 
 Then the card's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises and exits
@@ -52,8 +64,34 @@ TOL_SINE = 1e-6  # same arithmetic; only the Horner steps may contract (~1 ulp)
 TOL_FIELD = {"float32": 5e-5, "bfloat16": 2e-2}
 TOL_COMPOSITE = {"weights": 1e-6, "transparency": 1e-6, "depth": 1e-5, "rgb": 1e-5}
 TOL_SERVE_CPU = {"rgb": 1e-4, "depth": 1e-4}  # served f32 outputs vs CPU plain path
+# backward kernels vs their plain versions on the same residuals, max abs error
+# over max |reference| per tensor. f32: the same f32 sums in another order
+# (5.4e-6 read at 4,097 points); bf16: as TOL_FIELD, a one-ulp flip of a bf16
+# activation (read 6.0e-3 at 4,097 points)
+TOL_FIELD_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
+# K1's residuals against the plain forward's, same measure: in bf16 a flipped
+# activation (one ulp is 7.8e-3 at |h| ~ 1) feeds every later layer; read
+# 1.46e-2 for the trunk output at 4,097 points
+TOL_RESID = {"float32": 5e-5, "bfloat16": 4e-2}
+TOL_COMPOSITE_BWD = {"sigmas": 1e-6, "albedo": 1e-5, "sun": 1e-6, "sky": 1e-6}
+# a training step on the card against the same step on the CPU (f32): loss terms
+# to 1e-4 of their value; updated params: Adam's first update is
+# lr * g / (|g| + 1e-8), so an element whose gradient is float noise may move by
+# up to 2 lr either way, every other element agrees to 2e-5 (see
+# tests/test_torch_step.py); at most 0.1% of a tensor beyond 2e-5
+TOL_STEP_LOSS = 1e-4
+TOL_STEP_PARAM = 2e-5
+TOL_STORED = 1e-4  # "stored" vs "recompute" gradients, relative, f32
 
 N_FIELD_CHECK = 65_537  # ragged against the 32-row tile
+TRAIN_RAYS = 1024  # configs/pipelines/rs_semantic.toml batch_size
+TRAIN_STEPS = 5
+CPU_STEP_RAYS = 32
+LR = 5e-4  # rs_semantic.toml learnrate
+# launches of each kernel per flagship training step: the main render (the
+# all-heads and the solar-correction variants of K1) and the depth render
+PER_STEP = {"field_fused": 3, "heads_bwd": 3, "trunk_bwd": 3, "composite": 2,
+            "composite_bwd": 2}
 SERVE_H = SERVE_W = 128
 N_REQUESTS = 3
 CHUNK = 16_384
@@ -110,6 +148,376 @@ def synthetic_rays(n: int, seed: int, vocab: int):
     return rays.astype(np.float32), extras.astype(np.float32)
 
 
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def field_backward_phase(field, fcfg, enc, sun_d, t_emb) -> dict:
+    """K1's residuals, K2 and K4 against their plain versions at the flagship
+    width, every dtype, head variant and trunk engine; each run twice."""
+    import dataclasses
+
+    import torch
+
+    from satnerf_torch.models.field import fused_field_spec
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    n = enc.shape[0]
+    g_out = torch.randn(n, ff.OUT_W, generator=torch.Generator().manual_seed(3))
+    g_out = g_out.to(enc.device)
+    cases = {}
+    worst_rel = {"heads": 0.0, "trunk": 0.0}
+    worst_abs = {"heads": 0.0, "trunk": 0.0}
+    with torch.no_grad():
+        for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            packed = field.packed(dt)
+            for bwd in ("recompute", "stored"):
+                for heads_on in (True, False):
+                    spec = dataclasses.replace(fused_field_spec(fcfg), heads_on=heads_on,
+                                               trunk_bwd=bwd)
+                    x = ff.pack_x(spec, enc, dt)
+                    aux = ff.pack_aux(spec, sun_d, t_emb, None, dt)
+                    out, shared, acts = ff._forward(spec, x, aux, packed, resid=True)
+                    runs = []
+                    for _ in range(2):
+                        h = ff.heads_backward(spec, shared, aux, g_out, packed)
+                        t = trunk.trunk_backward(spec, x, packed, acts, h[0])
+                        torch.cuda.synchronize()
+                        runs.append({"g_shared": h[0], "g_aux": h[1], **h[2],
+                                     **dict(zip(("gx", "w0", "w_mid", "w_skip", "b"), t))})
+                    bitwise = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+                    ro, rs, ra = ff._reference_forward(spec, x, aux, packed, True)
+                    rh = ff.heads_backward_reference(spec, shared, aux, g_out, packed)
+                    rt = trunk.trunk_backward_reference(spec, x, packed, acts, rh[0])
+                    ref = {"g_shared": rh[0], "g_aux": rh[1], **rh[2],
+                           **dict(zip(("gx", "w0", "w_mid", "w_skip", "b"), rt))}
+                    resid = {"out": rel_err(out, ro), "shared": rel_err(shared, rs)}
+                    if acts is not None:
+                        resid["acts"] = rel_err(acts, ra)
+                    errs = {k: rel_err(runs[0][k], ref[k]) for k in ref}
+                    key = f"{dname}/{bwd}/heads_{'on' if heads_on else 'off'}"
+                    cases[key] = {"grad_rel_err": errs, "resid_rel_err": resid,
+                                  "bitwise_repeat": bitwise}
+                    check(bitwise, f"{key}: two runs differ")
+                    for k, e in errs.items():
+                        check(e <= TOL_FIELD_BWD[dname], f"{key} grad {k} err {e}")
+                    for k, e in resid.items():
+                        check(e <= TOL_RESID[dname], f"{key} residual {k} err {e}")
+                    for k in ref:
+                        part = "trunk" if k in ("gx", "w0", "w_mid", "w_skip", "b") else "heads"
+                        worst_rel[part] = max(worst_rel[part], errs[k])
+                        if dname == "float32":
+                            worst_abs[part] = max(
+                                worst_abs[part],
+                                float((runs[0][k].float() - ref[k].float()).abs().max()))
+                    del out, shared, acts, runs, ref, rh, rt
+    emit({"phase": "field_backward_check", "n": n, "cases": cases,
+          "tol": {"grad": TOL_FIELD_BWD, "resid": TOL_RESID}})
+    return {"max_rel_err": worst_rel, "max_abs_err_f32": worst_abs}
+
+
+def composite_backward_phase(comp_inputs, n_samples: int) -> dict:
+    """K5's backward against autograd through its plain version, with rays
+    whose density is all <= 0."""
+    import torch
+
+    from satnerf_torch.ops import composite as comp
+
+    errs = {}
+    for b, s in ((CHUNK, n_samples), (1001, n_samples), (77, 37)):
+        ins = comp_inputs(b, s, 10 + b + s)
+        ins[0][:8] = -ins[0][:8].abs()
+        gc = torch.Generator().manual_seed(b)
+        cots = [torch.randn(shape, generator=gc).to(ins[0].device)
+                for shape in ((b, s), (b, s), (b,), (b, 3))]
+
+        def grads(fn):
+            leaves = [t.clone().requires_grad_(i != 1) for i, t in enumerate(ins)]
+            torch.autograd.backward(fn(*leaves), cots)
+            return [leaves[i].grad for i in (0, 2, 3, 4)]
+
+        got, again = grads(comp.composite), grads(comp.composite)
+        torch.cuda.synchronize()
+        ref = grads(comp.composite_reference)
+        check(all(torch.equal(a, c) for a, c in zip(got, again)),
+              f"composite backward {b}x{s}: two runs differ")
+        check(bool(torch.all(got[0][:8] == 0)), "sigma <= 0 rays got a gradient")
+        e = {n: float((a - r).abs().max())
+             for n, a, r in zip(("sigmas", "albedo", "sun", "sky"), got, ref)}
+        errs[f"{b}x{s}"] = e
+        for n, v in e.items():
+            check(v <= TOL_COMPOSITE_BWD[n], f"composite backward {b}x{s} {n} {v}")
+    emit({"phase": "composite_backward_check", "max_abs_err": errs,
+          "tol": TOL_COMPOSITE_BWD})
+    return errs
+
+
+def train_batch(n: int, n_depth: int, seed: int, vocab: int, device) -> dict:
+    """A seeded synthetic batch with every key a flagship step reads."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    o = np.concatenate([rng.uniform(-0.8, 0.8, (n, 2)), np.ones((n, 1))], axis=1)
+    d = np.concatenate([rng.uniform(-0.15, 0.15, (n, 2)), -np.ones((n, 1))], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = np.concatenate([o, d, np.zeros((n, 1)), np.full((n, 1), 2.0)], axis=1)
+    sun = np.concatenate([rng.uniform(-0.5, 0.5, (n, 2)), np.full((n, 1), 0.8)], axis=1)
+    sun /= np.linalg.norm(sun, axis=1, keepdims=True)
+    extras = np.concatenate([sun, rng.integers(0, vocab, (n, 1))], axis=1)
+    batch = {
+        "rays": rays, "extras": extras,
+        "rgbs": rng.uniform(0, 1, (n, 3)),
+        "semantic": rng.integers(0, 5, (n, 1)),
+        "semantic_sparsity_mask": rng.uniform(size=n) > 0.1,
+        "depth_rays": rays[:n_depth], "depth_extras": extras[:n_depth],
+        "depth_depths": rng.uniform(0.5, 1.5, (n_depth,)),
+        "depth_weights": rng.uniform(0.5, 1.0, (n_depth,)),
+    }
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.asarray(v))
+        if t.is_floating_point():
+            t = t.float()
+        out[k] = t.to(device)
+    return out
+
+
+def copy_params(params: dict, device) -> dict:
+    """Leaf copies of a params dict on ``device``."""
+    from satnerf_torch.models.field import Field
+
+    field = Field(params["field"].cfg)
+    field.load_state_dict({k: v.detach().cpu() for k, v in params["field"].state_dict().items()})
+    out = {"field": field.to(device)}
+    for k in ("t", "t_s"):
+        if params.get(k) is not None:
+            out[k] = params[k].detach().clone().to(device).requires_grad_(True)
+    return out
+
+
+def param_diff(a: dict, b: dict) -> dict:
+    """Per tensor: max |a - b| and the share of elements beyond TOL_STEP_PARAM."""
+    sa = {k: v.detach().cpu() for k, v in a["field"].state_dict().items()}
+    sb = {k: v.detach().cpu() for k, v in b["field"].state_dict().items()}
+    sa["t"], sb["t"] = a["t"].detach().cpu(), b["t"].detach().cpu()
+    out = {}
+    for k in sa:
+        d = (sa[k] - sb[k]).abs()
+        out[k] = (float(d.max()), float((d > TOL_STEP_PARAM).float().mean()))
+    return out
+
+
+def train_phase(dev, vocab: int) -> dict:
+    """Five flagship training steps through the kernels, then a 32-ray step
+    against the CPU plain path and a "stored"-engine step."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from satnerf_torch.configs import load_pipeline_toml, step_config_from_pipeline
+    from satnerf_torch.ops import composite as comp
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+    from satnerf_torch.train.state import create_train_state, init_params, trainable
+    from satnerf_torch.train.step import build_train_step
+
+    p = load_pipeline_toml(PIPELINE_TOML)
+    p["trunk_impl"] = "pallas"
+    scfg = step_config_from_pipeline(p, steps_per_epoch=1000, n_classes=5, car_index=4,
+                                     device=dev)
+    # as bench.py:257-260: every loss term on from step 0
+    scfg = dataclasses.replace(scfg, use_car_reg_loss=True, car_reg_loss_start=0,
+                               first_beta_epoch=0)
+    check(scfg.depth and scfg.render.field.trunk_bwd == "recompute"
+          and scfg.render.n_samples == 64, "flagship step config")
+    params = init_params(torch.Generator().manual_seed(0), scfg.render.field,
+                         t_vocab=vocab, device=dev)
+    start = copy_params(params, "cpu")
+    state = create_train_state(params, LR, "step", scfg.steps_per_epoch)
+    step = build_train_step(scfg)
+    batch = train_batch(TRAIN_RAYS, TRAIN_RAYS, 5, vocab, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    counters = {"field_fused": (ff, "LAUNCHES"), "heads_bwd": (ff, "HEADS_BWD_LAUNCHES"),
+                "trunk_bwd": (trunk, "LAUNCHES"), "composite": (comp, "LAUNCHES"),
+                "composite_bwd": (comp, "BWD_LAUNCHES")}
+    plain = {"field_fused": (ff, "PLAIN_CALLS"), "trunk_bwd": (trunk, "PLAIN_CALLS"),
+             "composite": (comp, "PLAIN_CALLS")}
+    torch.cuda.synchronize()
+    for mod, name in list(counters.values()) + list(plain.values()):
+        setattr(mod, name, 0)
+    step_ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        state, metrics = step(state, batch, gen)
+        t1.record()
+        torch.cuda.synchronize()
+        step_ms.append(t0.elapsed_time(t1))
+        vals = {k: float(v) for k, v in metrics.items()}
+        check(all(math.isfinite(v) for v in vals.values()), f"non-finite metrics {vals}")
+        losses.append(vals)
+    got = {k: getattr(mod, name) for k, (mod, name) in counters.items()}
+    plain_calls = {k: getattr(mod, name) for k, (mod, name) in plain.items()}
+    want = {k: v * TRAIN_STEPS for k, v in PER_STEP.items()}
+    check(got == want, f"training launches {got}, expected {want}")
+    check(not any(plain_calls.values()), f"a plain version ran: {plain_calls}")
+    steady = step_ms[-3:]
+    ms = sum(steady) / len(steady)
+    emit({"phase": "train", "steps": TRAIN_STEPS, "rays": TRAIN_RAYS,
+          "depth_rays": TRAIN_RAYS, "step_ms": step_ms, "ms_per_step": ms,
+          "rays_per_s": TRAIN_RAYS / (ms / 1e3), "launches": got,
+          "launches_per_step": {k: v / TRAIN_STEPS for k, v in got.items()},
+          "plain_calls": plain_calls, "metrics_first": losses[0],
+          "metrics_last": losses[-1],
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    # one 32-ray step on the card and on CPU copies of the same params
+    small = {k: v[:CPU_STEP_RAYS] for k, v in batch.items()}
+    results = {}
+    for where in ("cuda", "cpu"):
+        dev_w = dev if where == "cuda" else torch.device("cpu")
+        prm = copy_params(state.params, dev_w)
+        st = create_train_state(prm, LR, "step", scfg.steps_per_epoch)
+        st.step = state.step
+        st, m = build_train_step(scfg)(st, {k: v.to(dev_w) for k, v in small.items()})
+        results[where] = ({k: float(v) for k, v in m.items()}, st.params)
+    loss_err = {k: abs(results["cuda"][0][k] - v) / max(1.0, abs(v))
+                for k, v in results["cpu"][0].items()}
+    pdiff = param_diff(results["cuda"][1], results["cpu"][1])
+    for k, e in loss_err.items():
+        check(e <= TOL_STEP_LOSS, f"32-ray step {k} card vs CPU {e}")
+    for k, (mx, share) in pdiff.items():
+        check(mx <= 2 * LR + 1e-6 and share <= 1e-3, f"32-ray step param {k}: {mx} {share}")
+
+    # "stored" against "recompute" from the same params, deterministic ladder
+    grads = {}
+    for bwd in ("recompute", "stored"):
+        sc = dataclasses.replace(scfg, render=dataclasses.replace(
+            scfg.render, field=dataclasses.replace(scfg.render.field, trunk_bwd=bwd)))
+        prm = copy_params(start, dev)
+        st = create_train_state(prm, LR, "step", scfg.steps_per_epoch)
+        st, m = build_train_step(sc)(st, batch)
+        torch.cuda.synchronize()
+        grads[bwd] = [p.grad.detach().clone() for p in trainable(st.params)]
+        del st, prm
+    stored_err = max(rel_err(a, b) for a, b in zip(grads["stored"], grads["recompute"]))
+    stored_same = all(torch.equal(a, b) for a, b in zip(grads["stored"], grads["recompute"]))
+    check(stored_err <= TOL_STORED, f"stored vs recompute gradients {stored_err}")
+    emit({"phase": "train_check", "cpu_step_rays": CPU_STEP_RAYS,
+          "loss_rel_err": loss_err,
+          "param_max_abs_err": max(v[0] for v in pdiff.values()),
+          "param_share_beyond_tol": max(v[1] for v in pdiff.values()),
+          "stored_vs_recompute_grad_rel_err": stored_err,
+          "stored_vs_recompute_bitwise": stored_same,
+          "tol": {"loss": TOL_STEP_LOSS, "param": TOL_STEP_PARAM, "stored": TOL_STORED}})
+    return {"launches": got, "scfg": scfg, "params": state.params}
+
+
+def train_times_phase(dev, scfg, params) -> dict:
+    """CUDA-event times of each kernel and its plain version at the shapes of
+    one flagship training step (65,536 points, f32), with the bounds."""
+    import dataclasses
+
+    import torch
+
+    from satnerf_torch.core.encoding import positional_encoding
+    from satnerf_torch.models.field import fused_field_spec
+    from satnerf_torch.ops import composite as comp
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    fcfg = scfg.render.field
+    n = TRAIN_RAYS * scfg.render.n_samples
+    g = torch.Generator().manual_seed(11)
+    enc = positional_encoding(torch.rand(n, 3, generator=g) * 2 - 1,
+                              fcfg.mapping_pos_n_freq).to(dev)
+    sun = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1).to(dev)
+    te = torch.randn(n, fcfg.t_embedding_tau, generator=g).to(dev)
+    g_out = torch.randn(n, ff.OUT_W, generator=g).to(dev)
+    dt, f4 = torch.float32, 4
+    out = {}
+
+    def entry(ms, plain_ms, flops, nbytes, shape):
+        ops_ms = flops / PEAK_F32_FLOPS * 1e3
+        bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "flops": flops, "bytes": nbytes, "shape": shape}
+
+    with torch.no_grad():
+        packed = params["field"].packed(dt)
+        w_bytes = sum(t.numel() * t.element_size() for t in packed.values())
+        for bwd in ("recompute", "stored"):
+            spec = dataclasses.replace(fused_field_spec(fcfg), trunk_bwd=bwd)
+            x = ff.pack_x(spec, enc, dt)
+            aux = ff.pack_aux(spec, sun, te, None, dt)
+            res = ff._forward(spec, x, aux, packed, resid=True)
+            shared, acts = res[1], res[2]
+            io = (x.numel() + aux.numel()) * f4
+            if bwd == "recompute":
+                k1 = cuda_ms(lambda: ff._forward(spec, x, aux, packed, True), reps=3)
+                k1p = cuda_ms(lambda: ff._reference_forward(spec, x, aux, packed, True),
+                              reps=2)
+                out["field_fused"] = entry(
+                    k1, k1p, 2.0 * spec.mac_per_point() * n,
+                    io + w_bytes + n * (ff.OUT_W + spec.feat) * f4, [n, spec.cx])
+                h = ff.heads_backward(spec, shared, aux, g_out, packed)
+                k2 = cuda_ms(lambda: ff.heads_backward(spec, shared, aux, g_out, packed),
+                             reps=3)
+                k2p = cuda_ms(lambda: ff.heads_backward_reference(spec, shared, aux, g_out,
+                                                                  packed), reps=2)
+                head_w = sum(packed[k].numel() * f4 for k in spec.head_keys())
+                out["heads_bwd"] = entry(
+                    k2, k2p, 2.0 * spec.heads_bwd_mac_per_point() * n,
+                    (shared.numel() + aux.numel() + g_out.numel()) * f4
+                    + (shared.numel() + aux.numel()) * f4 + 2 * head_w, [n, spec.feat])
+                g_shared = h[0]
+            trunk_w = sum(packed[k].numel() * f4 for k in ff.TRUNK_KEYS)
+            k4 = cuda_ms(lambda: trunk.trunk_backward(spec, x, packed, acts, g_shared,
+                                                      need_gx=False), reps=3)
+            k4p = cuda_ms(lambda: trunk.trunk_backward_reference(spec, x, packed, acts,
+                                                                 g_shared), reps=2)
+            in_bytes = (x.numel() + g_shared.numel()
+                        + (acts.numel() if acts is not None else 0)) * f4
+            out[f"trunk_bwd_{bwd}"] = entry(
+                k4, k4p, 2.0 * spec.trunk_bwd_mac_per_point() * n,
+                in_bytes + 2 * trunk_w, [n, spec.feat])
+            del res, shared, acts
+
+    # compositing at the main render's shape: (1,024 rays, 64 samples)
+    b, s = TRAIN_RAYS, scfg.render.n_samples
+    gc = torch.Generator().manual_seed(12)
+    ins = [torch.rand(b, s, generator=gc) * 6 - 1,
+           torch.sort(torch.rand(b, s, generator=gc) * 2, dim=1).values,
+           torch.rand(b, s, 3, generator=gc), torch.rand(b, s, generator=gc),
+           torch.rand(b, 3, generator=gc)]
+    ins = [t.to(dev) for t in ins]
+    cots = [torch.randn(shape, generator=gc).to(dev)
+            for shape in ((b, s), (b, s), (b,), (b, 3))]
+    c_ms = cuda_ms(lambda: comp.composite(*ins), reps=50, warmup=3)
+    cp_ms = cuda_ms(lambda: comp.composite_reference(*ins), reps=50, warmup=3)
+    c_bytes = 4 * (b * s * 6 + b * 3) + 4 * (2 * b * s + b + 3 * b)
+    out["composite"] = entry(c_ms, cp_ms, 25.0 * b * s, c_bytes, [b, s])
+    w, t, _, _ = comp.composite(*ins)
+    kb = cuda_ms(lambda: comp.composite_backward(ins, w, t, *cots), reps=50, warmup=3)
+    leaves = [x.clone().requires_grad_(i != 1) for i, x in enumerate(ins)]
+    ref_outs = comp.composite_reference(*leaves)
+    kbp = cuda_ms(lambda: torch.autograd.grad(ref_outs, [leaves[i] for i in (0, 2, 3, 4)],
+                                              cots, retain_graph=True), reps=50, warmup=3)
+    # read sigma, z, albedo, sun, sky, w, T and the four output gradients;
+    # write the gradients of sigma, albedo, sun and sky
+    cb_bytes = 4 * (b * s * 8 + b * 3 + 2 * b * s + b + 3 * b) + 4 * (b * s * 5 + 3 * b)
+    out["composite_bwd"] = entry(kb, kbp, 60.0 * b * s, cb_bytes, [b, s])
+    emit({"phase": "train_kernel_times", "dtype": "float32", "times": out})
+    return out
+
 def main() -> int:
     import torch
 
@@ -126,7 +534,7 @@ def main() -> int:
         from satnerf_torch.models.field import Field, fused_field_spec
         from satnerf_torch.ops import _build, composite as comp_mod
         from satnerf_torch.ops import field_fused as ff
-        from satnerf_torch.ops.fastmath import SINE_ENGINES
+        from satnerf_torch.ops.fastmath import COSINE_ENGINES, SINE_ENGINES
         from satnerf_torch.render.renderer import render_image_chunked, render_rays
         from satnerf_torch.serve.service import RenderService
     except ImportError as exc:
@@ -159,14 +567,16 @@ def main() -> int:
     lib = _build.load_library("sine_check")
     sine_err = {}
     for mode, name in enumerate(ff.SIN_MODES):
-        y = torch.empty_like(x)
-        err = lib.sine_eval(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-                            x.numel(), mode,
-                            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        check(err == 0, f"sine_eval launch error {err}")
-        torch.cuda.synchronize()
-        sine_err[name] = float((y - SINE_ENGINES[name](x)).abs().max())
-        check(sine_err[name] <= TOL_SINE, f"sine {name} err {sine_err[name]}")
+        for cosine, engines in ((0, SINE_ENGINES), (1, COSINE_ENGINES)):
+            y = torch.empty_like(x)
+            err = lib.sine_eval(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+                                x.numel(), mode, cosine,
+                                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            check(err == 0, f"sine_eval launch error {err}")
+            torch.cuda.synchronize()
+            key = f"{'cos' if cosine else 'sin'}_{name}"
+            sine_err[key] = float((y - engines[name](x)).abs().max())
+            check(sine_err[key] <= TOL_SINE, f"{key} err {sine_err[key]}")
     emit({"phase": "sine", "n": x.numel(), "range": 1e3, "max_abs_err": sine_err,
           "tol": TOL_SINE})
 
@@ -351,32 +761,81 @@ def main() -> int:
     emit({"phase": "composite_time", "shape": [b, s], "ms": c_ms, "plain_ms": cp_ms,
           "bytes": c_bytes, "bound_ms": max(c_bytes_ms, c_ops_ms)})
 
+    # ---- 8. backward kernels -----------------------------------------------------
+    bwd_err = field_backward_phase(field, fcfg, enc, sun_d, t_emb)
+    comp_bwd_err = composite_backward_phase(comp_inputs, rcfg.n_samples)
+
+    # ---- 9. training ------------------------------------------------------------------
+    train = train_phase(dev, vocab)
+    train_t = train_times_phase(dev, train["scfg"], train["params"])
+
     f32 = times["float32"]
+    k1t = train_t["field_fused"]
     kernels = [
         {
             "name": "field_fused", "route": "cuda",
             "source": "satnerf_torch/csrc/field_fused.cu",
             "replaces": "satnerf_tpu/ops/pallas/field_fused.py:361",
-            "launches": launches["field_fused"],
+            "launches": train["launches"]["field_fused"],
             "max_abs_err": max([f32["max_abs_err"]]
                                + [max(e.values()) for k, e in field_err.items()
                                   if k.startswith("float32")]),
-            "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
-            "bound_by": f32["bound_by"], "library_ms": None,
-            "bf16": {k: times["bfloat16"][k]
-                     for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-            "launches_per_request": launches["field_fused"] / N_REQUESTS,
+            **{k: k1t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            "shape": k1t["shape"],
+            "serve": {"launches": launches["field_fused"], "points": n_pts,
+                      **{k: f32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                      "bf16": {k: times["bfloat16"][k]
+                               for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+        },
+        {
+            "name": "heads_bwd", "route": "cuda",
+            "source": "satnerf_torch/csrc/field_bwd.cu",
+            "replaces": "satnerf_tpu/ops/pallas/field_fused.py:594",
+            "launches": train["launches"]["heads_bwd"],
+            "max_abs_err": bwd_err["max_abs_err_f32"]["heads"],
+            "max_rel_err": bwd_err["max_rel_err"]["heads"],
+            **{k: train_t["heads_bwd"][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+            "library_ms": None,
+        },
+        {
+            "name": "trunk_bwd", "route": "cuda",
+            "source": "satnerf_torch/csrc/trunk_bwd.cu",
+            "replaces": "satnerf_tpu/ops/pallas/trunk.py:445",
+            "launches": train["launches"]["trunk_bwd"],
+            "max_abs_err": bwd_err["max_abs_err_f32"]["trunk"],
+            "max_rel_err": bwd_err["max_rel_err"]["trunk"],
+            **{k: train_t["trunk_bwd_recompute"][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+            "library_ms": None,
+            "engine": "recompute",
+            "stored": {k: train_t["trunk_bwd_stored"][k]
+                       for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         },
         {
             "name": "composite", "route": "cuda",
             "source": "satnerf_torch/csrc/composite.cu",
             "replaces": "satnerf_tpu/ops/pallas/composite.py:76",
-            "launches": launches["composite"],
+            "launches": train["launches"]["composite"],
             "max_abs_err": max(max(e.values()) for e in comp_err.values()),
-            "ms": c_ms, "plain_ms": cp_ms, "bound_ms": max(c_bytes_ms, c_ops_ms),
-            "bound_by": "bytes" if c_bytes_ms >= c_ops_ms else "operations",
+            **{k: train_t["composite"][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
             "library_ms": None,
-            "launches_per_request": launches["composite"] / N_REQUESTS,
+            "serve": {"launches": launches["composite"], "shape": [CHUNK, rcfg.n_samples],
+                      "ms": c_ms, "plain_ms": cp_ms,
+                      "bound_ms": max(c_bytes_ms, c_ops_ms)},
+        },
+        {
+            "name": "composite_bwd", "route": "cuda",
+            "source": "satnerf_torch/csrc/composite.cu",
+            "replaces": "satnerf_tpu/ops/pallas/composite.py:76 (its backward; "
+                        "the reference differentiates XLA code)",
+            "launches": train["launches"]["composite_bwd"],
+            "max_abs_err": max(max(e.values()) for e in comp_bwd_err.values()),
+            **{k: train_t["composite_bwd"][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+            "library_ms": None,
         },
     ]
     print(smi, flush=True)

@@ -1,8 +1,8 @@
 """satnerf_torch: the PyTorch/CUDA port of satnerf_tpu for NVIDIA Hopper.
 
 The JAX package ``satnerf_tpu`` is the reference; this package mirrors its
-module names (``core/``, ``models/``, ``render/``, ``serve/``, ``ops/``) so
-the counterpart of each module is easy to find. It imports ``torch`` and
+module names (``core/``, ``models/``, ``render/``, ``serve/``, ``train/``,
+``ops/``) so the counterpart of each module is easy to find. It imports ``torch`` and
 numpy only, never JAX or ``satnerf_tpu``.
 
 Plain tensor code is PyTorch. Every Pallas kernel of the reference on the

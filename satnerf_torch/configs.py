@@ -1,9 +1,9 @@
-"""Pipeline TOML -> ``FieldConfig`` and ``RenderConfig``.
+"""Pipeline TOML -> ``FieldConfig``, ``RenderConfig`` and ``StepConfig``.
 
-Reads the handful of ``configs/pipelines/*.toml`` keys that the reference's
-``step_config_from_main`` (satnerf_tpu/train/step.py) maps into the field
-and render configs, with the reference's defaults for keys a file leaves
-out (satnerf_tpu/configs.py pipeline classes).
+Reads the ``configs/pipelines/*.toml`` keys that the reference's
+``step_config_from_main`` (satnerf_tpu/train/step.py) maps into the field,
+render and step configs, with the reference's defaults for keys a file
+leaves out (satnerf_tpu/configs.py pipeline classes).
 """
 
 from __future__ import annotations
@@ -54,7 +54,8 @@ def render_config_from_pipeline(p: dict, n_classes: int = 5,
         siren=p.get("activation_function", "siren") == "siren",
         sin_impl="poly" if sin_impl == "auto" else sin_impl,
         trunk_impl=resolve_trunk_impl(p.get("trunk_impl", "xla"), device),
-        # the backward engine choice matters only to training (later slice)
+        # "auto" stays "recompute" until the card measures the trade (the
+        # reference's rule, step.py:313-335, is a TPU measurement)
         trunk_bwd="recompute" if p.get("trunk_bwd", "recompute") == "auto"
         else p.get("trunk_bwd", "recompute"),
         mapping=variant in ("nerf", "rs_semantic"),
@@ -89,3 +90,41 @@ def load_render_config(fp: str, n_classes: int = 5, device="cuda",
     p = load_pipeline_toml(fp)
     p.update(overrides)
     return render_config_from_pipeline(p, n_classes=n_classes, device=device)
+
+
+def step_config_from_pipeline(p: dict, steps_per_epoch: int, with_depth=None,
+                              n_classes: int = 5, car_index: int = -1,
+                              device="cuda"):
+    """Pipeline-config dict -> ``StepConfig`` (``step_config_from_main``).
+
+    ``with_depth=None`` takes ``depth_enabled`` (on by default for satnerf
+    and rs_semantic); ``use_tj_instead_of_beta`` disables the uncertainty
+    losses for good (first_beta_epoch = 10,000,000), as the reference does.
+    """
+    from satnerf_torch.train.step import StepConfig
+
+    rcfg = render_config_from_pipeline(p, n_classes=n_classes, device=device)
+    variant = rcfg.field.variant
+    sat = variant in ("satnerf", "rs_semantic")
+    depth = p.get("depth_enabled", sat) if with_depth is None else with_depth
+    return StepConfig(
+        render=rcfg,
+        steps_per_epoch=steps_per_epoch,
+        sc_lambda=p.get("sc_lambda", 0.0 if variant == "nerf" else 0.05),
+        first_beta_epoch=(10_000_000 if p.get("use_tj_instead_of_beta", False)
+                          else p.get("first_beta_epoch", 2)),
+        beta_ramp_epochs=p.get("beta_ramp_epochs", 0.0),
+        depth=bool(depth),
+        ds_lambda=p.get("ds_lambda", 1000.0),
+        ds_noweights=p.get("ds_noweights", False),
+        semantic=variant == "rs_semantic",
+        lambda_s=p.get("lambda_s", 0.04),
+        car_index=car_index,
+        ignore_car_index=p.get("ignore_car_index", True),
+        use_beta_for_s=p.get("use_beta_for_s", False),
+        detach_beta_for_s=p.get("detach_beta_for_s", False),
+        use_car_reg_loss=p.get("use_car_reg_loss", False),
+        car_reg_loss_start=p.get("car_reg_loss_start", 3),
+        lambda_c=p.get("lambda_c", 0.1),
+        grad_accum=p.get("grad_accum", 1),
+    )

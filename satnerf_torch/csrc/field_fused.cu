@@ -1,13 +1,19 @@
 // Fused field forward: SIREN trunk + every head for one 32-row tile per block.
 //
 // Replaces the TPU kernel satnerf_tpu/ops/pallas/field_fused.py:fused_field
-// (_fwd_call -> _fwd_kernel, _heads_forward), forward only. Per point:
+// (_fwd_call -> _fwd_kernel, _heads_forward), with its backward residuals.
+// Per point:
 //   h_0 = sin(w0 * (x @ W0 + b0)),  h_i = sin(h_{i-1} @ W_i [+ x @ Ws_i] + b_i)
 //   feats = h @ Wf + bf
 //   sv = sin(feats @ Wsv0f + aux @ Wsv0a + b) -> sin(. @ Wsv1 + b) -> sin(. @ Wsv2 + b)
 //   HEADS_ON: rgb, sky (ReLU on aux), beta and semantic hidden layers
 //   out(16 cols) = shared @ W2s + sv @ W2sv [+ rgb/sky/beta/sem projections] + b
 // See satnerf_torch/ops/field_fused.py for the packed layouts and columns.
+// The kResid instantiations also write the backward's residuals, as the TPU
+// kernel's emit_shared / emit_acts do: the (N, F) trunk output h_{L-1}, and,
+// when acts_out is given (trunk_bwd="stored"), the (L, N, F) pre-activations
+// a_i = h_{i-1} @ W_i [+ x @ Ws_i] + b_i (before the w0 scale of layer 0), both
+// in the compute dtype. The serve path launches the other instantiations.
 //
 // What bounds it on an H100: operations. The flagship field (8x512 trunk,
 // skip at 4, 60 encoded inputs, 256-wide heads) does ~2.8 M multiply-adds
@@ -39,6 +45,7 @@
 #include <cuda_runtime.h>
 
 #include "sine.cuh"
+#include "tile_gemm.cuh"
 
 // Mirror of satnerf_torch.ops.field_fused._FieldArgs (ctypes); keep in sync.
 struct FieldArgs {
@@ -69,6 +76,8 @@ struct FieldArgs {
   const void* w2_sem;
   const void* b_heads;
   const void* b_small;
+  void* shared_out;  // (n, F) compute dtype, kResid only
+  void* acts_out;    // (L, n, F) compute dtype or null, kResid only
   int n, layers, feat, fl, cx, aux_w, skip_mask, heads_on, has_beta,
       has_semantic, use_s_aux, sin_mode, bf16;
   float w0_scale;
@@ -76,99 +85,23 @@ struct FieldArgs {
 
 namespace {
 
-constexpr int kRows = 32;     // rows of the point tile per block
-constexpr int kThreads = 256;
-constexpr int kPad = 4;       // row padding (elements) against bank conflicts
-
+using namespace satnerf::tile;
 
 // rows of b_heads (satnerf_torch.ops.field_fused.HIDDEN_BIAS_ROWS)
 enum HiddenBias { kRgb0 = 0, kSv0, kSv1, kSv2, kSky0, kB0, kS0 };
 enum Act { kLinear = 0, kSine = 1, kRelu = 2 };
 
-// ---- element access -------------------------------------------------------
-
-__device__ __forceinline__ void lds4(const float* p, float (&v)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void lds4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
-}
-__device__ __forceinline__ float2 ldg2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-__device__ __forceinline__ float2 ldg2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
-}
-__device__ __forceinline__ void st2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.0f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.0f);
-}
-
-// ---- tile GEMM --------------------------------------------------------------
-
-// Thread -> output mapping of an N-wide layer over the 32-row tile: thread t
-// owns the column pair 2*(t % (N/2)) and kRpt consecutive rows.
-template <int N>
-struct Map {
-  static constexpr int kPairs = N / 2;
-  static constexpr int kGroups = kThreads / kPairs;
-  static constexpr int kRpt = kRows / kGroups;
-  static_assert(kThreads % kPairs == 0 && kRows % kGroups == 0, "layer width");
-};
-
-// acc[r][0..1] += A[row(r), 0:K] @ W[0:K, col pair]; A in shared memory
-// (row stride lda), W (K, N) row-major in global memory. K % 4 == 0.
-template <int N, typename T>
-__device__ __forceinline__ void gemm_acc(float (&acc)[Map<N>::kRpt][2],
-                                         const T* __restrict__ A, int lda, int K,
-                                         const T* __restrict__ W) {
-  using M = Map<N>;
-  const int pair = threadIdx.x % M::kPairs;
-  const int grp = threadIdx.x / M::kPairs;
-  const T* a_base = A + grp * M::kRpt * lda;
-  const T* w = W + 2 * pair;
-  float2 wc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wc[j] = ldg2(w + j * N);
-  for (int k = 0; k < K; k += 4) {
-    float2 wn[4];
-    const bool more = k + 4 < K;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wn[j] = more ? ldg2(w + (k + 4 + j) * N) : make_float2(0.0f, 0.0f);
-#pragma unroll
-    for (int r = 0; r < M::kRpt; ++r) {
-      float a[4];
-      lds4(a_base + r * lda + k, a);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[r][0] = fmaf(a[j], wc[j].x, acc[r][0]);
-        acc[r][1] = fmaf(a[j], wc[j].y, acc[r][1]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wc[j] = wn[j];
-  }
-}
-
 // D = act(scale * (A @ W [+ A2 @ W2] + bias)), stored in T. D may alias A:
 // every product is in registers before the barrier that precedes the write.
-template <int N, typename T>
+// kActs: also write the pre-activation A @ W [+ A2 @ W2] + bias, in T, to
+// row r of the global tile `pre` (row stride ldpre) for rows < rows_valid.
+template <int N, typename T, bool kActs = false>
 __device__ __forceinline__ void layer(const T* A, int lda, int K, const T* W,
                                       const T* A2, int lda2, int K2, const T* W2,
                                       const float* __restrict__ bias, T* D, int ldd,
-                                      int act, float scale, int sin_mode) {
+                                      int act, float scale, int sin_mode,
+                                      T* pre = nullptr, int ldpre = 0,
+                                      int rows_valid = 0) {
   using M = Map<N>;
   float acc[M::kRpt][2];
 #pragma unroll
@@ -182,6 +115,8 @@ __device__ __forceinline__ void layer(const T* A, int lda, int K, const T* W,
 #pragma unroll
   for (int r = 0; r < M::kRpt; ++r) {
     float v0 = acc[r][0] + b0, v1 = acc[r][1] + b1;
+    if (kActs && pre != nullptr && row + r < rows_valid)
+      st2(pre + static_cast<size_t>(row + r) * ldpre + c, v0, v1);
     if (act == kSine) {
       v0 = satnerf::sin_mode(scale * v0, sin_mode);
       v1 = satnerf::sin_mode(scale * v1, sin_mode);
@@ -196,7 +131,7 @@ __device__ __forceinline__ void layer(const T* A, int lda, int K, const T* W,
 
 // ---- the kernel ---------------------------------------------------------------
 
-template <typename T, bool kHeadsOn, int F, int FL>
+template <typename T, bool kHeadsOn, bool kResid, int F, int FL>
 __global__ void __launch_bounds__(kThreads, 2)
 field_fused_kernel(const FieldArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -231,16 +166,30 @@ field_fused_kernel(const FieldArgs a) {
   const float* b = static_cast<const float*>(a.b);
   const T* w_mid = static_cast<const T*>(a.w_mid);
   const T* w_skip = static_cast<const T*>(a.w_skip);
-  layer<F, T>(X, ldx, a.cx, static_cast<const T*>(a.w0), nullptr, 0, 0, nullptr,
-              b, H, ldh, kSine, a.w0_scale, mode);
+  const int rows_valid = a.n - row0;
+  T* acts = kResid ? static_cast<T*>(a.acts_out) : nullptr;
+  const size_t act_stride = static_cast<size_t>(a.n) * F;  // one layer's (n, F)
+  T* acts_tile = acts != nullptr ? acts + static_cast<size_t>(row0) * F : nullptr;
+  layer<F, T, kResid>(X, ldx, a.cx, static_cast<const T*>(a.w0), nullptr, 0, 0,
+                      nullptr, b, H, ldh, kSine, a.w0_scale, mode, acts_tile, F,
+                      rows_valid);
   int s = 0;
   for (int i = 1; i < a.layers; ++i) {
     const bool skip = (a.skip_mask >> i) & 1;
-    layer<F, T>(H, ldh, F, w_mid + static_cast<size_t>(i - 1) * F * F,
-                skip ? X : nullptr, ldx, a.cx,
-                skip ? w_skip + static_cast<size_t>(s) * a.cx * F : nullptr,
-                b + i * F, H, ldh, kSine, 1.0f, mode);
+    layer<F, T, kResid>(H, ldh, F, w_mid + static_cast<size_t>(i - 1) * F * F,
+                        skip ? X : nullptr, ldx, a.cx,
+                        skip ? w_skip + static_cast<size_t>(s) * a.cx * F : nullptr,
+                        b + i * F, H, ldh, kSine, 1.0f, mode,
+                        acts_tile != nullptr ? acts_tile + i * act_stride : nullptr,
+                        F, rows_valid);
     s += skip;
+  }
+  if (kResid) {  // the trunk output h_{L-1}, the heads backward's residual
+    T* sh = static_cast<T*>(a.shared_out) + static_cast<size_t>(row0) * F;
+    for (int i = threadIdx.x; i < kRows * F; i += kThreads) {
+      const int r = i / F, c = i - r * F;
+      if (r < rows_valid) sh[static_cast<size_t>(r) * F + c] = H[r * ldh + c];
+    }
   }
 
   // heads. out: this thread's (row, column pair) of the 16-column output
@@ -296,12 +245,12 @@ field_fused_kernel(const FieldArgs a) {
   }
 }
 
-template <typename T, bool kHeadsOn, int F, int FL>
+template <typename T, bool kHeadsOn, bool kResid, int F, int FL>
 int launch(const FieldArgs& a, cudaStream_t stream) {
   const size_t smem = sizeof(T) * kRows *
                       static_cast<size_t>((a.cx + kPad) + (a.aux_w + kPad) +
                                           (F + kPad) + (FL + kPad));
-  auto kern = field_fused_kernel<T, kHeadsOn, F, FL>;
+  auto kern = field_fused_kernel<T, kHeadsOn, kResid, F, FL>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -310,12 +259,18 @@ int launch(const FieldArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kHeadsOn>
+template <typename T, bool kHeadsOn, bool kResid>
 int dispatch_widths(const FieldArgs& a, cudaStream_t stream) {
   // keep in sync with satnerf_torch.ops.field_fused.KERNEL_WIDTHS
-  if (a.feat == 512 && a.fl == 256) return launch<T, kHeadsOn, 512, 256>(a, stream);
-  if (a.feat == 512 && a.fl == 512) return launch<T, kHeadsOn, 512, 512>(a, stream);
+  if (a.feat == 512 && a.fl == 256) return launch<T, kHeadsOn, kResid, 512, 256>(a, stream);
+  if (a.feat == 512 && a.fl == 512) return launch<T, kHeadsOn, kResid, 512, 512>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, bool kHeadsOn>
+int dispatch_resid(const FieldArgs& a, cudaStream_t stream) {
+  return a.shared_out != nullptr ? dispatch_widths<T, kHeadsOn, true>(a, stream)
+                                 : dispatch_widths<T, kHeadsOn, false>(a, stream);
 }
 
 }  // namespace
@@ -324,10 +279,12 @@ extern "C" int field_fused_forward(const FieldArgs* a, cudaStream_t stream) {
   if (a->n <= 0) return 0;
   if (a->cx % 4 || a->aux_w % 4 || a->cx > 128 || a->aux_w > 64 || a->layers < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (a->acts_out != nullptr && a->shared_out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (a->bf16) {
-    return a->heads_on ? dispatch_widths<__nv_bfloat16, true>(*a, stream)
-                       : dispatch_widths<__nv_bfloat16, false>(*a, stream);
+    return a->heads_on ? dispatch_resid<__nv_bfloat16, true>(*a, stream)
+                       : dispatch_resid<__nv_bfloat16, false>(*a, stream);
   }
-  return a->heads_on ? dispatch_widths<float, true>(*a, stream)
-                     : dispatch_widths<float, false>(*a, stream);
+  return a->heads_on ? dispatch_resid<float, true>(*a, stream)
+                     : dispatch_resid<float, false>(*a, stream);
 }

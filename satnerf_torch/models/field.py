@@ -22,9 +22,11 @@ satnerf, rs_semantic). Per point:
 ``semantic_prediction.{0,2}``), with torch ``(out, in)`` weights.
 
 ``trunk_impl="xla"`` runs the layer-by-layer PyTorch path; ``"pallas"``
-runs the fused field (``ops/field_fused.py``: the CUDA kernel on the card,
-its plain version on the CPU) exactly where the reference would run its
-fused Pallas kernel.
+runs the fused field (``ops/field_fused.py``: the CUDA kernels on the card,
+their plain versions on the CPU) exactly where the reference would run its
+fused Pallas kernel. Both are differentiable: under grad mode the fused
+field packs the parameters with differentiable ops, so its kernel backward
+(K2 + K4) delivers gradients to the ``nn.Linear`` parameters.
 """
 
 from __future__ import annotations
@@ -55,7 +57,9 @@ class FieldConfig:
     sin_impl: str = "poly"  # "poly" | "poly5" | "poly7f" | "exact"
     # "xla": layer-by-layer torch path; "pallas": the fused field kernel
     trunk_impl: str = "xla"
-    trunk_bwd: str = "recompute"  # kept so the same configs load; no backward yet
+    # fused trunk backward: "recompute" rebuilds the pre-activations from x;
+    # "stored" has the forward kernel write them (ops/trunk.py)
+    trunk_bwd: str = "recompute"
     mapping: bool = False
     mapping_pos_n_freq: int = 10
     mapping_dir_n_freq: int = 4
@@ -134,6 +138,7 @@ def fused_field_spec(cfg: FieldConfig) -> ff.FieldSpec:
         n_classes=cfg.n_classes, has_beta=cfg.has_beta,
         has_semantic=cfg.has_semantic, use_tj_for_s=cfg.use_tj_for_s,
         sep_t_s=cfg.use_separate_tj_for_semantic, sin_mode=cfg.sin_impl,
+        trunk_bwd=cfg.trunk_bwd,
     )
 
 
@@ -260,7 +265,9 @@ class Field(nn.Module):
         hit = self._pack_cache.get(slot)
         if hit is None or hit[0] != key:
             with torch.no_grad():
-                hit = (key, ff.pack_field(self, spec, dtype))
+                packed = ff.pack_field(self, spec, dtype)
+            # detached: an f32 bias packs as the parameter itself
+            hit = (key, {k: v.detach() for k, v in packed.items()})
             self._pack_cache[slot] = hit
         return hit[1]
 
@@ -388,7 +395,11 @@ def _fused_field_forward(field: Field, cfg: FieldConfig, enc_x, sun_d, t_emb,
     the remaining solar-correction points the sigma+sun_v-only variant."""
     kdt = dt if dt is not None else torch.float32
     spec = fused_field_spec(cfg)
-    packed = field.packed(kdt, spec)
+    if torch.is_grad_enabled() and any(p.requires_grad for p in field.parameters()):
+        # differentiable packing, no cache: gradients flow to the parameters
+        packed = ff.pack_field(field, replace(spec, heads_on=True), kdt)
+    else:
+        packed = field.packed(kdt, spec)
     x = ff.pack_x(spec, enc_x, kdt)
 
     if nf is None:

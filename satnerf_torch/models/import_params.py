@@ -4,6 +4,8 @@
   the JAX package's ``init_field_params`` returns it (``{"trunk": [{"w",
   "b"}, ...], "sigma": {...}, "rgb": [...], ...}`` with ``(in, out)``
   weights), -> a ``Field`` state dict.
+- :func:`params_from_jax`: the whole JAX params dict (``init_params``:
+  ``{"field": ..., "t": ..., "t_s": ...}``) -> the port's trainable params.
 - :func:`load_lightning_ckpt`: a reference Lightning checkpoint (the format
   ``satnerf_tpu.models.import_torch.save_lightning_ckpt`` writes: keys
   ``model_<key>.<param>``) -> state dicts and embedding tables.
@@ -53,6 +55,24 @@ def field_state_from_params(params) -> dict:
         for base, layer in zip(bases, layers):
             state.update(_entry(base, layer))
     return state
+
+
+def params_from_jax(params_np: dict, fcfg, device=None) -> dict:
+    """JAX ``init_params`` pytree (numpy-convertible leaves) ->
+    {"field": ``Field``, "t": table, "t_s": table} on ``device`` (None: the
+    card), the tables as leaves that require grad."""
+    from satnerf_torch.device import resolve_device
+    from satnerf_torch.models.field import Field
+
+    dev = resolve_device(device)
+    field = Field(fcfg)
+    field.load_state_dict(field_state_from_params(params_np["field"]))
+    out = {"field": field.to(dev)}
+    for key in ("t", "t_s"):
+        if key in params_np:
+            table = torch.from_numpy(np.array(params_np[key], np.float32))
+            out[key] = table.to(dev).requires_grad_(True)
+    return out
 
 
 def load_lightning_ckpt(ckpt_fp: str) -> dict:

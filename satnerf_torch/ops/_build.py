@@ -21,7 +21,7 @@ import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
-KERNELS = ("field_fused", "composite", "sine_check")
+KERNELS = ("field_fused", "field_bwd", "trunk_bwd", "composite", "sine_check")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -30,8 +30,11 @@ NVCC_FLAGS = (
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "field_fused": {"field_fused_forward": [_vp, _vp]},
-    "composite": {"composite_forward": [_vp] * 9 + [_i, _i, _vp]},
-    "sine_check": {"sine_eval": [_vp, _vp, _i, _i, _vp]},
+    "field_bwd": {"heads_bwd_row": [_vp, _vp], "heads_bwd_reduce": [_vp, _vp]},
+    "trunk_bwd": {"trunk_bwd_row": [_vp, _vp], "trunk_bwd_reduce": [_vp, _vp]},
+    "composite": {"composite_forward": [_vp] * 9 + [_i, _i, _vp],
+                  "composite_backward": [_vp] * 15 + [_i, _i, _vp]},
+    "sine_check": {"sine_eval": [_vp, _vp, _i, _i, _i, _vp]},
 }
 
 _LIBS: dict = {}
@@ -102,6 +105,13 @@ def build_all(names=KERNELS) -> dict:
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return times
+
+
+def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise with CUDA's message when a C entry point returned an error."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err} "
+                           f"({lib.satnerf_cuda_error_string(err).decode()})")
 
 
 def load_library(name: str) -> ctypes.CDLL:

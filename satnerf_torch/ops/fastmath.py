@@ -1,4 +1,5 @@
-"""Polynomial sine engines of the SIREN activations (plain PyTorch).
+"""Polynomial sine engines of the SIREN activations, and their cosines
+(the activations' derivatives), in plain PyTorch.
 
 Port of ``satnerf_tpu/ops/fastmath.py``: the same constants and the same
 reduce -> fold -> Horner body, with Python-static branches. The CUDA
@@ -39,25 +40,41 @@ Q2 = 7.633781238515e-03
 PI2_F32 = float(np.float32(2.0 * math.pi))
 
 
-def _sin_poly(x: torch.Tensor, two_term_reduction: bool, degree7: bool):
-    dtype = x.dtype
-    xf = x.to(torch.float32)
+def _reduce(xf: torch.Tensor, two_term_reduction: bool) -> torch.Tensor:
+    """r = x - 2pi * round(x / 2pi), in [-pi, pi] (f32)."""
     n = torch.round(xf * INV_PI2)
     if two_term_reduction:
         r = xf - n * PI2_HI
-        r = r - n * PI2_LO
-    else:
-        r = xf - n * PI2_F32
-    # fold [-pi, pi] -> [-pi/2, pi/2]: sin(pi - r) = sin(r)
-    r = torch.where(r > HALF_PI, math.pi - r, r)
-    r = torch.where(r < -HALF_PI, -math.pi - r, r)
+        return r - n * PI2_LO
+    return xf - n * PI2_F32
+
+
+def _poly(r: torch.Tensor, degree7: bool) -> torch.Tensor:
+    """The odd minimax polynomial r + r^3 P(r^2) on [-pi/2, pi/2]."""
     r2 = r * r
     if degree7:
         p = S3 * r2 + S2
         p = p * r2 + S1
     else:
         p = Q2 * r2 + Q1
-    return (r + r * r2 * p).to(dtype)
+    return r + r * r2 * p
+
+
+def _sin_poly(x: torch.Tensor, two_term_reduction: bool, degree7: bool):
+    dtype = x.dtype
+    r = _reduce(x.to(torch.float32), two_term_reduction)
+    # fold [-pi, pi] -> [-pi/2, pi/2]: sin(pi - r) = sin(r)
+    r = torch.where(r > HALF_PI, math.pi - r, r)
+    r = torch.where(r < -HALF_PI, -math.pi - r, r)
+    return _poly(r, degree7).to(dtype)
+
+
+def _cos_poly(x: torch.Tensor, two_term_reduction: bool, degree7: bool):
+    """cos(x) = sin(pi/2 - |r|) for r the [-pi, pi] reduction of x
+    (``satnerf_tpu/ops/pallas/trunk.py:_cos_f32``): no fold needed."""
+    dtype = x.dtype
+    r = _reduce(x.to(torch.float32), two_term_reduction)
+    return _poly(HALF_PI - torch.abs(r), degree7).to(dtype)
 
 
 def fast_sin(x):
@@ -75,4 +92,22 @@ def fast_sin7f(x):
     return _sin_poly(x, two_term_reduction=False, degree7=True)
 
 
+def fast_cos(x):
+    """The cosine of the ``"poly"`` engine (same reduction and kernel)."""
+    return _cos_poly(x, two_term_reduction=True, degree7=True)
+
+
+def fast_cos5(x):
+    """The cosine of the ``"poly5"`` engine."""
+    return _cos_poly(x, two_term_reduction=False, degree7=False)
+
+
+def fast_cos7f(x):
+    """The cosine of the ``"poly7f"`` engine."""
+    return _cos_poly(x, two_term_reduction=False, degree7=True)
+
+
+# sin_impl names, in the order of the kernels' SinMode (csrc/sine.cuh)
+SIN_MODES = ("poly", "poly5", "poly7f")
 SINE_ENGINES = {"poly": fast_sin, "poly5": fast_sin5, "poly7f": fast_sin7f}
+COSINE_ENGINES = {"poly": fast_cos, "poly5": fast_cos5, "poly7f": fast_cos7f}

@@ -1,10 +1,16 @@
-"""Fused field forward: SIREN trunk + every head in one pass per row tile.
+"""Fused field: SIREN trunk + every head in one pass per row tile, and its
+backward.
 
-Port of ``satnerf_tpu/ops/pallas/field_fused.py`` (the TPU kernel
-``fused_field`` -> ``_fwd_kernel`` / ``_heads_forward``), forward only.
-``fused_field`` launches the hand-written CUDA kernel ``csrc/field_fused.cu``
-for CUDA tensors and runs :func:`fused_field_reference`, its plain PyTorch
-version, for CPU tensors.
+Port of ``satnerf_tpu/ops/pallas/field_fused.py``: the TPU kernel
+``fused_field`` (``_fwd_kernel`` / ``_heads_forward``, K1) and its custom
+VJP (``_fused_field_bwd``: the heads backward ``_heads_bwd_kernel``, K2,
+chained into the trunk backward of ``ops/trunk.py``, K4). ``fused_field``
+launches the hand-written CUDA kernels (``csrc/field_fused.cu``,
+``csrc/field_bwd.cu``) for CUDA tensors and runs their plain PyTorch
+versions (:func:`fused_field_reference`, :func:`heads_backward_reference`)
+for CPU tensors. Under autograd it goes through :class:`FusedField`, whose
+forward also writes the backward's residuals, as the TPU kernel's
+``emit_shared`` / ``emit_acts`` do.
 
 Per point it evaluates
 
@@ -27,9 +33,12 @@ pre-nonlinearity outputs. The TPU's 128-lane output padding is dropped:
 ``heads_on=False`` is the solar-correction variant: sigma and the sun-vis
 chain only; the other columns stay 0.
 
-Weights are packed once per (dtype, device) into the kernel's own layout
-(``(in, out)`` row-major blocks; concatenated inputs split into separate
-blocks, as the TPU kernel splits its GEMMs) by :func:`pack_field`.
+Weights are packed into the kernel's own layout (``(in, out)`` row-major
+blocks; concatenated inputs split into separate blocks, as the TPU kernel
+splits its GEMMs) by :func:`pack_field`, whose ops are differentiable, so
+that under autograd the packed-layout gradients flow back to the
+``nn.Linear`` parameters (as JAX's ``pack_heads`` does through its
+transpose).
 """
 
 from __future__ import annotations
@@ -39,8 +48,12 @@ from dataclasses import dataclass
 
 import torch
 
-from satnerf_torch.ops._build import load_library
-from satnerf_torch.ops.fastmath import SINE_ENGINES
+from torch.autograd.function import once_differentiable
+
+from satnerf_torch.ops import _bwd, trunk
+from satnerf_torch.ops.trunk import dot_f32
+from satnerf_torch.ops._build import check_launch, load_library
+from satnerf_torch.ops.fastmath import COSINE_ENGINES, SIN_MODES, SINE_ENGINES
 
 COL_SIGMA = 0
 COL_RGB = 1
@@ -52,12 +65,17 @@ OUT_W = 16
 
 # rows of the hidden-bias stack ``b_heads`` (absent heads keep zero rows)
 HIDDEN_BIAS_ROWS = ("rgb0", "sv0", "sv1", "sv2", "sky0", "b0", "s0")
-SIN_MODES = ("poly", "poly5", "poly7f")
 # (feat, feat_last) pairs the kernel is instantiated for (csrc/field_fused.cu):
 # every pipeline config's 512-wide trunk, with fc_use_full_features off and on
 KERNEL_WIDTHS = ((512, 256), (512, 512))
 
-LAUNCHES = 0  # kernel launches made by fused_field (CUDA tensors only)
+LAUNCHES = 0  # K1 launches made by fused_field (CUDA tensors only)
+HEADS_BWD_LAUNCHES = 0  # heads_backward calls that launched K2 (CUDA only)
+PLAIN_CALLS = 0  # fused_field_reference and heads_backward_reference calls
+TRUNK_KEYS = ("w0", "w_mid", "w_skip", "b")
+# widths the heads backward kernels are instantiated for (csrc/field_bwd.cu)
+HEADS_BWD_FL = (256, 512)
+G_AUX_W = 16  # the g_aux launch's padded width
 
 
 def _round4(n: int) -> int:
@@ -82,8 +100,11 @@ class FieldSpec:
     sin_mode: str = "poly"
     w0: float = 30.0
     heads_on: bool = True
+    trunk_bwd: str = "recompute"  # "stored": the forward keeps every pre-activation
 
     def __post_init__(self):
+        if self.trunk_bwd not in ("recompute", "stored"):
+            raise ValueError(f"trunk_bwd {self.trunk_bwd!r}")
         if self.sin_mode not in SIN_MODES:
             raise ValueError(f"sin_mode {self.sin_mode!r} not in {SIN_MODES}")
         if 0 in self.skips:
@@ -129,6 +150,38 @@ class FieldSpec:
                 macs += s_in * fl + fl * self.n_classes
         return macs
 
+    def trunk_bwd_mac_per_point(self) -> int:
+        """Multiply-adds per point of the trunk backward: dX and dW (two
+        products per forward one), plus the forward again for "recompute"."""
+        F, L = self.feat, self.layers
+        fwd = self.c_in * F + (L - 1) * F * F + len(self.skips) * self.c_in * F
+        return 2 * fwd + (fwd if self.trunk_bwd == "recompute" else 0)
+
+    def heads_bwd_mac_per_point(self) -> int:
+        """Multiply-adds per point of the heads backward: the head forward
+        recomputed from the trunk output, then dX and dW of every head
+        product (the trunk's share of the forward count excluded)."""
+        F, L = self.feat, self.layers
+        trunk_fwd = self.c_in * F + (L - 1) * F * F + len(self.skips) * self.c_in * F
+        heads = self.mac_per_point() - trunk_fwd
+        return 3 * heads
+
+    def head_keys(self) -> tuple:
+        """The packed head tensors this variant reads (``_heads_bwd_kernel``'s
+        ``spec.head_keys()``), in a fixed order."""
+        keys = ["w_feats", "b_feats", "w_sv0_f", "w_sv0_aux", "w_sv1", "w_sv2",
+                "w2_shared", "w2_sv"]
+        if self.heads_on:
+            keys += ["w_rgb0", "w2_rgb", "w_sky0_aux", "w2_sky"]
+            if self.has_beta:
+                keys += ["w_b0_f", "w_b0_aux", "w2_beta"]
+            if self.has_semantic:
+                keys += ["w_s0_f", "w2_sem"]
+                if self.use_tj_for_s:
+                    keys += ["w_s0_aux"]
+        keys += ["b_heads", "b_small" if self.heads_on else "b_small_sc"]
+        return tuple(keys)
+
     def sines_per_point(self) -> int:
         n = self.layers * self.feat + 3 * self.fl
         if self.heads_on:
@@ -143,7 +196,7 @@ class FieldSpec:
 
 def _t(linear, dtype) -> torch.Tensor:
     """torch Linear weight (out, in) -> (in, out) in ``dtype``."""
-    return linear.weight.detach().t().to(dtype).contiguous()
+    return linear.weight.t().to(dtype).contiguous()
 
 
 def _place_rows(w_in_out: torch.Tensor, rows: int, at: int) -> torch.Tensor:
@@ -161,7 +214,9 @@ def _place_cols(w_in_out: torch.Tensor, at: int) -> torch.Tensor:
 def pack_field(field, spec: FieldSpec, dtype: torch.dtype) -> dict:
     """Pack a ``models.field.Field`` module into the kernel's layout.
 
-    Weights go to ``dtype`` (the compute dtype), biases stay f32. Every
+    Differentiable: under grad mode the packed tensors carry autograd history
+    back to the module's parameters. Weights go to ``dtype`` (the compute
+    dtype), biases stay f32. Every
     head's blocks are packed whatever ``spec.heads_on`` says; the
     ``heads_on=False`` variant reads ``b_small_sc``, whose rgb/sky/beta/
     semantic columns are 0.
@@ -185,16 +240,16 @@ def pack_field(field, spec: FieldSpec, dtype: torch.dtype) -> dict:
         torch.stack(skips).contiguous() if skips
         else p["w0"].new_zeros((1, cx, F))  # placeholder, never read
     )
-    p["b"] = torch.stack([l.bias.detach().to(f32) for l in fc]).contiguous()
+    p["b"] = torch.stack([l.bias.to(f32) for l in fc]).contiguous()
 
     p["w_feats"] = _t(field.feats_from_xyz, dtype)
-    p["b_feats"] = field.feats_from_xyz.bias.detach().to(f32).contiguous()
+    p["b_feats"] = field.feats_from_xyz.bias.to(f32).contiguous()
 
     hb = torch.zeros((len(HIDDEN_BIAS_ROWS), fl), dtype=f32,
                      device=p["w0"].device)
 
     def hidden_bias(name, linear):
-        hb[HIDDEN_BIAS_ROWS.index(name)] = linear.bias.detach().to(f32)
+        hb[HIDDEN_BIAS_ROWS.index(name)] = linear.bias.to(f32)
 
     sv = field.sun_v_net
     w_sv0 = _t(sv[0], dtype)  # (F + 3, fl)
@@ -238,7 +293,7 @@ def pack_field(field, spec: FieldSpec, dtype: torch.dtype) -> dict:
     def bias_cols(pairs):
         bs = torch.zeros((OUT_W,), dtype=f32, device=hb.device)
         for col, linear in pairs:
-            b = linear.bias.detach().to(f32)
+            b = linear.bias.to(f32)
             bs[col : col + b.shape[0]] = b
         return bs
 
@@ -280,10 +335,62 @@ def pack_aux(spec: FieldSpec, sun_d, t_emb, t_s_emb, dtype) -> torch.Tensor:
 # -----------------------------------------------------------------------
 
 
-def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """f32 product of compute-dtype operands (``preferred_element_type=f32``):
-    bf16 operands are upcast before the product, so it sums in f32."""
-    return a.to(torch.float32) @ w.to(torch.float32)
+def _reference_forward(spec: FieldSpec, x, aux, packed, resid: bool):
+    """(out, shared, acts) of the plain forward; shared and acts only when
+    ``resid`` (acts only for ``trunk_bwd="stored"``), as the kernel writes
+    them."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    sin = SINE_ENGINES[spec.sin_mode]
+    dt = x.dtype
+    p = packed
+    b = p["b"]
+    a = dot_f32(x, p["w0"]) + b[0:1]
+    acts = [a.to(dt)]
+    h = sin(spec.w0 * a).to(dt)
+    for i in range(1, spec.layers):
+        a = dot_f32(h, p["w_mid"][i - 1])
+        if i in spec.skips:
+            a = a + dot_f32(x, p["w_skip"][spec.skips.index(i)])
+        a = a + b[i : i + 1]
+        acts.append(a.to(dt))
+        h = sin(a).to(dt)
+    shared = h
+
+    def bias(name):
+        i = HIDDEN_BIAS_ROWS.index(name)
+        return p["b_heads"][i : i + 1]
+
+    feats = (dot_f32(shared, p["w_feats"]) + p["b_feats"][None]).to(dt)
+    sv = sin(dot_f32(feats, p["w_sv0_f"]) + dot_f32(aux, p["w_sv0_aux"])
+             + bias("sv0")).to(dt)
+    sv = sin(dot_f32(sv, p["w_sv1"]) + bias("sv1")).to(dt)
+    sv = sin(dot_f32(sv, p["w_sv2"]) + bias("sv2")).to(dt)
+    out = dot_f32(shared, p["w2_shared"]) + dot_f32(sv, p["w2_sv"])
+
+    if spec.heads_on:
+        hr = sin(dot_f32(feats, p["w_rgb0"]) + bias("rgb0")).to(dt)
+        out = out + dot_f32(hr, p["w2_rgb"])
+        hsky = torch.clamp(dot_f32(aux, p["w_sky0_aux"]) + bias("sky0"),
+                           min=0.0).to(dt)
+        out = out + dot_f32(hsky, p["w2_sky"])
+        if spec.has_beta:
+            hb = sin(dot_f32(feats, p["w_b0_f"]) + dot_f32(aux, p["w_b0_aux"])
+                     + bias("b0")).to(dt)
+            out = out + dot_f32(hb, p["w2_beta"])
+        if spec.has_semantic:
+            a_s = dot_f32(feats, p["w_s0_f"]) + bias("s0")
+            if spec.use_tj_for_s:
+                a_s = a_s + dot_f32(aux, p["w_s0_aux"])
+            hs = sin(a_s).to(dt)
+            out = out + dot_f32(hs, p["w2_sem"])
+        out = out + p["b_small"][None]
+    else:
+        out = out + p["b_small_sc"][None]
+    if not resid:
+        return out, None, None
+    stored = torch.stack(acts) if spec.trunk_bwd == "stored" else None
+    return out, shared, stored
 
 
 def fused_field_reference(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor,
@@ -291,48 +398,109 @@ def fused_field_reference(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor,
     """Plain PyTorch version of the kernel: (N, cx) x, (N, aux_w) aux ->
     (N, 16) f32 raw outputs. Activations are stored in x's dtype after the
     f32 sine, as the kernel stores them."""
-    sin = SINE_ENGINES[spec.sin_mode]
-    dt = x.dtype
+    return _reference_forward(spec, x, aux, packed, resid=False)[0]
+
+
+def heads_backward_reference(spec: FieldSpec, shared, aux, g_out, packed):
+    """Plain PyTorch version of the heads backward, as ``_heads_bwd_kernel``:
+    (g_shared (N, F), g_aux (N, aux_w), {head key: gradient})."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    sin, cos = SINE_ENGINES[spec.sin_mode], COSINE_ENGINES[spec.sin_mode]
+    dt, f32 = shared.dtype, torch.float32
     p = packed
-    b = p["b"]
-    a = _dot(x, p["w0"]) + b[0:1]
-    h = sin(spec.w0 * a).to(dt)
-    for i in range(1, spec.layers):
-        a = _dot(h, p["w_mid"][i - 1])
-        if i in spec.skips:
-            a = a + _dot(x, p["w_skip"][spec.skips.index(i)])
-        h = sin(a + b[i : i + 1]).to(dt)
-    shared = h
 
     def bias(name):
         i = HIDDEN_BIAS_ROWS.index(name)
         return p["b_heads"][i : i + 1]
 
-    feats = (_dot(shared, p["w_feats"]) + p["b_feats"][None]).to(dt)
-    sv = sin(_dot(feats, p["w_sv0_f"]) + _dot(aux, p["w_sv0_aux"])
-             + bias("sv0")).to(dt)
-    sv = sin(_dot(sv, p["w_sv1"]) + bias("sv1")).to(dt)
-    sv = sin(_dot(sv, p["w_sv2"]) + bias("sv2")).to(dt)
-    out = _dot(shared, p["w2_shared"]) + _dot(sv, p["w2_sv"])
+    def dot_t(a, w):  # a @ w^T
+        return dot_f32(a, w.t())
 
+    def dot_at(a, b):  # a^T @ b
+        return dot_f32(a.t(), b)
+
+    g_dt = g_out.to(dt)
+    # recompute the head hiddens
+    feats = (dot_f32(shared, p["w_feats"]) + p["b_feats"][None]).to(dt)
+    a_sv1 = dot_f32(feats, p["w_sv0_f"]) + dot_f32(aux, p["w_sv0_aux"]) + bias("sv0")
+    sv1 = sin(a_sv1).to(dt)
+    a_sv2 = dot_f32(sv1, p["w_sv1"]) + bias("sv1")
+    sv2 = sin(a_sv2).to(dt)
+    a_sv3 = dot_f32(sv2, p["w_sv2"]) + bias("sv2")
+    sv3 = sin(a_sv3).to(dt)
     if spec.heads_on:
-        hr = sin(_dot(feats, p["w_rgb0"]) + bias("rgb0")).to(dt)
-        out = out + _dot(hr, p["w2_rgb"])
-        hsky = torch.clamp(_dot(aux, p["w_sky0_aux"]) + bias("sky0"),
-                           min=0.0).to(dt)
-        out = out + _dot(hsky, p["w2_sky"])
+        a_hr = dot_f32(feats, p["w_rgb0"]) + bias("rgb0")
+        hr = sin(a_hr).to(dt)
+        a_sky = dot_f32(aux, p["w_sky0_aux"]) + bias("sky0")
+        hsky = torch.clamp(a_sky, min=0.0).to(dt)
         if spec.has_beta:
-            hb = sin(_dot(feats, p["w_b0_f"]) + _dot(aux, p["w_b0_aux"])
-                     + bias("b0")).to(dt)
-            out = out + _dot(hb, p["w2_beta"])
+            a_hb = dot_f32(feats, p["w_b0_f"]) + dot_f32(aux, p["w_b0_aux"]) + bias("b0")
+            hbet = sin(a_hb).to(dt)
         if spec.has_semantic:
-            a_s = _dot(feats, p["w_s0_f"]) + bias("s0")
+            a_hs = dot_f32(feats, p["w_s0_f"]) + bias("s0")
             if spec.use_tj_for_s:
-                a_s = a_s + _dot(aux, p["w_s0_aux"])
-            hs = sin(a_s).to(dt)
-            out = out + _dot(hs, p["w2_sem"])
-        return out + p["b_small"][None]
-    return out + p["b_small_sc"][None]
+                a_hs = a_hs + dot_f32(aux, p["w_s0_aux"])
+            hs = sin(a_hs).to(dt)
+
+    # reverse sweep
+    gw, gb_rows = {}, []
+    g_shared = dot_t(g_dt, p["w2_shared"])
+    gw["w2_shared"] = dot_at(shared, g_dt)
+    g_feats = None
+    if spec.heads_on:
+        gw["w2_rgb"] = dot_at(hr, g_dt)
+        ga_hr = (dot_t(g_dt, p["w2_rgb"]) * cos(a_hr)).to(dt)
+        gw["w_rgb0"] = dot_at(feats, ga_hr)
+        g_feats = dot_t(ga_hr, p["w_rgb0"])
+        gb_rows.append(("rgb0", ga_hr))
+    gw["w2_sv"] = dot_at(sv3, g_dt)
+    ga3 = (dot_t(g_dt, p["w2_sv"]) * cos(a_sv3)).to(dt)
+    gw["w_sv2"] = dot_at(sv2, ga3)
+    ga2 = (dot_t(ga3, p["w_sv2"]) * cos(a_sv2)).to(dt)
+    gw["w_sv1"] = dot_at(sv1, ga2)
+    ga1 = (dot_t(ga2, p["w_sv1"]) * cos(a_sv1)).to(dt)
+    gw["w_sv0_f"] = dot_at(feats, ga1)
+    gw["w_sv0_aux"] = dot_at(aux, ga1)
+    g_sv_feats = dot_t(ga1, p["w_sv0_f"])
+    g_feats = g_sv_feats if g_feats is None else g_feats + g_sv_feats
+    g_aux = dot_t(ga1, p["w_sv0_aux"])
+    gb_rows += [("sv2", ga3), ("sv1", ga2), ("sv0", ga1)]
+    if spec.heads_on:
+        gw["w2_sky"] = dot_at(hsky, g_dt)
+        ga_sky = torch.where(a_sky > 0.0, dot_t(g_dt, p["w2_sky"]), 0.0).to(dt)
+        gw["w_sky0_aux"] = dot_at(aux, ga_sky)
+        g_aux = g_aux + dot_t(ga_sky, p["w_sky0_aux"])
+        gb_rows.append(("sky0", ga_sky))
+        if spec.has_beta:
+            gw["w2_beta"] = dot_at(hbet, g_dt)
+            ga_hb = (dot_t(g_dt, p["w2_beta"]) * cos(a_hb)).to(dt)
+            gw["w_b0_f"] = dot_at(feats, ga_hb)
+            gw["w_b0_aux"] = dot_at(aux, ga_hb)
+            g_feats = g_feats + dot_t(ga_hb, p["w_b0_f"])
+            g_aux = g_aux + dot_t(ga_hb, p["w_b0_aux"])
+            gb_rows.append(("b0", ga_hb))
+        if spec.has_semantic:
+            gw["w2_sem"] = dot_at(hs, g_dt)
+            ga_hs = (dot_t(g_dt, p["w2_sem"]) * cos(a_hs)).to(dt)
+            gw["w_s0_f"] = dot_at(feats, ga_hs)
+            g_feats = g_feats + dot_t(ga_hs, p["w_s0_f"])
+            if spec.use_tj_for_s:
+                gw["w_s0_aux"] = dot_at(aux, ga_hs)
+                g_aux = g_aux + dot_t(ga_hs, p["w_s0_aux"])
+            gb_rows.append(("s0", ga_hs))
+    # feats = shared @ w_feats + b (linear)
+    g_feats_dt = g_feats.to(dt)
+    gw["w_feats"] = dot_at(shared, g_feats_dt)
+    g_shared = g_shared + dot_t(g_feats_dt, p["w_feats"])
+    gw["b_feats"] = g_feats.sum(0)
+    gb = torch.zeros(p["b_heads"].shape, dtype=f32, device=shared.device)
+    for name, ga in gb_rows:
+        gb[HIDDEN_BIAS_ROWS.index(name)] = ga.to(f32).sum(0)
+    gw["b_heads"] = gb
+    gw["b_small" if spec.heads_on else "b_small_sc"] = g_out.to(f32).sum(0)
+    g_heads = {k: gw[k].to(p[k].dtype) for k in spec.head_keys()}
+    return g_shared.to(dt), g_aux.to(dt), g_heads
 
 
 # -----------------------------------------------------------------------
@@ -344,6 +512,7 @@ _PTR_FIELDS = (
     "w_sv0_f", "w_sv0_aux", "w_sv1", "w_sv2", "w_rgb0", "w_sky0_aux",
     "w_b0_f", "w_b0_aux", "w_s0_f", "w_s0_aux", "w2_shared", "w2_sv",
     "w2_rgb", "w2_sky", "w2_beta", "w2_sem", "b_heads", "b_small",
+    "shared_out", "acts_out",
 )
 _INT_FIELDS = (
     "n", "layers", "feat", "fl", "cx", "aux_w", "skip_mask", "heads_on",
@@ -361,7 +530,7 @@ class _FieldArgs(ctypes.Structure):
     )
 
 
-def _launch(spec: FieldSpec, x, aux, packed, out) -> None:
+def _launch(spec: FieldSpec, x, aux, packed, out, shared=None, acts=None) -> None:
     lib = load_library("field_fused")
     dt = x.dtype
     tensors = {"x": x, "aux": aux, "out": out}
@@ -375,6 +544,7 @@ def _launch(spec: FieldSpec, x, aux, packed, out) -> None:
             if t.dtype != want:
                 raise ValueError(f"packed[{key!r}] is {t.dtype}, expected {want}")
         tensors[name] = t
+    tensors["shared_out"], tensors["acts_out"] = shared, acts
     args = _FieldArgs()
     for name in _PTR_FIELDS:
         t = tensors[name]
@@ -394,24 +564,11 @@ def _launch(spec: FieldSpec, x, aux, packed, out) -> None:
     args.bf16 = int(dt == torch.bfloat16)
     args.w0_scale = spec.w0
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.field_fused_forward(ctypes.byref(args), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"field_fused kernel launch failed: cudaError {err} "
-            f"({lib.satnerf_cuda_error_string(err).decode()})"
-        )
+    check_launch(lib, lib.field_fused_forward(ctypes.byref(args), ctypes.c_void_p(stream)),
+                 "field_fused")
 
 
-def fused_field(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor,
-                packed: dict) -> torch.Tensor:
-    """(N, cx) points + (N, aux_w) aux -> (N, 16) raw packed head outputs.
-
-    CPU tensors run :func:`fused_field_reference`; CUDA tensors launch the
-    kernel (counted in ``LAUNCHES``) or raise.
-    """
-    global LAUNCHES
-    if x.device.type == "cpu":
-        return fused_field_reference(spec, x, aux, packed)
+def _check_cuda(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"fused_field: unsupported device {x.device}")
     if (spec.feat, spec.fl) not in KERNEL_WIDTHS:
@@ -429,9 +586,235 @@ def fused_field(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor,
         )
     if not (x.is_contiguous() and aux.is_contiguous()) or aux.device != x.device:
         raise ValueError("fused_field: x and aux must be contiguous on one device")
-    out = torch.empty((n, OUT_W), dtype=torch.float32, device=x.device)
-    if n == 0:
-        return out
-    _launch(spec, x, aux, packed, out)
-    LAUNCHES += 1
+
+
+def _forward(spec: FieldSpec, x, aux, packed, resid: bool):
+    """(out, shared, acts): K1 on CUDA tensors (counted in ``LAUNCHES``), the
+    plain version on CPU ones. ``resid`` asks for the backward's residuals."""
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return _reference_forward(spec, x, aux, packed, resid)
+    _check_cuda(spec, x, aux)
+    n, dev = x.shape[0], x.device
+    out = torch.empty((n, OUT_W), dtype=torch.float32, device=dev)
+    shared = acts = None
+    if resid:
+        shared = torch.empty((n, spec.feat), dtype=x.dtype, device=dev)
+        if spec.trunk_bwd == "stored":
+            acts = torch.empty((spec.layers, n, spec.feat), dtype=x.dtype, device=dev)
+    if n:
+        _launch(spec, x, aux, packed, out, shared, acts)
+        LAUNCHES += 1
+    return out, shared, acts
+
+
+# -----------------------------------------------------------------------
+# heads backward (K2) on the card
+# -----------------------------------------------------------------------
+
+
+def _heads_backward_cuda(spec: FieldSpec, shared, aux, g_out, packed, need_aux):
+    """K2: row launches (recompute, reverse sweep, g_feats, g_aux, g_shared)
+    and one reduction launch of ``csrc/field_bwd.cu``."""
+    dt, f32, dev = shared.dtype, torch.float32, shared.device
+    n, F, fl = shared.shape[0], spec.feat, spec.fl
+    bf16 = dt == torch.bfloat16
+    mode = SIN_MODES.index(spec.sin_mode)
+    p = packed
+
+    def row(**kw):
+        _bwd.row_op("field_bwd", "heads_bwd_row", dt, n, **kw)
+
+    def ws(width, dtype=dt):
+        return torch.empty((n, width), dtype=dtype, device=dev)
+
+    def tr(key, width=None):  # packed (in, out) -> (out, in) [padded to width]
+        w = p[key].t()
+        if width is not None:
+            w = torch.nn.functional.pad(w, (0, width - w.shape[1]))
+        return w.contiguous()
+
+    def hb(name):
+        return p["b_heads"][HIDDEN_BIAS_ROWS.index(name)]
+
+    g32 = g_out.to(f32).contiguous()
+    g = g32.to(dt)
+    feats = ws(F)
+    row(width=F, prods=[(shared, p["w_feats"])], bias=p["b_feats"],
+        mode=_bwd.FWD_LINEAR, out_dt=feats)
+    pre, hid = {}, {}
+
+    def fwd(name, prods, relu=False):
+        pre[name], hid[name] = ws(fl, f32), ws(fl)
+        row(width=fl, prods=prods, bias=hb(name), sin_mode=mode,
+            mode=_bwd.FWD_RELU if relu else _bwd.FWD_SINE,
+            out_f32=pre[name], out2_dt=hid[name])
+
+    fwd("sv0", [(feats, p["w_sv0_f"]), (aux, p["w_sv0_aux"])])
+    fwd("sv1", [(hid["sv0"], p["w_sv1"])])
+    fwd("sv2", [(hid["sv1"], p["w_sv2"])])
+    if spec.heads_on:
+        fwd("rgb0", [(feats, p["w_rgb0"])])
+        fwd("sky0", [(aux, p["w_sky0_aux"])], relu=True)
+        if spec.has_beta:
+            fwd("b0", [(feats, p["w_b0_f"]), (aux, p["w_b0_aux"])])
+        if spec.has_semantic:
+            s_prods = [(feats, p["w_s0_f"])]
+            if spec.use_tj_for_s:
+                s_prods.append((aux, p["w_s0_aux"]))
+            fwd("s0", s_prods)
+
+    ga = {}
+
+    def bwd(name, a, w_t, relu=False):
+        ga[name] = ws(fl)
+        row(width=fl, prods=[(a, w_t)], pre=pre[name], sin_mode=mode,
+            mode=_bwd.BWD_RELU if relu else _bwd.BWD_SINE, out_dt=ga[name])
+
+    if spec.heads_on:
+        bwd("rgb0", g, tr("w2_rgb"))
+    bwd("sv2", g, tr("w2_sv"))
+    bwd("sv1", ga["sv2"], tr("w_sv2"))
+    bwd("sv0", ga["sv1"], tr("w_sv1"))
+    f_prods = [(ga["sv0"], tr("w_sv0_f"))]
+    a_prods = [(ga["sv0"], tr("w_sv0_aux", G_AUX_W))]
+    if spec.heads_on:
+        f_prods.insert(0, (ga["rgb0"], tr("w_rgb0")))
+        bwd("sky0", g, tr("w2_sky"), relu=True)
+        a_prods.append((ga["sky0"], tr("w_sky0_aux", G_AUX_W)))
+        if spec.has_beta:
+            bwd("b0", g, tr("w2_beta"))
+            f_prods.append((ga["b0"], tr("w_b0_f")))
+            a_prods.append((ga["b0"], tr("w_b0_aux", G_AUX_W)))
+        if spec.has_semantic:
+            bwd("s0", g, tr("w2_sem"))
+            f_prods.append((ga["s0"], tr("w_s0_f")))
+            if spec.use_tj_for_s:
+                a_prods.append((ga["s0"], tr("w_s0_aux", G_AUX_W)))
+    g_feats32 = ws(F, f32)
+    g_feats = ws(F) if bf16 else g_feats32
+    row(width=F, prods=f_prods, mode=_bwd.PLAIN, out_f32=g_feats32,
+        out_dt=g_feats if bf16 else None)
+    g_aux = None
+    if need_aux:
+        g_aux_pad = ws(G_AUX_W)
+        row(width=G_AUX_W, prods=a_prods, mode=_bwd.PLAIN, out_dt=g_aux_pad)
+        g_aux = g_aux_pad[:, : spec.aux_w]
+    g_shared = ws(F)
+    row(width=F, prods=[(g, tr("w2_shared")), (g_feats, tr("w_feats"))],
+        mode=_bwd.PLAIN, out_dt=g_shared)
+
+    # every head dW = A^T B and db = sum B in one launch
+    gw = {k: torch.empty(p[k].shape, dtype=f32, device=dev)
+          for k in spec.head_keys()}
+    pairs = {
+        "w2_shared": (shared, g), "w_feats": (shared, g_feats),
+        "w_sv0_f": (feats, ga["sv0"]), "w_sv0_aux": (aux, ga["sv0"]),
+        "w_sv1": (hid["sv0"], ga["sv1"]), "w_sv2": (hid["sv1"], ga["sv2"]),
+        "w2_sv": (hid["sv2"], g),
+    }
+    if spec.heads_on:
+        pairs.update({
+            "w_rgb0": (feats, ga["rgb0"]), "w2_rgb": (hid["rgb0"], g),
+            "w_sky0_aux": (aux, ga["sky0"]), "w2_sky": (hid["sky0"], g),
+        })
+        if spec.has_beta:
+            pairs.update({"w_b0_f": (feats, ga["b0"]), "w_b0_aux": (aux, ga["b0"]),
+                          "w2_beta": (hid["b0"], g)})
+        if spec.has_semantic:
+            pairs.update({"w_s0_f": (feats, ga["s0"]), "w2_sem": (hid["s0"], g)})
+            if spec.use_tj_for_s:
+                pairs["w_s0_aux"] = (aux, ga["s0"])
+    gemms = [(a, b, gw[k]) for k, (a, b) in pairs.items()]
+    gw["b_heads"].zero_()  # rows of absent heads stay 0
+    sums = [(g_feats32, gw["b_feats"])]
+    sums += [(t, gw["b_heads"][HIDDEN_BIAS_ROWS.index(name)]) for name, t in ga.items()]
+    small = "b_small" if spec.heads_on else "b_small_sc"
+    sums.append((g32, gw[small]))
+    _bwd.reduce_op("field_bwd", "heads_bwd_reduce", dt, n, gemms=gemms, sums=sums)
+    g_heads = {k: gw[k].to(p[k].dtype) for k in spec.head_keys()}
+    return g_shared, g_aux, g_heads
+
+
+def heads_backward(spec: FieldSpec, shared, aux, g_out, packed, need_aux: bool = True):
+    """Heads backward: the trunk output ``shared`` (N, F), ``aux``
+    (N, aux_w) and the gradient ``g_out`` of the raw (N, 16) columns ->
+    (g_shared (N, F), g_aux (N, aux_w) or None, {head key: gradient}).
+
+    CPU tensors run :func:`heads_backward_reference` (which always returns
+    g_aux); CUDA tensors launch K2 (counted in ``HEADS_BWD_LAUNCHES``) or
+    raise.
+    """
+    global HEADS_BWD_LAUNCHES
+    if shared.device.type == "cpu":
+        return heads_backward_reference(spec, shared, aux, g_out, packed)
+    if shared.device.type != "cuda":
+        raise ValueError(f"heads_backward: unsupported device {shared.device}")
+    n = shared.shape[0]
+    if spec.feat not in trunk.FEAT_WIDTHS or spec.fl not in HEADS_BWD_FL:
+        raise ValueError(f"heads_backward kernels are built for feat in "
+                         f"{trunk.FEAT_WIDTHS}, feat_last in {HEADS_BWD_FL}")
+    if spec.aux_w > G_AUX_W:
+        raise ValueError(f"heads_backward: aux width {spec.aux_w} > {G_AUX_W}")
+    if (shared.shape != (n, spec.feat) or aux.shape != (n, spec.aux_w)
+            or g_out.shape != (n, OUT_W) or not shared.is_contiguous()
+            or not aux.is_contiguous() or aux.dtype != shared.dtype):
+        raise ValueError(f"heads_backward: shared {tuple(shared.shape)}, aux "
+                         f"{tuple(aux.shape)} {aux.dtype}, g {tuple(g_out.shape)}")
+    out = _heads_backward_cuda(spec, shared, aux, g_out, packed, need_aux)
+    HEADS_BWD_LAUNCHES += 1
     return out
+
+
+# -----------------------------------------------------------------------
+# the differentiable entry point
+# -----------------------------------------------------------------------
+
+
+class FusedField(torch.autograd.Function):
+    """K1 forward with residuals; backward = K2 chained into K4, as
+    ``_fused_field_bwd`` chains ``_heads_bwd_kernel`` into the trunk
+    backward. CPU tensors take the plain versions of all three. Only first
+    derivatives exist: a double backward raises."""
+
+    @staticmethod
+    def forward(ctx, spec, keys, x, aux, *weights):
+        packed = dict(zip(keys, weights))
+        out, shared, acts = _forward(spec, x, aux, packed, resid=True)
+        ctx.spec, ctx.keys = spec, keys
+        ctx.save_for_backward(x, aux, shared, acts, *weights)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_out):
+        x, aux, shared, acts, *weights = ctx.saved_tensors
+        spec, keys = ctx.spec, ctx.keys
+        packed = dict(zip(keys, weights))
+        need_x, need_aux = ctx.needs_input_grad[2], ctx.needs_input_grad[3]
+        g_shared, g_aux, grads = heads_backward(spec, shared, aux, g_out.contiguous(),
+                                                packed, need_aux)
+        gx, *g_trunk = trunk.trunk_backward(spec, x, packed, acts, g_shared,
+                                            need_gx=need_x)
+        grads.update(zip(TRUNK_KEYS, g_trunk))
+        need_w = ctx.needs_input_grad[4:]
+        return (None, None, gx if need_x else None, g_aux if need_aux else None,
+                *(grads[k] if need else None for k, need in zip(keys, need_w)))
+
+
+def fused_field(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor,
+                packed: dict) -> torch.Tensor:
+    """(N, cx) points + (N, aux_w) aux -> (N, 16) raw packed head outputs.
+
+    Differentiable in x, aux and the packed tensors (through
+    :class:`FusedField` when grad mode is on and an input requires grad;
+    otherwise no residual is written). CPU tensors run the plain versions;
+    CUDA tensors launch the kernels (K1 counted in ``LAUNCHES``) or raise.
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_field: unsupported device {x.device}")
+    keys = TRUNK_KEYS + spec.head_keys()
+    weights = [packed[k] for k in keys]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, aux, *weights)):
+        return FusedField.apply(spec, keys, x, aux, *weights)
+    return _forward(spec, x, aux, packed, resid=False)[0]

@@ -1,5 +1,5 @@
 """Volume renderer: sampling + field + compositing (port of
-``satnerf_tpu/render/renderer.py``, forward only).
+``satnerf_tpu/render/renderer.py``), differentiable for training.
 
 The solar-correction pass does not issue a second field call: its sample
 points (the z ladder marched along the sun direction) are concatenated onto
@@ -9,7 +9,9 @@ Per-ray outputs: irradiance = sun_v + (1 - sun_v) * sky,
 rgb = clamp(sum w * albedo * irradiance); semantic logits composited with
 the weights, then argmax. For variants with a sun head the main half's
 weights, transparency, depth and rgb come from the fused compositing
-kernel (``ops/composite.py``).
+kernel (``ops/composite.py``), whose backward is a kernel too; the
+solar-correction half and the semantic composite stay plain PyTorch, as
+they are XLA code (not kernels) in the reference.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ class RenderConfig:
     use_fine_network: bool = False
     sc_stride: int = 1
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
-    # training-memory knobs; a forward-only render ignores them
+    # training-memory knobs (the field's rematerialisation): a later slice;
+    # a render under grad mode with either set raises
     remat: bool = False
     remat_chunks: int = 0
 
@@ -64,6 +67,7 @@ def render_rays(
     extras: torch.Tensor,
     noise: torch.Tensor | None = None,
     given_z_vals: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
 ) -> dict:
     """Render a batch of rays.
 
@@ -74,6 +78,8 @@ def render_rays(
         extras: (B, 4) packed sun_dir + ts.
         noise: (B, S) uniform draws for stratified jitter; None gives the
             deterministic ladder used for eval and serving.
+        generator: draws ``noise`` (on the rays' device) when it is not
+            given: the training path's stratified sampling.
     Returns:
         dict of per-ray outputs plus the per-sample tensors the losses read.
     """
@@ -81,8 +87,17 @@ def render_rays(
         raise NotImplementedError(
             "n_importance > 0 (the hierarchical pass) is ported in a later slice"
         )
+    if torch.is_grad_enabled() and (rcfg.remat or rcfg.remat_chunks > 1):
+        raise NotImplementedError(
+            "remat / remat_chunks > 1 under autograd (the field's "
+            "rematerialisation, renderer.py:221-253 of the reference) is "
+            "ported in a later slice"
+        )
     fcfg = rcfg.field
     S = rcfg.n_samples
+    if noise is None and generator is not None and given_z_vals is None:
+        noise = torch.rand((rays.shape[0], S), generator=generator,
+                           dtype=rays.dtype, device=rays.device)
     xyz, z_vals = sample_rays(
         rays, S, noise=noise, perturb=rcfg.perturb if noise is not None else 0.0,
         given_z_vals=given_z_vals,

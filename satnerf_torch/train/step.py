@@ -1,0 +1,208 @@
+"""The training step: render + every loss term + one Adam update (port of
+``satnerf_tpu/train/step.py``).
+
+As in the reference:
+
+* the epoch gates (beta at ``first_beta_epoch``, with an optional linear
+  ramp; car-reg at ``car_reg_loss_start``) are multiplier masks computed
+  from the step counter;
+* depth supervision is a static flag (``StepConfig.depth``), and the depth
+  rays are rendered without the solar-correction pass;
+* ``grad_accum = K`` splits the batch into K micro-steps whose gradients are
+  summed, then scaled by 1/K before one update; leaves with fewer than K
+  rows go whole into every micro-step, others are trimmed to a multiple of K.
+
+Randomness (the stratified jitter) comes from an explicit
+``torch.Generator``; ``None`` renders the deterministic ladder. The update
+runs in place on the parameters in ``state.params``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import torch
+
+from satnerf_torch.render.renderer import RenderConfig, render_rays
+from satnerf_torch.train import losses
+from satnerf_torch.train.state import TrainState, trainable
+
+
+@dataclass(frozen=True)
+class StepConfig:
+    """Static step configuration (the reference's fields)."""
+
+    render: RenderConfig
+    steps_per_epoch: int
+    # rgb loss
+    sc_lambda: float = 0.05
+    first_beta_epoch: int = 2
+    # 0: the step gate at first_beta_epoch; > 0: mix the uncertainty losses
+    # in linearly over this many epochs from first_beta_epoch
+    beta_ramp_epochs: float = 0.0
+    # depth
+    depth: bool = False
+    ds_lambda: float = 1000.0
+    ds_noweights: bool = False
+    # semantic
+    semantic: bool = False
+    lambda_s: float = 0.04
+    car_index: int = -1
+    ignore_car_index: bool = True
+    use_beta_for_s: bool = False
+    detach_beta_for_s: bool = False
+    use_car_reg_loss: bool = False
+    car_reg_loss_start: int = 3
+    lambda_c: float = 0.1
+    grad_accum: int = 1
+
+    @property
+    def variant(self) -> str:
+        return self.render.field.variant
+
+
+def _f32(value, device) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def compute_losses(scfg: StepConfig, params: dict, batch: dict, step: int,
+                   generator: torch.Generator | None = None):
+    """Render + every loss term for one batch -> (loss, loss_dict, results)."""
+    dev = batch["rays"].device
+    results = render_rays(params, scfg.render, batch["rays"], batch["extras"],
+                          generator=generator)
+    epoch = int(step) // scfg.steps_per_epoch
+    loss_dict: dict = {}
+    sc_on = scfg.sc_lambda > 0 and scfg.render.solar_correction
+
+    beta_active = _f32(0.0, dev)
+    if scfg.variant not in ("nerf", "snerf"):
+        if scfg.beta_ramp_epochs > 0:
+            ramp_steps = float(scfg.beta_ramp_epochs * scfg.steps_per_epoch)
+            start = float(scfg.first_beta_epoch) * float(scfg.steps_per_epoch)
+            beta_active = torch.clamp((_f32(float(step), dev) - start) / ramp_steps,
+                                      0.0, 1.0)
+        else:
+            beta_active = _f32(float(epoch >= scfg.first_beta_epoch), dev)
+        loss_dict["beta_loss_activated"] = beta_active
+
+    gt = batch["rgbs"]
+    if scfg.variant == "nerf":
+        loss, rgb_dict = losses.nerf_loss(results, gt)
+    elif scfg.variant == "snerf":
+        loss, rgb_dict = losses.snerf_loss(results, gt, scfg.sc_lambda, sc_on)
+    else:
+        l_beta, d_beta = losses.satnerf_loss(results, gt, scfg.sc_lambda, sc_on)
+        l_plain, d_plain = losses.snerf_loss(results, gt, scfg.sc_lambda, sc_on)
+        loss = beta_active * l_beta + (1.0 - beta_active) * l_plain
+        rgb_dict = {
+            "coarse_color": beta_active * d_beta["coarse_color"]
+            + (1.0 - beta_active) * d_plain["coarse_color"],
+            "coarse_logbeta": beta_active * d_beta["coarse_logbeta"],
+        }
+        if sc_on:
+            rgb_dict["coarse_sc_term2"] = d_beta["coarse_sc_term2"]
+            rgb_dict["coarse_sc_term3"] = d_beta["coarse_sc_term3"]
+    loss_dict.update(rgb_dict)
+
+    if scfg.depth:
+        d_results = render_rays(params, replace(scfg.render, solar_correction=False),
+                                batch["depth_rays"], batch["depth_extras"],
+                                generator=generator)
+        kp_w = 1.0 if scfg.ds_noweights else batch["depth_weights"].reshape(-1)
+        d_loss, d_dict = losses.depth_loss(
+            d_results, batch["depth_depths"].reshape(-1), kp_w, scfg.ds_lambda)
+        loss = loss + d_loss
+        loss_dict.update(d_dict)
+        loss_dict["depth_loss_activated"] = _f32(1.0, dev)
+
+    if scfg.semantic:
+        sem = batch["semantic"]
+        sem_mask = batch.get("semantic_sparsity_mask")
+        l_plain_s, d_plain_s = losses.semantic_loss(
+            results, sem, sem_mask, scfg.lambda_s, scfg.car_index,
+            scfg.ignore_car_index)
+        if scfg.use_beta_for_s:
+            l_unc_s, d_unc_s = losses.semantic_uncertainty_loss(
+                results, sem, sem_mask, scfg.lambda_s, scfg.car_index,
+                scfg.ignore_car_index, scfg.detach_beta_for_s)
+            sem_loss = beta_active * l_unc_s + (1.0 - beta_active) * l_plain_s
+            loss_dict["coarse_semantic"] = (
+                beta_active * d_unc_s["coarse_semantic"]
+                + (1.0 - beta_active) * d_plain_s["coarse_semantic"])
+            if "coarse_semantic_logbeta" in d_unc_s:
+                loss_dict["coarse_semantic_logbeta"] = (
+                    beta_active * d_unc_s["coarse_semantic_logbeta"])
+            loss_dict["semantic_beta_loss_activated"] = beta_active
+        else:
+            sem_loss = l_plain_s
+            loss_dict.update(d_plain_s)
+            loss_dict["semantic_beta_loss_activated"] = _f32(0.0, dev)
+        loss = loss + sem_loss
+
+        if scfg.use_car_reg_loss:
+            car_active = _f32(float(epoch >= scfg.car_reg_loss_start), dev)
+            l_car, d_car = losses.semantic_car_reg_loss(
+                results, sem, sem_mask, scfg.lambda_c, scfg.car_index)
+            loss = loss + car_active * l_car
+            loss_dict["coarse_car_reg_loss"] = car_active * d_car["coarse_car_reg_loss"]
+            loss_dict["car_reg_loss_activated"] = car_active
+
+        pred = results["semantic_label"]
+        loss_dict["semantic_accuracy"] = torch.mean(
+            (pred == sem.reshape(-1).to(pred.dtype)).to(torch.float32))
+
+    loss_dict["psnr"] = losses.psnr(results["rgb"], batch["rgbs"])
+    return loss, loss_dict, results
+
+
+def _micro_batches(batch: dict, k: int) -> list:
+    """K micro-batches: leaves with fewer than K rows go whole into each,
+    the others are trimmed to a multiple of K and split in order."""
+    def part(x, i):
+        if x.shape[0] < k:
+            return x
+        m = x.shape[0] // k
+        return x[i * m : (i + 1) * m]
+
+    return [{key: part(v, i) for key, v in batch.items()} for i in range(k)]
+
+
+def build_train_step(scfg: StepConfig):
+    """-> ``train_step(state, batch, generator=None) -> (state, metrics)``."""
+
+    def train_step(state: TrainState, batch: dict,
+                   generator: torch.Generator | None = None):
+        params = trainable(state.params)
+        for p in params:
+            p.grad = None
+        k = max(int(scfg.grad_accum), 1)
+        loss_sum, dict_sum = None, None
+        for mb in (_micro_batches(batch, k) if k > 1 else [batch]):
+            loss, loss_dict, _ = compute_losses(scfg, state.params, mb, state.step,
+                                                generator)
+            loss.backward()
+            loss = loss.detach()
+            loss_dict = {key: v.detach() for key, v in loss_dict.items()}
+            if loss_sum is None:
+                loss_sum, dict_sum = loss, loss_dict
+            else:
+                loss_sum = loss_sum + loss
+                dict_sum = {key: dict_sum[key] + v for key, v in loss_dict.items()}
+        with torch.no_grad():
+            for p in params:
+                if p.grad is None:  # as optax: an unused parameter gets a 0 grad
+                    p.grad = torch.zeros_like(p)
+                elif k > 1:
+                    p.grad.mul_(1.0 / k)
+        if k > 1:
+            loss_sum = loss_sum * (1.0 / k)
+            dict_sum = {key: v * (1.0 / k) for key, v in dict_sum.items()}
+        lr = state.schedule(state.step)  # the pre-increment step, as optax
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        state.step += 1
+        return state, {"loss": loss_sum, **dict_sum}
+
+    return train_step

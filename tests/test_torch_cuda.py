@@ -1,5 +1,6 @@
-"""Each CUDA kernel of satnerf_torch against its plain PyTorch version, on
-the card. Marked ``cuda``: without a GPU every test here skips.
+"""Each CUDA kernel of satnerf_torch (K1 with its residuals, K2, K4, K5 and
+its backward) against its plain PyTorch version, on the card. Marked
+``cuda``: without a GPU every test here skips.
 
 The file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch (tests/conftest.py imports JAX, hence --noconftest):
@@ -79,3 +80,88 @@ def test_cuda_composite_kernel_matches_plain(cuda_device, b, s):
     for name, a, r, tol in zip(("w", "t", "depth", "rgb"), got, ref,
                                (1e-6, 1e-6, 1e-5, 1e-5)):
         assert float((a - r).abs().max()) <= tol, name
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads_on", [True, False])
+@pytest.mark.parametrize("bwd", ["recompute", "stored"])
+def test_cuda_backward_kernels_match_plain(cuda_device, dtype, heads_on, bwd,
+                                           record_property):
+    """K1's residuals, K2 and K4 against their plain versions at 4x512 on
+    1,001 points, and two runs bit for bit equal (no atomics)."""
+    from satnerf_torch.core.encoding import positional_encoding
+    from satnerf_torch.models.field import Field, FieldConfig, fused_field_spec
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    cfg = FieldConfig(variant="rs_semantic", layers=4, feat=512, skips=(2,),
+                      mapping=True, use_tj_for_s=True, trunk_impl="pallas",
+                      trunk_bwd=bwd)
+    field = Field(cfg, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    spec = dataclasses.replace(fused_field_spec(cfg), heads_on=heads_on)
+    g = torch.Generator().manual_seed(2)
+    n = 1001
+    enc = positional_encoding(torch.rand(n, 3, generator=g) * 2 - 1, 10).to(cuda_device)
+    sun = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1).to(cuda_device)
+    te = torch.randn(n, 4, generator=g).to(cuda_device)
+    g_out = torch.randn(n, 16, generator=g).to(cuda_device)
+    with torch.no_grad():
+        packed = field.packed(dtype)
+        x = ff.pack_x(spec, enc, dtype)
+        aux = ff.pack_aux(spec, sun, te, None, dtype)
+        _, shared, acts = ff._forward(spec, x, aux, packed, resid=True)
+        runs = []
+        for _ in range(2):
+            before = (ff.HEADS_BWD_LAUNCHES, trunk.LAUNCHES)
+            h = ff.heads_backward(spec, shared, aux, g_out, packed)
+            t = trunk.trunk_backward(spec, x, packed, acts, h[0])
+            torch.cuda.synchronize()
+            assert (ff.HEADS_BWD_LAUNCHES, trunk.LAUNCHES) == (before[0] + 1, before[1] + 1)
+            runs.append([h[0], h[1], *h[2].values(), *t])
+        ref_h = ff.heads_backward_reference(spec, shared, aux, g_out, packed)
+        ref_t = trunk.trunk_backward_reference(spec, x, packed, acts, ref_h[0])
+    ref = [ref_h[0], ref_h[1], *ref_h[2].values(), *ref_t]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    worst = max(_rel(a, b) for a, b in zip(runs[0], ref))
+    record_property("max_rel_err", worst)
+    # bf16: as for K1 (chip_smoke.py TOL_FIELD), one-ulp flips of an activation
+    assert worst < (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(1001, 64), (77, 37)])
+def test_cuda_composite_backward_matches_plain(cuda_device, b, s):
+    from satnerf_torch.ops import composite as comp
+
+    g = torch.Generator().manual_seed(b + 1)
+    sig = torch.rand(b, s, generator=g) * 6 - 1
+    sig[:4] = -torch.rand(4, s, generator=g)  # rays with no density
+    ins = [sig, torch.sort(torch.rand(b, s, generator=g) * 2, dim=1).values,
+           torch.rand(b, s, 3, generator=g), torch.rand(b, s, generator=g),
+           torch.rand(b, 3, generator=g)]
+    cots = [torch.randn(b, s, generator=g), torch.randn(b, s, generator=g),
+            torch.randn(b, generator=g), torch.randn(b, 3, generator=g)]
+    ins = [t.to(cuda_device) for t in ins]
+    cots = [t.to(cuda_device) for t in cots]
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(i != 1) for i, t in enumerate(ins)]
+        torch.autograd.backward(fn(*leaves), cots)
+        return [leaves[i].grad for i in (0, 2, 3, 4)]
+
+    before = comp.BWD_LAUNCHES
+    got = grads(comp.composite)
+    torch.cuda.synchronize()
+    assert comp.BWD_LAUNCHES == before + 1
+    again = grads(comp.composite)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    ref = grads(comp.composite_reference)
+    for name, a, r, tol in zip(("sigmas", "albedo", "sun", "sky"), got, ref,
+                               (1e-6, 1e-5, 1e-6, 1e-6)):
+        assert float((a - r).abs().max()) <= tol, name
+    assert torch.all(got[0][:4] == 0)

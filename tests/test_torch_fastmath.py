@@ -1,5 +1,6 @@
 """satnerf_torch.ops.fastmath against the JAX sine engines
-(satnerf_tpu/ops/fastmath.py) over |x| <= 1e3, f32."""
+(satnerf_tpu/ops/fastmath.py) and the Pallas kernels' cosine
+(satnerf_tpu/ops/pallas/trunk.py:_cos_f32) over |x| <= 1e3, f32."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -7,6 +8,7 @@ import pytest
 import torch
 
 from satnerf_tpu.ops import fastmath as jfm
+from satnerf_tpu.ops.pallas.trunk import _cos_f32
 from satnerf_torch.ops import fastmath as tfm
 
 torch.set_num_threads(2)
@@ -52,3 +54,21 @@ def test_engines_table_names_the_sin_impls():
     assert set(tfm.SINE_ENGINES) == {"poly", "poly5", "poly7f"}
     x = torch.linspace(-3, 3, 101)
     assert torch.equal(tfm.SINE_ENGINES["poly"](x), tfm.fast_sin(x))
+
+
+@pytest.mark.parametrize("mode", ["poly", "poly5", "poly7f"])
+def test_cosine_matches_the_pallas_kernels_cosine(mode):
+    x = _grid()
+    ref = np.asarray(_cos_f32(jnp.asarray(x), mode))
+    got = tfm.COSINE_ENGINES[mode](torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32
+    assert np.max(np.abs(got - ref)) <= 1e-6, mode
+    # and it is the derivative of its sine engine, to the polynomial's error
+    assert np.max(np.abs(got - np.cos(x.astype(np.float64)))) < 2e-4
+
+
+def test_cosine_names():
+    assert tfm.COSINE_ENGINES["poly"] is tfm.fast_cos
+    assert tfm.COSINE_ENGINES["poly5"] is tfm.fast_cos5
+    assert tfm.COSINE_ENGINES["poly7f"] is tfm.fast_cos7f
+    assert tfm.SIN_MODES == ("poly", "poly5", "poly7f")

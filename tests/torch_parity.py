@@ -3,6 +3,7 @@ weights and inputs, made from a seed, in the JAX reference and the port."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import jax
@@ -13,6 +14,8 @@ import torch
 from satnerf_tpu.models import field as jfield
 from satnerf_torch.models import field as tfield
 from satnerf_torch.models.import_params import field_state_from_params
+from satnerf_torch.ops import _bwd
+from satnerf_torch.ops.fastmath import COSINE_ENGINES, SIN_MODES, SINE_ENGINES
 
 # tier-1 runs several xdist workers on one machine: keep torch to few threads
 torch.set_num_threads(2)
@@ -110,3 +113,58 @@ def torch_field_out(kw: dict, n: int, n_full=None, dtype=None) -> dict:
             compute_dtype=torch.bfloat16 if dtype == "bf16" else None,
             n_full=n_full,
         )
+
+
+# -- the backward kernels' two primitives, emulated on the CPU ----------------
+
+
+def _emulated_row_op(lib_name, fn_name, dt, rows, width, prods=(), add=None,
+                     bias=None, pre=None, mode=_bwd.PLAIN, scale=1.0, sin_mode=0,
+                     out_f32=None, out_dt=None, out2_dt=None):
+    """What csrc/bwd_common.cuh:row_kernel computes, in torch."""
+    name = SIN_MODES[sin_mode]
+    sin, cos = SINE_ENGINES[name], COSINE_ENGINES[name]
+    v = torch.zeros((rows, width), dtype=torch.float32)
+    for a, w in prods:
+        assert a.dtype == dt and w.dtype == dt and w.is_contiguous()
+        assert a.shape[1] % 4 == 0 and w.shape == (a.shape[1], width)
+        v = v + a.float() @ w.float()
+    if add is not None:
+        v = v + add.float()
+    if bias is not None:
+        v = v + bias
+    main, second = v, None
+    if mode == _bwd.FWD_SINE:
+        second = sin(scale * v)
+    elif mode == _bwd.FWD_RELU:
+        second = torch.clamp(v, min=0.0)
+    elif mode == _bwd.BWD_SINE:
+        p = pre.float()
+        main, second = v * cos(scale * p) * scale, sin(scale * p)
+    elif mode == _bwd.BWD_RELU:
+        main = torch.where(pre.float() > 0, v, 0.0)
+    for out, val in ((out_f32, main), (out_dt, main), (out2_dt, second)):
+        if out is not None:
+            assert out.shape == (rows, width)
+            out.copy_(val.to(out.dtype))
+
+
+def _emulated_reduce_op(lib_name, fn_name, dt, rows, gemms=(), sums=()):
+    """What csrc/bwd_common.cuh:reduce_kernel computes, in torch."""
+    for a, b, out in gemms:
+        assert a.dtype == dt and b.dtype == dt and a.shape[0] == b.shape[0] == rows
+        out.copy_(a.float().t() @ b.float())
+    for b, out in sums:
+        out.copy_(b.float().sum(0))
+
+
+@contextlib.contextmanager
+def emulated_bwd_kernels():
+    """Run the CUDA wrappers' orchestration of K2 and K4 on CPU tensors, with
+    the two kernel launches replaced by their torch emulation."""
+    saved = _bwd.row_op, _bwd.reduce_op
+    _bwd.row_op, _bwd.reduce_op = _emulated_row_op, _emulated_reduce_op
+    try:
+        yield
+    finally:
+        _bwd.row_op, _bwd.reduce_op = saved
