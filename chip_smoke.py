@@ -30,7 +30,22 @@ JSON line per phase:
    of every kernel and no plain version; one 32-ray step held against the
    same step on the CPU; one step with the "stored" trunk backward held
    against "recompute"; CUDA-event times of each kernel at the training
-   shapes.
+   shapes;
+10. the trunk-only kernel K3 against its plain version at the flagship
+   width (f32 and bf16, with and without the "stored" pre-activations, each
+   run twice for bitwise-equal results) and its interleaved variant K6 bit
+   for bit equal to it;
+11. the RS-Semantic ablation field with its semantic beta head
+   (``use_separate_beta_for_s``, ``use_beta_for_s``; trunk through K3):
+   five training steps with exact launch counts, a 32-ray step against the
+   CPU, and one 128x128 request against the CPU plain path;
+12. the hierarchical configuration (``n_importance`` 128, a fine field,
+   ``remat_chunks`` 2, ``sc_stride`` 2): five training steps with exact
+   launch counts and every ``c_`` loss term finite, a 32-ray step against
+   the CPU, and one 128x128 request through the fine field with the
+   ``_coarse`` outputs held against the CPU;
+13. CUDA-event times of K3 and its plain version at the training shapes,
+   and of K6 against K3 at the interleave prototype's shape.
 
 Then the card's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises and exits
@@ -83,6 +98,8 @@ TOL_STEP_LOSS = 1e-4
 TOL_STEP_PARAM = 2e-5
 TOL_STORED = 1e-4  # "stored" vs "recompute" gradients, relative, f32
 
+# the beta_s ablation step against the CPU: as TOL_STEP_*; its plain heads run
+# torch's own matmuls on both sides, so the same bars hold
 N_FIELD_CHECK = 65_537  # ragged against the 32-row tile
 TRAIN_RAYS = 1024  # configs/pipelines/rs_semantic.toml batch_size
 TRAIN_STEPS = 5
@@ -90,8 +107,25 @@ CPU_STEP_RAYS = 32
 LR = 5e-4  # rs_semantic.toml learnrate
 # launches of each kernel per flagship training step: the main render (the
 # all-heads and the solar-correction variants of K1) and the depth render
-PER_STEP = {"field_fused": 3, "heads_bwd": 3, "trunk_bwd": 3, "composite": 2,
-            "composite_bwd": 2}
+PER_STEP = {"field_fused": 3, "heads_bwd": 3, "trunk_fwd": 0, "trunk_bwd": 3,
+            "composite": 2, "composite_bwd": 2, "trunk_fwd_interleaved": 0}
+# Path A, the beta_s ablation field: K3 once per render over its main and
+# solar-correction points together (main and depth renders), K4 once per K3,
+# no K1 or K2 (the heads are plain PyTorch, as XLA code in the reference)
+BETA_S = {"use_separate_beta_for_s": True, "use_beta_for_s": True}
+PER_STEP_BETA_S = {"field_fused": 0, "heads_bwd": 0, "trunk_fwd": 2, "trunk_bwd": 2,
+                   "composite": 2, "composite_bwd": 2, "trunk_fwd_interleaved": 0}
+# Path B, the hierarchical configuration: the main render's coarse pass (64
+# main + 32 solar-correction rungs) and fine pass (192 + 96), the depth
+# render's coarse (64) and fine (192) passes: six halves, each evaluated in
+# remat_chunks = 2 tiles, so 12 K1 launches forward and 12 more when the
+# backward recomputes each tile; K2 and K4 once per tile; K5 and its backward
+# once per pass
+HIER = {"n_importance": 128, "use_fine_network": True, "remat_chunks": 2, "sc_stride": 2}
+PER_STEP_HIER = {"field_fused": 24, "heads_bwd": 12, "trunk_fwd": 0, "trunk_bwd": 12,
+                 "composite": 4, "composite_bwd": 4, "trunk_fwd_interleaved": 0}
+TRUNK_TIME_POINTS = (65_536, 131_072)  # K3 per depth render / per main render
+K6_POINTS, K6_C_IN = 1_048_576, 63  # tools/interleave_trunk_proto.py:82, :30
 SERVE_H = SERVE_W = 128
 N_REQUESTS = 3
 CHUNK = 16_384
@@ -291,9 +325,13 @@ def copy_params(params: dict, device) -> dict:
     """Leaf copies of a params dict on ``device``."""
     from satnerf_torch.models.field import Field
 
-    field = Field(params["field"].cfg)
-    field.load_state_dict({k: v.detach().cpu() for k, v in params["field"].state_dict().items()})
-    out = {"field": field.to(device)}
+    out = {}
+    for key in ("field", "fine"):
+        if params.get(key) is not None:
+            field = Field(params[key].cfg)
+            field.load_state_dict({k: v.detach().cpu()
+                                   for k, v in params[key].state_dict().items()})
+            out[key] = field.to(device)
     for k in ("t", "t_s"):
         if params.get(k) is not None:
             out[k] = params[k].detach().clone().to(device).requires_grad_(True)
@@ -302,8 +340,11 @@ def copy_params(params: dict, device) -> dict:
 
 def param_diff(a: dict, b: dict) -> dict:
     """Per tensor: max |a - b| and the share of elements beyond TOL_STEP_PARAM."""
-    sa = {k: v.detach().cpu() for k, v in a["field"].state_dict().items()}
-    sb = {k: v.detach().cpu() for k, v in b["field"].state_dict().items()}
+    sa, sb = {}, {}
+    for key in ("field", "fine"):
+        if a.get(key) is not None:
+            sa.update({f"{key}.{k}": v.detach().cpu() for k, v in a[key].state_dict().items()})
+            sb.update({f"{key}.{k}": v.detach().cpu() for k, v in b[key].state_dict().items()})
     sa["t"], sb["t"] = a["t"].detach().cpu(), b["t"].detach().cpu()
     out = {}
     for k in sa:
@@ -312,46 +353,70 @@ def param_diff(a: dict, b: dict) -> dict:
     return out
 
 
-def train_phase(dev, vocab: int) -> dict:
-    """Five flagship training steps through the kernels, then a 32-ray step
-    against the CPU plain path and a "stored"-engine step."""
+def kernel_counters():
+    """({kernel: (module, launch counter)}, {plain version: (module, counter)})."""
+    from satnerf_torch.ops import composite as comp
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    launches = {"field_fused": (ff, "LAUNCHES"), "heads_bwd": (ff, "HEADS_BWD_LAUNCHES"),
+                "trunk_fwd": (trunk, "FWD_LAUNCHES"), "trunk_bwd": (trunk, "LAUNCHES"),
+                "composite": (comp, "LAUNCHES"), "composite_bwd": (comp, "BWD_LAUNCHES"),
+                "trunk_fwd_interleaved": (trunk, "INTERLEAVED_LAUNCHES")}
+    plain = {"field_fused": (ff, "PLAIN_CALLS"), "trunk_fwd": (trunk, "FWD_PLAIN_CALLS"),
+             "trunk_bwd": (trunk, "PLAIN_CALLS"), "composite": (comp, "PLAIN_CALLS")}
+    return launches, plain
+
+
+def reset_counters() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    launches, plain = kernel_counters()
+    for mod, name in list(launches.values()) + list(plain.values()):
+        setattr(mod, name, 0)
+
+
+def read_counters() -> tuple:
+    launches, plain = kernel_counters()
+    return ({k: getattr(mod, name) for k, (mod, name) in launches.items()},
+            {k: getattr(mod, name) for k, (mod, name) in plain.items()})
+
+
+def train_phase(dev, vocab: int, name: str = "train", overrides: dict | None = None,
+                per_step: dict = PER_STEP, stored_check: bool = True) -> dict:
+    """Five training steps of the flagship step config (with ``overrides``
+    of its pipeline keys) through the kernels, then a 32-ray step against
+    the CPU plain path and, with ``stored_check``, a "stored"-engine step."""
     import dataclasses
     import math
 
     import torch
 
     from satnerf_torch.configs import load_pipeline_toml, step_config_from_pipeline
-    from satnerf_torch.ops import composite as comp
-    from satnerf_torch.ops import field_fused as ff
-    from satnerf_torch.ops import trunk
     from satnerf_torch.train.state import create_train_state, init_params, trainable
     from satnerf_torch.train.step import build_train_step
 
     p = load_pipeline_toml(PIPELINE_TOML)
-    p["trunk_impl"] = "pallas"
+    p.update(trunk_impl="pallas", **(overrides or {}))
     scfg = step_config_from_pipeline(p, steps_per_epoch=1000, n_classes=5, car_index=4,
                                      device=dev)
     # as bench.py:257-260: every loss term on from step 0
     scfg = dataclasses.replace(scfg, use_car_reg_loss=True, car_reg_loss_start=0,
                                first_beta_epoch=0)
     check(scfg.depth and scfg.render.field.trunk_bwd == "recompute"
-          and scfg.render.n_samples == 64, "flagship step config")
+          and scfg.render.n_samples == 64, f"{name} step config")
+    fine = scfg.render.use_fine_network
     params = init_params(torch.Generator().manual_seed(0), scfg.render.field,
-                         t_vocab=vocab, device=dev)
+                         t_vocab=vocab, device=dev, use_fine_network=fine)
     start = copy_params(params, "cpu")
     state = create_train_state(params, LR, "step", scfg.steps_per_epoch)
     step = build_train_step(scfg)
     batch = train_batch(TRAIN_RAYS, TRAIN_RAYS, 5, vocab, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    counters = {"field_fused": (ff, "LAUNCHES"), "heads_bwd": (ff, "HEADS_BWD_LAUNCHES"),
-                "trunk_bwd": (trunk, "LAUNCHES"), "composite": (comp, "LAUNCHES"),
-                "composite_bwd": (comp, "BWD_LAUNCHES")}
-    plain = {"field_fused": (ff, "PLAIN_CALLS"), "trunk_bwd": (trunk, "PLAIN_CALLS"),
-             "composite": (comp, "PLAIN_CALLS")}
-    torch.cuda.synchronize()
-    for mod, name in list(counters.values()) + list(plain.values()):
-        setattr(mod, name, 0)
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
     for _ in range(TRAIN_STEPS):
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -363,14 +428,17 @@ def train_phase(dev, vocab: int) -> dict:
         vals = {k: float(v) for k, v in metrics.items()}
         check(all(math.isfinite(v) for v in vals.values()), f"non-finite metrics {vals}")
         losses.append(vals)
-    got = {k: getattr(mod, name) for k, (mod, name) in counters.items()}
-    plain_calls = {k: getattr(mod, name) for k, (mod, name) in plain.items()}
-    want = {k: v * TRAIN_STEPS for k, v in PER_STEP.items()}
-    check(got == want, f"training launches {got}, expected {want}")
-    check(not any(plain_calls.values()), f"a plain version ran: {plain_calls}")
+    got, plain_calls = read_counters()
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    check(got == want, f"{name} launches {got}, expected {want}")
+    check(not any(plain_calls.values()), f"{name}: a plain version ran: {plain_calls}")
+    if fine:
+        c_keys = [k for k in losses[-1] if k.startswith("c_")]
+        check(len(c_keys) >= 6, f"{name}: coarse loss terms {c_keys}")
     steady = step_ms[-3:]
     ms = sum(steady) / len(steady)
-    emit({"phase": "train", "steps": TRAIN_STEPS, "rays": TRAIN_RAYS,
+    emit({"phase": name, "overrides": overrides or {}, "steps": TRAIN_STEPS,
+          "rays": TRAIN_RAYS,
           "depth_rays": TRAIN_RAYS, "step_ms": step_ms, "ms_per_step": ms,
           "rays_per_s": TRAIN_RAYS / (ms / 1e3), "launches": got,
           "launches_per_step": {k: v / TRAIN_STEPS for k, v in got.items()},
@@ -391,10 +459,20 @@ def train_phase(dev, vocab: int) -> dict:
     loss_err = {k: abs(results["cuda"][0][k] - v) / max(1.0, abs(v))
                 for k, v in results["cpu"][0].items()}
     pdiff = param_diff(results["cuda"][1], results["cpu"][1])
+    check(set(loss_err) == set(results["cuda"][0]), f"{name}: loss keys differ")
     for k, e in loss_err.items():
-        check(e <= TOL_STEP_LOSS, f"32-ray step {k} card vs CPU {e}")
+        check(e <= TOL_STEP_LOSS, f"{name} 32-ray step {k} card vs CPU {e}")
     for k, (mx, share) in pdiff.items():
-        check(mx <= 2 * LR + 1e-6 and share <= 1e-3, f"32-ray step param {k}: {mx} {share}")
+        check(mx <= 2 * LR + 1e-6 and share <= 1e-3,
+              f"{name} 32-ray step param {k}: {mx} {share}")
+    check_line = {"phase": f"{name}_check", "cpu_step_rays": CPU_STEP_RAYS,
+                  "loss_rel_err": loss_err,
+                  "param_max_abs_err": max(v[0] for v in pdiff.values()),
+                  "param_share_beyond_tol": max(v[1] for v in pdiff.values()),
+                  "tol": {"loss": TOL_STEP_LOSS, "param": TOL_STEP_PARAM}}
+    if not stored_check:
+        emit(check_line)
+        return {"launches": got, "scfg": scfg, "params": state.params}
 
     # "stored" against "recompute" from the same params, deterministic ladder
     grads = {}
@@ -410,13 +488,10 @@ def train_phase(dev, vocab: int) -> dict:
     stored_err = max(rel_err(a, b) for a, b in zip(grads["stored"], grads["recompute"]))
     stored_same = all(torch.equal(a, b) for a, b in zip(grads["stored"], grads["recompute"]))
     check(stored_err <= TOL_STORED, f"stored vs recompute gradients {stored_err}")
-    emit({"phase": "train_check", "cpu_step_rays": CPU_STEP_RAYS,
-          "loss_rel_err": loss_err,
-          "param_max_abs_err": max(v[0] for v in pdiff.values()),
-          "param_share_beyond_tol": max(v[1] for v in pdiff.values()),
-          "stored_vs_recompute_grad_rel_err": stored_err,
-          "stored_vs_recompute_bitwise": stored_same,
-          "tol": {"loss": TOL_STEP_LOSS, "param": TOL_STEP_PARAM, "stored": TOL_STORED}})
+    check_line.update(stored_vs_recompute_grad_rel_err=stored_err,
+                      stored_vs_recompute_bitwise=stored_same)
+    check_line["tol"]["stored"] = TOL_STORED
+    emit(check_line)
     return {"launches": got, "scfg": scfg, "params": state.params}
 
 
@@ -518,6 +593,200 @@ def train_times_phase(dev, scfg, params) -> dict:
     emit({"phase": "train_kernel_times", "dtype": "float32", "times": out})
     return out
 
+def trunk_forward_phase(dev, field, spec, enc) -> dict:
+    """K3 against its plain version (f32, bf16; with and without the "stored"
+    pre-activations), each run twice for bitwise-equal results, and K6 bit
+    for bit equal to K3."""
+    import torch
+
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    cases = {}
+    worst_f32 = 0.0
+    with torch.no_grad():
+        for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            packed = field.packed(dt)
+            x = ff.pack_x(spec, enc, dt)
+            outs = {}
+            for emit_acts in (False, True):
+                out, acts = trunk._forward(spec, x, packed, emit_acts)
+                again, acts2 = trunk._forward(spec, x, packed, emit_acts)
+                torch.cuda.synchronize()
+                ref, ref_acts = trunk.fused_trunk_reference(spec, x, packed, emit_acts)
+                check(bool(torch.isfinite(out).all()), f"trunk {dname} non-finite")
+                bitwise = torch.equal(out, again) and (
+                    not emit_acts or torch.equal(acts, acts2))
+                err = float((out.float() - ref.float()).abs().max())
+                key = f"{dname}/{'acts' if emit_acts else 'no_acts'}"
+                cases[key] = {"max_abs_err": err, "bitwise_repeat": bitwise}
+                check(bitwise, f"trunk {key}: two runs differ")
+                check(err <= TOL_FIELD[dname], f"trunk {key} err {err}")
+                if emit_acts:
+                    e = rel_err(acts, ref_acts)
+                    cases[key]["acts_rel_err"] = e
+                    check(e <= TOL_RESID[dname], f"trunk {key} acts err {e}")
+                if dname == "float32":
+                    worst_f32 = max(worst_f32, err)
+                outs[emit_acts] = out
+                del acts, acts2, ref_acts
+            il = trunk.fused_trunk_interleaved(spec, x, packed)
+            torch.cuda.synchronize()
+            cases[f"{dname}/interleaved_bitwise_k3"] = torch.equal(il, outs[False])
+            cases[f"{dname}/acts_variant_bitwise_k3"] = torch.equal(outs[True], outs[False])
+            check(torch.equal(il, outs[False]), f"K6 differs from K3 in {dname}")
+    emit({"phase": "trunk_forward_check", "n": enc.shape[0], "layers": spec.layers,
+          "feat": spec.feat, "c_in": spec.c_in, "cases": cases,
+          "tol": {"out": TOL_FIELD, "acts": TOL_RESID}})
+    return {"max_abs_err_f32": worst_f32}
+
+
+def serve_variant_phase(name: str, dev, rcfg, params: dict, vocab: int,
+                        per_chunk: dict, coarse: bool = False) -> dict:
+    """One 128x128 request of a ``RenderService`` over ``params`` through the
+    kernels (``per_chunk`` launches of each per 16,384-ray chunk, no plain
+    version), its first 1,024 rays held against the plain path on CPU copies
+    of the weights; with ``coarse``, the hierarchical ``<k>_coarse`` outputs
+    of those rays on the card against the CPU's too."""
+    import numpy as np
+    import torch
+
+    from satnerf_torch.render.renderer import render_image_chunked
+    from satnerf_torch.serve.service import RenderService
+
+    svc = RenderService(params, rcfg, chunk=CHUNK, device=dev)
+    n_rays = SERVE_H * SERVE_W
+    rays, extras = synthetic_rays(n_rays, 300, vocab)
+    reset_counters()
+    t0 = time.monotonic()
+    out = svc.render_rays(rays, extras, SERVE_H, SERVE_W)
+    req_ms = (time.monotonic() - t0) * 1e3
+    got, plain_calls = read_counters()
+    chunks = -(-n_rays // CHUNK)
+    want = {k: v * chunks for k, v in per_chunk.items()}
+    check({k: got[k] for k in want} == want, f"{name} launches {got}, expected {want}")
+    check(not any(plain_calls.values()), f"{name}: a plain version ran: {plain_calls}")
+    for k, v in out.items():
+        if v.dtype.kind == "f":
+            check(bool(np.isfinite(v).all()), f"{name} {k} non-finite")
+    check(out["rgb"].shape == (SERVE_H, SERVE_W, 3), f"{name} rgb shape")
+
+    n_cmp = 1024
+    cpu = copy_params(svc.params, "cpu")
+    ref = render_image_chunked(cpu, svc.rcfg, rays[:n_cmp], extras[:n_cmp], chunk=n_cmp,
+                               device="cpu")
+    err = {"rgb": float(np.abs(out["rgb"].reshape(-1, 3)[:n_cmp] - ref["rgb"]).max()),
+           "depth": float(np.abs(out["depth"].reshape(-1)[:n_cmp] - ref["depth"]).max())}
+    agree = float(np.mean(out["semantic_label"].reshape(-1)[:n_cmp] == ref["semantic_label"]))
+    line = {"phase": name, "rays": n_rays, "chunk": CHUNK, "request_ms": req_ms,
+            "rays_per_s": n_rays / (req_ms / 1e3), "launches": got,
+            "cpu_plain_max_abs_err": err, "cpu_label_agreement": agree,
+            "tol": TOL_SERVE_CPU}
+    for k, tol in TOL_SERVE_CPU.items():
+        check(err[k] <= tol, f"{name} vs CPU {k} err {err[k]}")
+    check(agree >= 0.99, f"{name}: semantic labels agree on {agree}")
+    if coarse:
+        on_card = render_image_chunked(svc.params, svc.rcfg, rays[:n_cmp], extras[:n_cmp],
+                                       chunk=n_cmp, device=dev)
+        keys = ("rgb_coarse", "depth_coarse", "semantic_logits_coarse",
+                "semantic_label_coarse")
+        check(all(k in on_card for k in keys) and "coarse" not in on_card,
+              f"{name}: coarse keys {sorted(on_card)}")
+        c_err = {k: float(np.abs(on_card[k] - ref[k]).max()) for k in keys[:2]}
+        line["coarse_keys"] = list(keys)
+        line["coarse_cpu_max_abs_err"] = c_err
+        for k, e in c_err.items():
+            check(e <= TOL_SERVE_CPU[k.split("_")[0]], f"{name} {k} vs CPU {e}")
+    emit(line)
+    return {"launches": got, "request_ms": req_ms}
+
+
+def trunk_times_phase(dev, field, spec, enc_fn) -> dict:
+    """CUDA-event times of K3 and its plain version at the training shapes
+    (f32), and of K6 against K3 at the interleave prototype's shape (bf16,
+    c_in 63), each beside its bound."""
+    import dataclasses
+
+    import torch
+
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    def macs(sp):  # trunk multiply-adds per point (FieldSpec's counting)
+        return sp.c_in * sp.feat + (sp.layers - 1) * sp.feat ** 2 \
+            + len(sp.skips) * sp.c_in * sp.feat
+
+    def entry(ms, plain_ms, sp, n, x, packed, peak):
+        flops = 2.0 * macs(sp) * n
+        nbytes = (x.numel() + n * sp.feat) * x.element_size() + sum(
+            t.numel() * t.element_size() for t in packed.values())
+        ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "flops": flops, "bytes": nbytes, "shape": [n, sp.cx],
+                "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+
+    out = {}
+    with torch.no_grad():
+        packed = field.packed(torch.float32)
+        for n in TRUNK_TIME_POINTS:
+            x = ff.pack_x(spec, enc_fn(n), torch.float32)
+            k = cuda_ms(lambda: trunk.fused_trunk(spec, x, packed), reps=5)
+            pl = cuda_ms(lambda: trunk.fused_trunk_reference(spec, x, packed), reps=2)
+            out[f"k3_f32_{n}"] = entry(k, pl, spec, n, x, packed, PEAK_F32_FLOPS)
+            # the same comparison as trunk_forward_check, at the path's shape
+            err = float((trunk.fused_trunk(spec, x, packed)
+                         - trunk.fused_trunk_reference(spec, x, packed)[0]).abs().max())
+            check(err <= TOL_FIELD["float32"], f"trunk f32 at {n} points err {err}")
+            out[f"k3_f32_{n}"]["max_abs_err"] = err
+            del x
+
+        # K6 against K3: 1,048,576 points, c_in 63, 8x512, skip at 4, bf16, with
+        # the prototype's weight scales (normal * 0.02, bias * 0.01, x * 0.5)
+        sp = dataclasses.replace(spec, c_in=K6_C_IN)
+        g = torch.Generator().manual_seed(21)
+        bf = torch.bfloat16
+
+        def rnd(*shape, scale):
+            return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+        p6 = {"w0": rnd(sp.cx, sp.feat, scale=0.02), "w_mid": rnd(sp.layers - 1, sp.feat,
+                                                                   sp.feat, scale=0.02),
+              "w_skip": rnd(len(sp.skips), sp.cx, sp.feat, scale=0.02),
+              "b": rnd(sp.layers, sp.feat, scale=0.01)}
+        p6["w0"][K6_C_IN:] = 0
+        p6["w_skip"][:, K6_C_IN:] = 0
+        p6 = {k: (v if k == "b" else v.to(bf)).contiguous() for k, v in p6.items()}
+        x6 = rnd(K6_POINTS, sp.cx, scale=0.5)
+        x6[:, K6_C_IN:] = 0
+        x6 = x6.to(bf).contiguous()
+        k3 = trunk.fused_trunk(sp, x6, p6)
+        k6 = trunk.fused_trunk_interleaved(sp, x6, p6)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(k3, k6)
+        check(bitwise, "K6 differs from K3 at the prototype's shape")
+        ref = trunk.fused_trunk_reference(sp, x6, p6)[0]
+        k6_err = float((k6.float() - ref.float()).abs().max())
+        check(k6_err <= TOL_FIELD["bfloat16"], f"K6 vs plain err {k6_err}")
+        del k3, k6, ref
+        turns = []  # K3, K6, K6, K3
+        for fn in (trunk.fused_trunk, trunk.fused_trunk_interleaved,
+                   trunk.fused_trunk_interleaved, trunk.fused_trunk):
+            turns.append(cuda_ms(lambda: fn(sp, x6, p6), reps=5))
+        pl6 = cuda_ms(lambda: trunk.fused_trunk_reference(sp, x6, p6), reps=1)
+        e3 = entry((turns[0] + turns[3]) / 2, pl6, sp, K6_POINTS, x6, p6, PEAK_BF16_FLOPS)
+        e6 = entry((turns[1] + turns[2]) / 2, pl6, sp, K6_POINTS, x6, p6, PEAK_BF16_FLOPS)
+        for e in (e3, e6):
+            e["bound_f32_fma_ms"] = 2.0 * macs(sp) * K6_POINTS / PEAK_F32_FLOPS * 1e3
+        e6.update(max_abs_err=k6_err, bitwise_k3=bitwise)
+        out["k3_bf16_k6_shape"], out["k6_bf16"] = e3, e6
+        out["k3_k6_turns_ms"] = turns
+    emit({"phase": "trunk_kernel_times", "mac_per_point_c_in_60": macs(spec),
+          "mac_per_point_c_in_63": macs(sp), "times": out})
+    return out
+
+
+
 def main() -> int:
     import torch
 
@@ -531,7 +800,7 @@ def main() -> int:
         from satnerf_torch.core.encoding import positional_encoding
         from satnerf_torch.device import disable_tf32
         from satnerf_torch.models.embeddings import init_embedding
-        from satnerf_torch.models.field import Field, fused_field_spec
+        from satnerf_torch.models.field import Field, fused_field_spec, use_fused_trunk
         from satnerf_torch.ops import _build, composite as comp_mod
         from satnerf_torch.ops import field_fused as ff
         from satnerf_torch.ops.fastmath import COSINE_ENGINES, SINE_ENGINES
@@ -769,8 +1038,41 @@ def main() -> int:
     train = train_phase(dev, vocab)
     train_t = train_times_phase(dev, train["scfg"], train["params"])
 
+    # ---- 10. the trunk-only kernel K3 and its interleaved variant K6 ------------------
+    rcfg_b = load_render_config(PIPELINE_TOML, device=dev, trunk_impl="pallas", **BETA_S)
+    check(use_fused_trunk(rcfg_b.field), "the beta_s field runs K3")
+    field_b = Field(rcfg_b.field, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    spec_b = fused_field_spec(rcfg_b.field)
+    trunk_chk = trunk_forward_phase(dev, field_b, spec_b, enc)
+
+    # ---- 11. Path A: the beta_s ablation field, trained and served through K3 -------
+    beta_s = train_phase(dev, vocab, "train_beta_s", BETA_S, PER_STEP_BETA_S,
+                         stored_check=False)
+    serve_b = serve_variant_phase("serve_beta_s", dev, beta_s["scfg"].render,
+                                  beta_s["params"], vocab,
+                                  {"field_fused": 0, "trunk_fwd": 1, "composite": 1,
+                                   "trunk_fwd_interleaved": 0})
+
+    # ---- 12. Path B: the hierarchical configuration, trained and served ---------------
+    hier = train_phase(dev, vocab, "train_hier", HIER, PER_STEP_HIER, stored_check=False)
+    serve_h = serve_variant_phase("serve_hier", dev, hier["scfg"].render, hier["params"],
+                                  vocab, {"field_fused": 2, "trunk_fwd": 0, "composite": 2,
+                                          "trunk_fwd_interleaved": 0},
+                                  coarse=True)
+
+    # ---- 13. K3 and K6 times -----------------------------------------------------------
+    trunk_t = trunk_times_phase(dev, field_b, spec_b, lambda n: field_inputs(n, 3)[0])
+
+    def by_path(kernel):
+        return {"train": train["launches"][kernel], "train_beta_s": beta_s["launches"][kernel],
+                "train_hier": hier["launches"][kernel], "serve_beta_s":
+                serve_b["launches"][kernel], "serve_hier": serve_h["launches"][kernel]}
+
     f32 = times["float32"]
     k1t = train_t["field_fused"]
+    k3t = trunk_t[f"k3_f32_{TRUNK_TIME_POINTS[1]}"]
+    k6t = trunk_t["k6_bf16"]
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "shape")
     kernels = [
         {
             "name": "field_fused", "route": "cuda",
@@ -837,7 +1139,33 @@ def main() -> int:
                for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
             "library_ms": None,
         },
+        {
+            "name": "trunk_fwd", "route": "cuda",
+            "source": "satnerf_torch/csrc/trunk_fwd.cu",
+            "replaces": "satnerf_tpu/ops/pallas/trunk.py:347",
+            "launches": beta_s["launches"]["trunk_fwd"],
+            "max_abs_err": max([trunk_chk["max_abs_err_f32"]]
+                               + [trunk_t[f"k3_f32_{n}"]["max_abs_err"]
+                                  for n in TRUNK_TIME_POINTS]),
+            **{k: k3t[k] for k in timed},
+            "library_ms": None,
+            "at_65536": {k: trunk_t[f"k3_f32_{TRUNK_TIME_POINTS[0]}"][k] for k in timed},
+            "bf16_at_k6_shape": {k: trunk_t["k3_bf16_k6_shape"][k]
+                                 for k in timed + ("bound_f32_fma_ms",)},
+        },
+        {
+            "name": "trunk_fwd_interleaved", "route": "cuda",
+            "source": "satnerf_torch/csrc/trunk_fwd.cu",
+            "replaces": "tools/interleave_trunk_proto.py:64",
+            "launches": beta_s["launches"]["trunk_fwd_interleaved"], "on_main_path": False,
+            "max_abs_err": k6t["max_abs_err"], "bitwise_equal_k3": k6t["bitwise_k3"],
+            **{k: k6t[k] for k in timed + ("bound_f32_fma_ms",)},
+            "library_ms": None,
+        },
     ]
+    for entry in kernels:
+        if entry["name"] in PER_STEP:
+            entry["launches_by_path"] = by_path(entry["name"])
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -44,8 +44,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "sine.cuh"
-#include "tile_gemm.cuh"
+#include "trunk_layers.cuh"
 
 // Mirror of satnerf_torch.ops.field_fused._FieldArgs (ctypes); keep in sync.
 struct FieldArgs {
@@ -86,48 +85,10 @@ struct FieldArgs {
 namespace {
 
 using namespace satnerf::tile;
+using namespace satnerf::trunk;
 
 // rows of b_heads (satnerf_torch.ops.field_fused.HIDDEN_BIAS_ROWS)
 enum HiddenBias { kRgb0 = 0, kSv0, kSv1, kSv2, kSky0, kB0, kS0 };
-enum Act { kLinear = 0, kSine = 1, kRelu = 2 };
-
-// D = act(scale * (A @ W [+ A2 @ W2] + bias)), stored in T. D may alias A:
-// every product is in registers before the barrier that precedes the write.
-// kActs: also write the pre-activation A @ W [+ A2 @ W2] + bias, in T, to
-// row r of the global tile `pre` (row stride ldpre) for rows < rows_valid.
-template <int N, typename T, bool kActs = false>
-__device__ __forceinline__ void layer(const T* A, int lda, int K, const T* W,
-                                      const T* A2, int lda2, int K2, const T* W2,
-                                      const float* __restrict__ bias, T* D, int ldd,
-                                      int act, float scale, int sin_mode,
-                                      T* pre = nullptr, int ldpre = 0,
-                                      int rows_valid = 0) {
-  using M = Map<N>;
-  float acc[M::kRpt][2];
-#pragma unroll
-  for (int r = 0; r < M::kRpt; ++r) acc[r][0] = acc[r][1] = 0.0f;
-  gemm_acc<N>(acc, A, lda, K, W);
-  if (A2 != nullptr) gemm_acc<N>(acc, A2, lda2, K2, W2);
-  const int c = 2 * (threadIdx.x % M::kPairs);
-  const int row = (threadIdx.x / M::kPairs) * M::kRpt;
-  const float b0 = __ldg(bias + c), b1 = __ldg(bias + c + 1);
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < M::kRpt; ++r) {
-    float v0 = acc[r][0] + b0, v1 = acc[r][1] + b1;
-    if (kActs && pre != nullptr && row + r < rows_valid)
-      st2(pre + static_cast<size_t>(row + r) * ldpre + c, v0, v1);
-    if (act == kSine) {
-      v0 = satnerf::sin_mode(scale * v0, sin_mode);
-      v1 = satnerf::sin_mode(scale * v1, sin_mode);
-    } else if (act == kRelu) {
-      v0 = fmaxf(v0, 0.0f);
-      v1 = fmaxf(v1, 0.0f);
-    }
-    st2(D + (row + r) * ldd + c, v0, v1);
-  }
-  __syncthreads();
-}
 
 // ---- the kernel ---------------------------------------------------------------
 
@@ -147,50 +108,19 @@ field_fused_kernel(const FieldArgs a) {
   const int mode = a.sin_mode;
 
   // x and aux tiles, zero past the last row
-  const T* xg = static_cast<const T*>(a.x);
-  const T* auxg = static_cast<const T*>(a.aux);
-  for (int i = threadIdx.x; i < kRows * a.cx; i += kThreads) {
-    const int r = i / a.cx, c = i - r * a.cx;
-    X[r * ldx + c] = (row0 + r < a.n) ? xg[static_cast<size_t>(row0 + r) * a.cx + c]
-                                      : zero<T>();
-  }
-  for (int i = threadIdx.x; i < kRows * a.aux_w; i += kThreads) {
-    const int r = i / a.aux_w, c = i - r * a.aux_w;
-    AX[r * ldaux + c] = (row0 + r < a.n)
-                            ? auxg[static_cast<size_t>(row0 + r) * a.aux_w + c]
-                            : zero<T>();
-  }
+  const int tid = static_cast<int>(threadIdx.x);
+  load_tile(X, ldx, static_cast<const T*>(a.x), a.cx, row0, a.n, tid, kThreads);
+  load_tile(AX, ldaux, static_cast<const T*>(a.aux), a.aux_w, row0, a.n, tid, kThreads);
   __syncthreads();
 
-  // trunk: layer 0 (w0-scaled sine), then layers 1.. in place in H
-  const float* b = static_cast<const float*>(a.b);
-  const T* w_mid = static_cast<const T*>(a.w_mid);
-  const T* w_skip = static_cast<const T*>(a.w_skip);
+  // trunk (trunk_layers.cuh): layer 0 (w0-scaled sine), then layers 1.. in place in H
   const int rows_valid = a.n - row0;
   T* acts = kResid ? static_cast<T*>(a.acts_out) : nullptr;
-  const size_t act_stride = static_cast<size_t>(a.n) * F;  // one layer's (n, F)
   T* acts_tile = acts != nullptr ? acts + static_cast<size_t>(row0) * F : nullptr;
-  layer<F, T, kResid>(X, ldx, a.cx, static_cast<const T*>(a.w0), nullptr, 0, 0,
-                      nullptr, b, H, ldh, kSine, a.w0_scale, mode, acts_tile, F,
-                      rows_valid);
-  int s = 0;
-  for (int i = 1; i < a.layers; ++i) {
-    const bool skip = (a.skip_mask >> i) & 1;
-    layer<F, T, kResid>(H, ldh, F, w_mid + static_cast<size_t>(i - 1) * F * F,
-                        skip ? X : nullptr, ldx, a.cx,
-                        skip ? w_skip + static_cast<size_t>(s) * a.cx * F : nullptr,
-                        b + i * F, H, ldh, kSine, 1.0f, mode,
-                        acts_tile != nullptr ? acts_tile + i * act_stride : nullptr,
-                        F, rows_valid);
-    s += skip;
-  }
-  if (kResid) {  // the trunk output h_{L-1}, the heads backward's residual
-    T* sh = static_cast<T*>(a.shared_out) + static_cast<size_t>(row0) * F;
-    for (int i = threadIdx.x; i < kRows * F; i += kThreads) {
-      const int r = i / F, c = i - r * F;
-      if (r < rows_valid) sh[static_cast<size_t>(r) * F + c] = H[r * ldh + c];
-    }
-  }
+  trunk_tile<F, T, kResid>(a, X, ldx, H, ldh, acts_tile, rows_valid);
+  if (kResid)  // the trunk output h_{L-1}, the heads backward's residual
+    store_tile<T, F>(static_cast<T*>(a.shared_out), H, ldh, row0, rows_valid, tid,
+                     kThreads);
 
   // heads. out: this thread's (row, column pair) of the 16-column output
   float out[Map<16>::kRpt][2] = {{0.0f, 0.0f}};

@@ -1,5 +1,5 @@
-// Row-tile GEMM helpers shared by the fused field kernel (field_fused.cu)
-// and the backward kernels (bwd_common.cuh).
+// Row-tile GEMM helpers shared by the forward kernels (trunk_layers.cuh:
+// field_fused.cu, trunk_fwd.cu) and the backward kernels (bwd_common.cuh).
 //
 // A block of kThreads threads owns a kRows-row tile of points; its activations
 // sit in shared memory and the weights stream from global memory (L2). For an
@@ -62,13 +62,15 @@ struct Map {
 
 // acc[r][0..1] += A[row(r), 0:K] @ W[0:K, col pair]; A in shared memory
 // (row stride lda), W (K, N) row-major in global memory. K % 4 == 0.
+// tid: this thread's index within the kThreads threads that share the tile
+// (unsigned, as threadIdx.x: the mapping's divisions stay unsigned).
 template <int N, typename T>
 __device__ __forceinline__ void gemm_acc(float (&acc)[Map<N>::kRpt][2],
                                          const T* __restrict__ A, int lda, int K,
-                                         const T* __restrict__ W) {
+                                         const T* __restrict__ W, unsigned tid) {
   using M = Map<N>;
-  const int pair = threadIdx.x % M::kPairs;
-  const int grp = threadIdx.x / M::kPairs;
+  const int pair = tid % M::kPairs;
+  const int grp = tid / M::kPairs;
   const T* a_base = A + grp * M::kRpt * lda;
   const T* w = W + 2 * pair;
   float2 wc[4];
@@ -93,6 +95,13 @@ __device__ __forceinline__ void gemm_acc(float (&acc)[Map<N>::kRpt][2],
 #pragma unroll
     for (int j = 0; j < 4; ++j) wc[j] = wn[j];
   }
+}
+
+template <int N, typename T>
+__device__ __forceinline__ void gemm_acc(float (&acc)[Map<N>::kRpt][2],
+                                         const T* __restrict__ A, int lda, int K,
+                                         const T* __restrict__ W) {
+  gemm_acc<N>(acc, A, lda, K, W, threadIdx.x);
 }
 
 }  // namespace tile

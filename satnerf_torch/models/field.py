@@ -22,11 +22,15 @@ satnerf, rs_semantic). Per point:
 ``semantic_prediction.{0,2}``), with torch ``(out, in)`` weights.
 
 ``trunk_impl="xla"`` runs the layer-by-layer PyTorch path; ``"pallas"``
-runs the fused field (``ops/field_fused.py``: the CUDA kernels on the card,
-their plain versions on the CPU) exactly where the reference would run its
-fused Pallas kernel. Both are differentiable: under grad mode the fused
-field packs the parameters with differentiable ops, so its kernel backward
-(K2 + K4) delivers gradients to the ``nn.Linear`` parameters.
+runs the reference's Pallas engines where the reference would run them: the
+fused field (``ops/field_fused.py``, K1) for the configs it covers, else the
+trunk-only kernel (``ops/trunk.py``, K3) followed by the layer-by-layer
+heads (the ablation heads ``use_tj_instead_of_beta`` and
+``use_separate_beta_for_s``). The kernels run on the card, their plain
+versions on the CPU. All paths are differentiable: under grad mode the
+kernels' inputs are packed with differentiable ops, so their kernel
+backwards (K2 + K4, or K4) deliver gradients to the ``nn.Linear``
+parameters.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from torch.nn import functional as Fn
 
 from satnerf_torch.core.encoding import encoded_size, positional_encoding
 from satnerf_torch.ops import field_fused as ff
+from satnerf_torch.ops import trunk
 from satnerf_torch.ops.fastmath import SINE_ENGINES
 
 VARIANTS = ("nerf", "snerf", "satnerf", "rs_semantic")
@@ -129,6 +134,12 @@ def use_fused_field(cfg: FieldConfig) -> bool:
         and not cfg.use_tj_instead_of_beta
         and not cfg.use_separate_beta_for_s
     )
+
+
+def use_fused_trunk(cfg: FieldConfig) -> bool:
+    """Where the reference runs its trunk-only kernel and the heads as XLA
+    code (``_use_pallas_trunk`` outside ``_use_pallas_field``)."""
+    return _pallas_ok(cfg) and not use_fused_field(cfg)
 
 
 def fused_field_spec(cfg: FieldConfig) -> ff.FieldSpec:
@@ -255,9 +266,10 @@ class Field(nn.Module):
                 init(layer, siren_first=(j == 0) if name == "sun_v_net" else None)
 
     def packed(self, dtype: torch.dtype, spec=None) -> dict:
-        """The fused kernel's packed weights in ``dtype`` on this module's
-        device, packed once and reused until a parameter changes. ``spec``
-        (a ``FieldSpec``) defaults to this module's config."""
+        """The kernel's packed weights in ``dtype`` on this module's device
+        (K1's whole field or K3's trunk, as this module's config runs),
+        packed once and reused until a parameter changes. ``spec`` (a
+        ``FieldSpec``) defaults to this module's config."""
         spec = replace(spec or fused_field_spec(self.cfg), heads_on=True)
         params = list(self.parameters())
         slot = (dtype, params[0].device)
@@ -265,7 +277,7 @@ class Field(nn.Module):
         hit = self._pack_cache.get(slot)
         if hit is None or hit[0] != key:
             with torch.no_grad():
-                packed = ff.pack_field(self, spec, dtype)
+                packed = _pack_fn(self.cfg)(self, spec, dtype)
             # detached: an f32 bias packs as the parameter itself
             hit = (key, {k: v.detach() for k, v in packed.items()})
             self._pack_cache[slot] = hit
@@ -320,18 +332,16 @@ def field_forward(
         return _fused_field_forward(field, cfg, enc_x, sun_d, t_emb, t_s_emb,
                                     dt, nf)
     if _pallas_ok(cfg):
-        raise NotImplementedError(
-            "trunk_impl='pallas' on a config outside the fused field needs the "
-            "fused_trunk kernel (satnerf_tpu/ops/pallas/trunk.py), which is "
-            "ported in a later slice; use trunk_impl='xla'"
-        )
-
-    h = enc_x
-    for i in range(cfg.layers):
-        if i in cfg.skips:
-            h = torch.cat([enc_x, h], dim=-1)
-        h = _act(cfg, _linear(field.fc_net[2 * i], h, dt), first=(i == 0))
-    shared = h
+        # the trunk-only kernel K3, once over the main and solar-correction
+        # points together; the heads run layer by layer below
+        shared = _fused_trunk_forward(field, cfg, enc_x, dt)
+    else:
+        h = enc_x
+        for i in range(cfg.layers):
+            if i in cfg.skips:
+                h = torch.cat([enc_x, h], dim=-1)
+            h = _act(cfg, _linear(field.fc_net[2 * i], h, dt), first=(i == 0))
+        shared = h
 
     f32 = torch.float32
     sigma = Fn.softplus(_linear(field.sigma_from_xyz[0], shared).to(f32))
@@ -386,6 +396,27 @@ def field_forward(
     return out
 
 
+def _pack_fn(cfg: FieldConfig):
+    """The packing of the kernel ``cfg`` runs: K1's whole field or K3's trunk."""
+    return ff.pack_field if use_fused_field(cfg) else trunk.pack_trunk
+
+
+def _packed_for_call(field: Field, spec, kdt) -> dict:
+    """Differentiable packing (no cache) when the parameters need gradients,
+    else the module's cached detached copy."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in field.parameters()):
+        return _pack_fn(field.cfg)(field, replace(spec, heads_on=True), kdt)
+    return field.packed(kdt, spec)
+
+
+def _fused_trunk_forward(field: Field, cfg: FieldConfig, enc_x, dt) -> torch.Tensor:
+    """The trunk through K3 (``ops/trunk.py``): (N, F) in the compute dtype."""
+    kdt = dt if dt is not None else torch.float32
+    spec = fused_field_spec(cfg)
+    packed = _packed_for_call(field, spec, kdt)
+    return trunk.fused_trunk(spec, ff.pack_x(spec, enc_x, kdt), packed)
+
+
 def _fused_field_forward(field: Field, cfg: FieldConfig, enc_x, sun_d, t_emb,
                          t_s_emb, dt, nf=None) -> dict:
     """The fused field + the column-wise nonlinearity epilogue; the output
@@ -395,11 +426,7 @@ def _fused_field_forward(field: Field, cfg: FieldConfig, enc_x, sun_d, t_emb,
     the remaining solar-correction points the sigma+sun_v-only variant."""
     kdt = dt if dt is not None else torch.float32
     spec = fused_field_spec(cfg)
-    if torch.is_grad_enabled() and any(p.requires_grad for p in field.parameters()):
-        # differentiable packing, no cache: gradients flow to the parameters
-        packed = ff.pack_field(field, replace(spec, heads_on=True), kdt)
-    else:
-        packed = field.packed(kdt, spec)
+    packed = _packed_for_call(field, spec, kdt)
     x = ff.pack_x(spec, enc_x, kdt)
 
     if nf is None:

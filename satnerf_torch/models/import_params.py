@@ -59,15 +59,19 @@ def field_state_from_params(params) -> dict:
 
 def params_from_jax(params_np: dict, fcfg, device=None) -> dict:
     """JAX ``init_params`` pytree (numpy-convertible leaves) ->
-    {"field": ``Field``, "t": table, "t_s": table} on ``device`` (None: the
-    card), the tables as leaves that require grad."""
+    {"field": ``Field``, "fine": ``Field`` (when the pytree has one), "t":
+    table, "t_s": table} on ``device`` (None: the card), the tables as leaves
+    that require grad."""
     from satnerf_torch.device import resolve_device
     from satnerf_torch.models.field import Field
 
     dev = resolve_device(device)
-    field = Field(fcfg)
-    field.load_state_dict(field_state_from_params(params_np["field"]))
-    out = {"field": field.to(dev)}
+    out = {}
+    for key in ("field", "fine"):
+        if key in params_np:
+            field = Field(fcfg)
+            field.load_state_dict(field_state_from_params(params_np[key]))
+            out[key] = field.to(dev)
     for key in ("t", "t_s"):
         if key in params_np:
             table = torch.from_numpy(np.array(params_np[key], np.float32))

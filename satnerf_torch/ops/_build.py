@@ -21,7 +21,8 @@ import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
-KERNELS = ("field_fused", "field_bwd", "trunk_bwd", "composite", "sine_check")
+KERNELS = ("field_fused", "field_bwd", "trunk_fwd", "trunk_bwd", "composite",
+           "sine_check")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -31,6 +32,7 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "field_fused": {"field_fused_forward": [_vp, _vp]},
     "field_bwd": {"heads_bwd_row": [_vp, _vp], "heads_bwd_reduce": [_vp, _vp]},
+    "trunk_fwd": {"trunk_fwd_forward": [_vp, _vp], "trunk_fwd_interleaved": [_vp, _vp]},
     "trunk_bwd": {"trunk_bwd_row": [_vp, _vp], "trunk_bwd_reduce": [_vp, _vp]},
     "composite": {"composite_forward": [_vp] * 9 + [_i, _i, _vp],
                   "composite_backward": [_vp] * 15 + [_i, _i, _vp]},

@@ -51,7 +51,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from satnerf_torch.ops import _bwd, trunk
-from satnerf_torch.ops.trunk import dot_f32
+from satnerf_torch.ops.trunk import TRUNK_KEYS, dot_f32, in_out, pack_trunk, place_rows
 from satnerf_torch.ops._build import check_launch, load_library
 from satnerf_torch.ops.fastmath import COSINE_ENGINES, SIN_MODES, SINE_ENGINES
 
@@ -72,7 +72,6 @@ KERNEL_WIDTHS = ((512, 256), (512, 512))
 LAUNCHES = 0  # K1 launches made by fused_field (CUDA tensors only)
 HEADS_BWD_LAUNCHES = 0  # heads_backward calls that launched K2 (CUDA only)
 PLAIN_CALLS = 0  # fused_field_reference and heads_backward_reference calls
-TRUNK_KEYS = ("w0", "w_mid", "w_skip", "b")
 # widths the heads backward kernels are instantiated for (csrc/field_bwd.cu)
 HEADS_BWD_FL = (256, 512)
 G_AUX_W = 16  # the g_aux launch's padded width
@@ -194,17 +193,6 @@ class FieldSpec:
 # -----------------------------------------------------------------------
 
 
-def _t(linear, dtype) -> torch.Tensor:
-    """torch Linear weight (out, in) -> (in, out) in ``dtype``."""
-    return linear.weight.t().to(dtype).contiguous()
-
-
-def _place_rows(w_in_out: torch.Tensor, rows: int, at: int) -> torch.Tensor:
-    out = w_in_out.new_zeros((rows, w_in_out.shape[1]))
-    out[at : at + w_in_out.shape[0]] = w_in_out
-    return out
-
-
 def _place_cols(w_in_out: torch.Tensor, at: int) -> torch.Tensor:
     out = w_in_out.new_zeros((w_in_out.shape[0], OUT_W))
     out[:, at : at + w_in_out.shape[1]] = w_in_out
@@ -221,28 +209,11 @@ def pack_field(field, spec: FieldSpec, dtype: torch.dtype) -> dict:
     ``heads_on=False`` variant reads ``b_small_sc``, whose rgb/sky/beta/
     semantic columns are 0.
     """
-    F, fl, L, cx, aw = spec.feat, spec.fl, spec.layers, spec.cx, spec.aux_w
+    F, fl, aw = spec.feat, spec.fl, spec.aux_w
     f32 = torch.float32
-    fc = [field.fc_net[2 * i] for i in range(L)]
-    p: dict = {}
-    p["w0"] = _place_rows(_t(fc[0], dtype), cx, 0)
-    mids, skips = [], []
-    for i in range(1, L):
-        w = _t(fc[i], dtype)
-        if i in spec.skips:
-            # reference concat order is [enc_x, h]
-            skips.append(_place_rows(w[: spec.c_in], cx, 0))
-            mids.append(w[spec.c_in :])
-        else:
-            mids.append(w)
-    p["w_mid"] = torch.stack(mids).contiguous()
-    p["w_skip"] = (
-        torch.stack(skips).contiguous() if skips
-        else p["w0"].new_zeros((1, cx, F))  # placeholder, never read
-    )
-    p["b"] = torch.stack([l.bias.to(f32) for l in fc]).contiguous()
+    p: dict = pack_trunk(field, spec, dtype)
 
-    p["w_feats"] = _t(field.feats_from_xyz, dtype)
+    p["w_feats"] = in_out(field.feats_from_xyz, dtype)
     p["b_feats"] = field.feats_from_xyz.bias.to(f32).contiguous()
 
     hb = torch.zeros((len(HIDDEN_BIAS_ROWS), fl), dtype=f32,
@@ -252,42 +223,42 @@ def pack_field(field, spec: FieldSpec, dtype: torch.dtype) -> dict:
         hb[HIDDEN_BIAS_ROWS.index(name)] = linear.bias.to(f32)
 
     sv = field.sun_v_net
-    w_sv0 = _t(sv[0], dtype)  # (F + 3, fl)
+    w_sv0 = in_out(sv[0], dtype)  # (F + 3, fl)
     p["w_sv0_f"] = w_sv0[:F].contiguous()
-    p["w_sv0_aux"] = _place_rows(w_sv0[F:], aw, 0)
-    p["w_sv1"] = _t(sv[2], dtype)
-    p["w_sv2"] = _t(sv[4], dtype)
+    p["w_sv0_aux"] = place_rows(w_sv0[F:], aw, 0)
+    p["w_sv1"] = in_out(sv[2], dtype)
+    p["w_sv2"] = in_out(sv[4], dtype)
     for name, idx in (("sv0", 0), ("sv1", 2), ("sv2", 4)):
         hidden_bias(name, sv[idx])
 
-    p["w_rgb0"] = _t(field.rgb_from_xyzdir[0], dtype)
+    p["w_rgb0"] = in_out(field.rgb_from_xyzdir[0], dtype)
     hidden_bias("rgb0", field.rgb_from_xyzdir[0])
-    p["w_sky0_aux"] = _place_rows(_t(field.sky_color[0], dtype), aw, 0)
+    p["w_sky0_aux"] = place_rows(in_out(field.sky_color[0], dtype), aw, 0)
     hidden_bias("sky0", field.sky_color[0])
     if spec.has_beta:
-        w_b0 = _t(field.beta_from_xyz[0], dtype)  # (F + tau, fl)
+        w_b0 = in_out(field.beta_from_xyz[0], dtype)  # (F + tau, fl)
         p["w_b0_f"] = w_b0[:F].contiguous()
-        p["w_b0_aux"] = _place_rows(w_b0[F:], aw, spec.aux_t)
+        p["w_b0_aux"] = place_rows(w_b0[F:], aw, spec.aux_t)
         hidden_bias("b0", field.beta_from_xyz[0])
     if spec.has_semantic:
-        w_s0 = _t(field.semantic_prediction[0], dtype)  # (F [+ tau], fl)
+        w_s0 = in_out(field.semantic_prediction[0], dtype)  # (F [+ tau], fl)
         p["w_s0_f"] = w_s0[:F].contiguous()
         if spec.use_tj_for_s:
             at = spec.aux_t_s if spec.sep_t_s else spec.aux_t
-            p["w_s0_aux"] = _place_rows(w_s0[F:], aw, at)
+            p["w_s0_aux"] = place_rows(w_s0[F:], aw, at)
         hidden_bias("s0", field.semantic_prediction[0])
     p["b_heads"] = hb
 
     # final projections straight into the packed output columns
-    p["w2_shared"] = _place_cols(_t(field.sigma_from_xyz[0], dtype), COL_SIGMA)
-    p["w2_sv"] = _place_cols(_t(sv[6], dtype), COL_SUN)
-    p["w2_rgb"] = _place_cols(_t(field.rgb_from_xyzdir[2], dtype), COL_RGB)
-    p["w2_sky"] = _place_cols(_t(field.sky_color[2], dtype), COL_SKY)
+    p["w2_shared"] = _place_cols(in_out(field.sigma_from_xyz[0], dtype), COL_SIGMA)
+    p["w2_sv"] = _place_cols(in_out(sv[6], dtype), COL_SUN)
+    p["w2_rgb"] = _place_cols(in_out(field.rgb_from_xyzdir[2], dtype), COL_RGB)
+    p["w2_sky"] = _place_cols(in_out(field.sky_color[2], dtype), COL_SKY)
     if spec.has_beta:
-        p["w2_beta"] = _place_cols(_t(field.beta_from_xyz[2], dtype), COL_BETA)
+        p["w2_beta"] = _place_cols(in_out(field.beta_from_xyz[2], dtype), COL_BETA)
     if spec.has_semantic:
         p["w2_sem"] = _place_cols(
-            _t(field.semantic_prediction[2], dtype), COL_SEM
+            in_out(field.semantic_prediction[2], dtype), COL_SEM
         )
 
     def bias_cols(pairs):
@@ -344,18 +315,7 @@ def _reference_forward(spec: FieldSpec, x, aux, packed, resid: bool):
     sin = SINE_ENGINES[spec.sin_mode]
     dt = x.dtype
     p = packed
-    b = p["b"]
-    a = dot_f32(x, p["w0"]) + b[0:1]
-    acts = [a.to(dt)]
-    h = sin(spec.w0 * a).to(dt)
-    for i in range(1, spec.layers):
-        a = dot_f32(h, p["w_mid"][i - 1])
-        if i in spec.skips:
-            a = a + dot_f32(x, p["w_skip"][spec.skips.index(i)])
-        a = a + b[i : i + 1]
-        acts.append(a.to(dt))
-        h = sin(a).to(dt)
-    shared = h
+    shared, acts = trunk.trunk_chain(spec, x, p)
 
     def bias(name):
         i = HIDDEN_BIAS_ROWS.index(name)

@@ -1,41 +1,258 @@
-"""SIREN trunk backward (K4), both engines.
+"""SIREN trunk: the trunk-only forward (K3, with its interleaved variant K6)
+and the trunk backward (K4, both engines).
 
-Port of ``satnerf_tpu/ops/pallas/trunk.py:_fused_trunk_bwd`` (bodies
-``_bwd_kernel`` "recompute", ``_bwd_kernel_stored`` "stored" and the shared
-reverse sweep ``_bwd_sweep``). ``trunk_backward`` launches the hand-written
-CUDA kernels of ``csrc/trunk_bwd.cu`` for CUDA tensors and runs
-:func:`trunk_backward_reference`, its plain PyTorch version, for CPU ones.
-K3 (the trunk-only forward ``fused_trunk``) is not ported yet.
+Port of ``satnerf_tpu/ops/pallas/trunk.py``: ``fused_trunk`` (body
+``_fwd_kernel``, with the "stored" residuals of ``emit_acts``) and its custom
+VJP ``_fused_trunk_bwd`` (bodies ``_bwd_kernel`` "recompute",
+``_bwd_kernel_stored`` "stored" and the shared reverse sweep ``_bwd_sweep``),
+and of the prototype ``tools/interleave_trunk_proto.py`` (``_fwd_kernel_il``).
+:func:`fused_trunk` launches K3 of ``csrc/trunk_fwd.cu`` and
+:func:`trunk_backward` the kernels of ``csrc/trunk_bwd.cu`` for CUDA tensors;
+for CPU tensors they run their plain PyTorch versions
+(:func:`fused_trunk_reference`, :func:`trunk_backward_reference`). Under
+autograd :func:`fused_trunk` goes through :class:`FusedTrunk`: K3 forward,
+K4 backward. K1 (``ops/field_fused.py``) runs the same trunk in front of its
+heads; the CUDA trunk loop of both is ``csrc/trunk_layers.cuh``.
 
 The trunk is ``h_0 = sin(w0 * (x @ W0 + b0))``,
-``h_i = sin(h_{i-1} @ W_i [+ x @ Ws_i] + b_i)``. Given the gradient of
-``h_{L-1}`` the backward returns, in the packed layout of
-``ops/field_fused.py`` (``w0`` (cx, F), ``w_mid`` (L-1, F, F), ``w_skip``
-(n_skip, cx, F), ``b`` (L, F)), the gradients of x and of every packed
-tensor. "recompute" rebuilds the pre-activations from x; "stored" takes the
-(L, N, F) pre-activations that the forward kernel wrote. As in the TPU
-kernel, products take compute-dtype operands with f32 sums, every ``ga`` is
-cast to the compute dtype before its products, the bias gradients sum the
-f32 ``ga``, and the weight gradients are returned in the weights' dtype.
+``h_i = sin(h_{i-1} @ W_i [+ x @ Ws_i] + b_i)``, on the packed layout of
+:func:`pack_trunk` (``w0`` (cx, F), ``w_mid`` (L-1, F, F), ``w_skip``
+(n_skip, cx, F), ``b`` (L, F) f32). Products take compute-dtype operands with
+f32 sums, the sine runs in f32 and every activation is stored in the compute
+dtype. Given the gradient of ``h_{L-1}`` the backward returns the gradients of
+x and of every packed tensor. "recompute" rebuilds the pre-activations from
+x; "stored" takes the (L, N, F) pre-activations that the forward kernel wrote.
+As in the TPU kernel, every ``ga`` is cast to the compute dtype before its
+products, the bias gradients sum the f32 ``ga``, and the weight gradients are
+returned in the weights' dtype.
+
+``spec`` is a ``FieldSpec`` of ``ops/field_fused.py`` (layers, feat, skips,
+c_in, cx, w0, sin_mode, trunk_bwd).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+from torch.autograd.function import once_differentiable
 
 from satnerf_torch.ops import _bwd
+from satnerf_torch.ops._build import check_launch, load_library
 from satnerf_torch.ops.fastmath import COSINE_ENGINES, SIN_MODES, SINE_ENGINES
 
-LAUNCHES = 0  # trunk_backward calls that launched the kernels (CUDA only)
+LAUNCHES = 0  # trunk_backward calls that launched K4 (CUDA only)
 PLAIN_CALLS = 0  # trunk_backward_reference calls
+FWD_LAUNCHES = 0  # K3 launches made by fused_trunk (CUDA tensors only)
+FWD_PLAIN_CALLS = 0  # fused_trunk_reference calls
+INTERLEAVED_LAUNCHES = 0  # K6 launches made by fused_trunk_interleaved
 FEAT_WIDTHS = (512,)  # trunk widths the kernels are instantiated for
 GX_WIDTHS = (64, 128)  # padded input widths of the gx launch (csrc/trunk_bwd.cu)
+TRUNK_KEYS = ("w0", "w_mid", "w_skip", "b")
 
 
 def dot_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """f32 product of compute-dtype operands (``preferred_element_type=f32``):
     bf16 operands are upcast before the product, so it sums in f32."""
     return a.to(torch.float32) @ w.to(torch.float32)
+
+
+# -----------------------------------------------------------------------
+# packing
+# -----------------------------------------------------------------------
+
+
+def in_out(linear, dtype) -> torch.Tensor:
+    """torch Linear weight (out, in) -> (in, out) in ``dtype``."""
+    return linear.weight.t().to(dtype).contiguous()
+
+
+def place_rows(w_in_out: torch.Tensor, rows: int, at: int) -> torch.Tensor:
+    """``w_in_out`` placed at row ``at`` of a zero (rows, out) block."""
+    out = w_in_out.new_zeros((rows, w_in_out.shape[1]))
+    out[at : at + w_in_out.shape[0]] = w_in_out
+    return out
+
+
+def pack_trunk(field, spec, dtype: torch.dtype) -> dict:
+    """The trunk of a ``models.field.Field`` in the kernels' packed layout:
+    weights in ``dtype`` (the compute dtype), biases f32. Differentiable: under
+    grad mode the packed tensors carry autograd history back to the module's
+    parameters (``Field.packed`` caches a detached copy for inference)."""
+    L, cx = spec.layers, spec.cx
+    fc = [field.fc_net[2 * i] for i in range(L)]
+    w0 = place_rows(in_out(fc[0], dtype), cx, 0)
+    mids, skips = [], []
+    for i in range(1, L):
+        w = in_out(fc[i], dtype)
+        if i in spec.skips:
+            # reference concat order is [enc_x, h]
+            skips.append(place_rows(w[: spec.c_in], cx, 0))
+            mids.append(w[spec.c_in :])
+        else:
+            mids.append(w)
+    return {
+        "w0": w0,
+        "w_mid": torch.stack(mids).contiguous(),
+        "w_skip": (torch.stack(skips).contiguous() if skips
+                   else w0.new_zeros((1, cx, spec.feat))),  # placeholder, never read
+        "b": torch.stack([l.bias.to(torch.float32) for l in fc]).contiguous(),
+    }
+
+
+# -----------------------------------------------------------------------
+# forward (K3, K6)
+# -----------------------------------------------------------------------
+
+
+def trunk_chain(spec, x, packed):
+    """The plain trunk: (h_{L-1}, [a_0 .. a_{L-1}]) with every activation and
+    pre-activation in x's dtype, as the kernels store them."""
+    sin = SINE_ENGINES[spec.sin_mode]
+    dt, b = x.dtype, packed["b"]
+    a = dot_f32(x, packed["w0"]) + b[0:1]
+    acts = [a.to(dt)]
+    h = sin(spec.w0 * a).to(dt)
+    for i in range(1, spec.layers):
+        a = dot_f32(h, packed["w_mid"][i - 1])
+        if i in spec.skips:
+            a = a + dot_f32(x, packed["w_skip"][spec.skips.index(i)])
+        a = a + b[i : i + 1]
+        acts.append(a.to(dt))
+        h = sin(a).to(dt)
+    return h, acts
+
+
+def fused_trunk_reference(spec, x, packed, emit_acts: bool = False):
+    """Plain PyTorch version of K3: (N, cx) x -> (h_{L-1} (N, F), the (L, N, F)
+    pre-activations or None), both in x's dtype."""
+    global FWD_PLAIN_CALLS
+    FWD_PLAIN_CALLS += 1
+    h, acts = trunk_chain(spec, x, packed)
+    return h, (torch.stack(acts) if emit_acts else None)
+
+
+class _TrunkArgs(ctypes.Structure):
+    """Mirror of ``struct TrunkArgs`` in csrc/trunk_fwd.cu."""
+
+    _fields_ = (
+        [(k, ctypes.c_void_p) for k in ("x", "out", *TRUNK_KEYS, "acts_out")]
+        + [(k, ctypes.c_int) for k in ("n", "layers", "feat", "cx", "skip_mask",
+                                       "sin_mode", "bf16")]
+        + [("w0_scale", ctypes.c_float)]
+    )
+
+
+def _check_forward(name: str, spec, x, packed) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if spec.feat not in FEAT_WIDTHS:
+        raise ValueError(f"{name} kernel is built for feat in {FEAT_WIDTHS}, "
+                         f"got {spec.feat}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: x {x.dtype} unsupported")
+    if x.ndim != 2 or x.shape[1] != spec.cx or not x.is_contiguous():
+        raise ValueError(f"{name}: x {tuple(x.shape)}, expected (n, {spec.cx}) contiguous")
+    for k in TRUNK_KEYS:
+        t = packed[k]
+        want = torch.float32 if k == "b" else x.dtype
+        if t.device != x.device or not t.is_contiguous() or t.dtype != want:
+            raise ValueError(f"{name}: packed[{k!r}] must be contiguous {want} on {x.device}")
+
+
+def _launch_forward(fn_name: str, spec, x, packed, out, acts) -> None:
+    lib = load_library("trunk_fwd")
+    args = _TrunkArgs()
+    for k, t in (("x", x), ("out", out), ("acts_out", acts),
+                 *((k, packed[k]) for k in TRUNK_KEYS)):
+        setattr(args, k, t.data_ptr() if t is not None else None)
+    args.n, args.layers, args.feat, args.cx = x.shape[0], spec.layers, spec.feat, spec.cx
+    args.skip_mask = sum(1 << i for i in spec.skips)
+    args.sin_mode = SIN_MODES.index(spec.sin_mode)
+    args.bf16 = int(x.dtype == torch.bfloat16)
+    args.w0_scale = spec.w0
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    check_launch(lib, getattr(lib, fn_name)(ctypes.byref(args), ctypes.c_void_p(stream)),
+                 fn_name)
+
+
+def _forward(spec, x, packed, emit_acts: bool):
+    """(out, acts): K3 on CUDA tensors (counted in ``FWD_LAUNCHES``), the plain
+    version on CPU ones."""
+    global FWD_LAUNCHES
+    if x.device.type == "cpu":
+        return fused_trunk_reference(spec, x, packed, emit_acts)
+    _check_forward("fused_trunk", spec, x, packed)
+    n, dev = x.shape[0], x.device
+    out = torch.empty((n, spec.feat), dtype=x.dtype, device=dev)
+    acts = (torch.empty((spec.layers, n, spec.feat), dtype=x.dtype, device=dev)
+            if emit_acts else None)
+    if n:
+        _launch_forward("trunk_fwd_forward", spec, x, packed, out, acts)
+        FWD_LAUNCHES += 1
+    return out, acts
+
+
+class FusedTrunk(torch.autograd.Function):
+    """K3 forward (with the pre-activations for ``trunk_bwd="stored"``);
+    backward = K4 (:func:`trunk_backward`). CPU tensors take the plain
+    versions of both. Only first derivatives exist."""
+
+    @staticmethod
+    def forward(ctx, spec, x, *weights):
+        packed = dict(zip(TRUNK_KEYS, weights))
+        out, acts = _forward(spec, x, packed, emit_acts=spec.trunk_bwd == "stored")
+        ctx.spec = spec
+        ctx.save_for_backward(x, acts, *weights)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, acts, *weights = ctx.saved_tensors
+        need_x = ctx.needs_input_grad[1]
+        gx, *g_trunk = trunk_backward(ctx.spec, x, dict(zip(TRUNK_KEYS, weights)), acts,
+                                      g.contiguous(), need_gx=need_x)
+        return (None, gx if need_x else None,
+                *(gw if need else None for gw, need in zip(g_trunk, ctx.needs_input_grad[2:])))
+
+
+def fused_trunk(spec, x: torch.Tensor, packed: dict) -> torch.Tensor:
+    """(N, cx) packed points in the compute dtype -> (N, F) trunk output
+    h_{L-1} in the same dtype.
+
+    Differentiable in x and the packed tensors (through :class:`FusedTrunk`
+    when grad mode is on and an input requires grad; otherwise no residual is
+    written). CPU tensors run :func:`fused_trunk_reference`; CUDA tensors
+    launch K3 (counted in ``FWD_LAUNCHES``) or raise.
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_trunk: unsupported device {x.device}")
+    weights = [packed[k] for k in TRUNK_KEYS]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *weights)):
+        return FusedTrunk.apply(spec, x, *weights)
+    return _forward(spec, x, packed, emit_acts=False)[0]
+
+
+def fused_trunk_interleaved(spec, x: torch.Tensor, packed: dict) -> torch.Tensor:
+    """K6: :func:`fused_trunk`'s function computed over two interleaved row
+    sub-tiles per block (forward only, as the prototype). Bitwise equal to
+    K3 on the card. CPU tensors run :func:`fused_trunk_reference`; CUDA
+    tensors launch K6 (counted in ``INTERLEAVED_LAUNCHES``) or raise."""
+    global INTERLEAVED_LAUNCHES
+    if x.device.type == "cpu":
+        return fused_trunk_reference(spec, x, packed)[0]
+    _check_forward("fused_trunk_interleaved", spec, x, packed)
+    out = torch.empty((x.shape[0], spec.feat), dtype=x.dtype, device=x.device)
+    if x.shape[0]:
+        _launch_forward("trunk_fwd_interleaved", spec, x, packed, out, None)
+        INTERLEAVED_LAUNCHES += 1
+    return out
+
+
+# -----------------------------------------------------------------------
+# backward (K4)
+# -----------------------------------------------------------------------
 
 
 def _cast_grads(packed: dict, gw0, gwmid, gwskip, gb):

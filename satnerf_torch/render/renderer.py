@@ -12,6 +12,15 @@ weights, transparency, depth and rgb come from the fused compositing
 kernel (``ops/composite.py``), whose backward is a kernel too; the
 solar-correction half and the semantic composite stay plain PyTorch, as
 they are XLA code (not kernels) in the reference.
+
+With ``n_importance > 0`` a hierarchical pass follows: ``n_importance``
+depths per ray drawn by inverse CDF from the coarse weights, merged with the
+coarse ladder and rendered by the fine field (``params["fine"]`` with
+``use_fine_network``, else the coarse one); the coarse result is nested
+under ``"coarse"``. Under autograd, ``remat`` and ``remat_chunks > 1``
+recompute the field in the backward (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint`` and its chunked scan do; without autograd
+there is nothing to keep, so the field runs in one call per pass.
 """
 
 from __future__ import annotations
@@ -20,10 +29,11 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from satnerf_torch.core.compositing import composite_scalar, convert_sigmas
 from satnerf_torch.core.rays import extras_component, ray_component
-from satnerf_torch.core.sampling import sample_rays
+from satnerf_torch.core.sampling import sample_pdf, sample_rays
 from satnerf_torch.device import resolve_device
 from satnerf_torch.models.embeddings import embedding_lookup
 from satnerf_torch.models.field import FieldConfig, field_forward
@@ -40,12 +50,15 @@ class RenderConfig:
     n_samples: int = 64
     solar_correction: bool = True
     perturb: float = 1.0
-    n_importance: int = 0  # hierarchical pass: a later slice
+    # hierarchical pass: n_importance inverse-CDF depths per ray, rendered by
+    # params["fine"] with use_fine_network, else by the coarse field
+    n_importance: int = 0
     use_fine_network: bool = False
     sc_stride: int = 1
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
-    # training-memory knobs (the field's rematerialisation): a later slice;
-    # a render under grad mode with either set raises
+    # training-memory knobs, under autograd only: recompute the field in the
+    # backward (remat), or evaluate it in remat_chunks sequential tiles, each
+    # recomputed in the backward (0/1 disables)
     remat: bool = False
     remat_chunks: int = 0
 
@@ -68,35 +81,36 @@ def render_rays(
     noise: torch.Tensor | None = None,
     given_z_vals: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    u: torch.Tensor | None = None,
 ) -> dict:
     """Render a batch of rays.
 
     Args:
         params: {"field": ``Field`` module, "t": (vocab, tau) table,
-                 "t_s": optional separate semantic table}.
+                 "t_s": optional separate semantic table, "fine": optional
+                 fine ``Field`` for the hierarchical pass}.
         rays: (B, 8) packed, scene-normalised.
         extras: (B, 4) packed sun_dir + ts.
         noise: (B, S) uniform draws for stratified jitter; None gives the
             deterministic ladder used for eval and serving.
         generator: draws ``noise`` (on the rays' device) when it is not
-            given: the training path's stratified sampling.
+            given, then ``u``: the training path's random sampling.
+        u: (B, n_importance) uniform draws of the hierarchical pass; None
+            (and no generator) gives its deterministic ladder.
     Returns:
-        dict of per-ray outputs plus the per-sample tensors the losses read.
+        dict of per-ray outputs plus the per-sample tensors the losses read;
+        with ``n_importance > 0`` the fine pass's, with the coarse pass's
+        nested under "coarse".
     """
-    if rcfg.n_importance > 0:
-        raise NotImplementedError(
-            "n_importance > 0 (the hierarchical pass) is ported in a later slice"
-        )
-    if torch.is_grad_enabled() and (rcfg.remat or rcfg.remat_chunks > 1):
-        raise NotImplementedError(
-            "remat / remat_chunks > 1 under autograd (the field's "
-            "rematerialisation, renderer.py:221-253 of the reference) is "
-            "ported in a later slice"
-        )
     fcfg = rcfg.field
     S = rcfg.n_samples
-    if noise is None and generator is not None and given_z_vals is None:
-        noise = torch.rand((rays.shape[0], S), generator=generator,
+    B = rays.shape[0]
+    if generator is not None:
+        if noise is None and given_z_vals is None:
+            noise = torch.rand((B, S), generator=generator, dtype=rays.dtype,
+                               device=rays.device)
+        if u is None and rcfg.n_importance > 0:
+            u = torch.rand((B, rcfg.n_importance), generator=generator,
                            dtype=rays.dtype, device=rays.device)
     xyz, z_vals = sample_rays(
         rays, S, noise=noise, perturb=rcfg.perturb if noise is not None else 0.0,
@@ -112,8 +126,55 @@ def render_rays(
         if params.get("t_s") is not None:
             t_s_emb = embedding_lookup(params["t_s"], ts)
 
-    return _render_pass(params["field"], rcfg, rays, xyz, z_vals, sun_d,
-                        view_dir, t_emb, t_s_emb)
+    result = _render_pass(params["field"], rcfg, rays, xyz, z_vals, sun_d,
+                          view_dir, t_emb, t_s_emb)
+    if rcfg.n_importance <= 0:
+        return result
+
+    # inverse-CDF depths from the coarse weights (no gradient through them)
+    z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+    z_fine = sample_pdf(z_mid, result["weights"][:, 1:-1].detach(), rcfg.n_importance,
+                        u=u)
+    z_all = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1).values
+    origins = ray_component(rays, "origins")
+    dirs = ray_component(rays, "directions")
+    xyz_all = origins[:, None, :] + dirs[:, None, :] * z_all[..., None]
+    fine_field = params.get("fine") if rcfg.use_fine_network else None
+    fine = _render_pass(fine_field if fine_field is not None else params["field"], rcfg,
+                        rays, xyz_all, z_all, sun_d, view_dir, t_emb, t_s_emb)
+    fine["coarse"] = result
+    return fine
+
+
+def _eval_field(field, fcfg: FieldConfig, dt, n_full, pts, view_dir, sun_d, t_emb,
+                t_s_emb) -> dict:
+    return field_forward(field, fcfg, pts, view_dir=view_dir, sun_d=sun_d, t_emb=t_emb,
+                         t_s_emb=t_s_emb, compute_dtype=dt, n_full=n_full)
+
+
+def _chunked_eval(field, rcfg: RenderConfig, dt, pts, view_dir, sun_d, t_emb, t_s_emb,
+                  heads: bool) -> dict:
+    """The field over ``rcfg.remat_chunks`` sequential point tiles, each
+    recomputed in the backward (the reference's checkpointed scan body). The
+    last tile is padded by repeating the last row. ``heads=False``: sigma and
+    sun_v only (n_full=0), for the solar-correction half."""
+    n, k = pts.shape[0], rcfg.remat_chunks
+    tile_n = -(-n // k)
+    pad = tile_n * k - n
+
+    def prep(x):
+        if x is None or not pad:
+            return x
+        return torch.cat([x, x[-1:].expand(pad, -1)], dim=0)
+
+    arrs = [prep(a) for a in (pts, view_dir, sun_d, t_emb, t_s_emb)]
+    outs = []
+    for c in range(k):
+        part = [None if a is None else a[c * tile_n : (c + 1) * tile_n] for a in arrs]
+        outs.append(checkpoint(_eval_field, field, rcfg.field, dt, None if heads else 0,
+                               *part, use_reentrant=False, preserve_rng_state=False))
+    return {key: torch.cat([o[key] for o in outs], dim=0)[: n if outs[0][key].shape[0] else 0]
+            for key in outs[0]}
 
 
 def _render_pass(field, rcfg: RenderConfig, rays, xyz, z_vals, sun_d, view_dir,
@@ -151,12 +212,30 @@ def _render_pass(field, rcfg: RenderConfig, rays, xyz, z_vals, sun_d, view_dir,
             return torch.cat([_per_point(x, S), _per_point(x, S_sc)], dim=0)
         return _per_point(x, S)
 
-    raw = field_forward(
-        field, fcfg, pts, view_dir=tile(view_dir), sun_d=tile(sun_d),
-        t_emb=tile(t_emb), t_s_emb=tile(t_s_emb),
-        compute_dtype=None if rcfg.compute_dtype == "float32" else rcfg.dtype,
-        n_full=B * S if run_sc else None,
-    )
+    dt = None if rcfg.compute_dtype == "float32" else rcfg.dtype
+    under_grad = torch.is_grad_enabled()
+    if rcfg.remat_chunks > 1 and under_grad:
+        # the main (heads-on) and solar-correction (sigma + sun only) halves
+        # in separate chunked evaluations, as the reference's scans
+        per_ray = (view_dir, sun_d, t_emb, t_s_emb)
+        raw = _chunked_eval(field, rcfg, dt, xyz.reshape(-1, 3),
+                            *(None if x is None else _per_point(x, S) for x in per_ray),
+                            heads=True)
+        if run_sc:
+            raw_sc = _chunked_eval(field, rcfg, dt, xyz_sc.reshape(-1, 3),
+                                   *(None if x is None else _per_point(x, S_sc)
+                                     for x in per_ray), heads=False)
+            raw = dict(raw)
+            for k in ("sigma", "sun_v"):
+                raw[k] = torch.cat([raw[k], raw_sc[k]], dim=0)
+    else:
+        args = (field, fcfg, dt, B * S if run_sc else None, pts, tile(view_dir),
+                tile(sun_d), tile(t_emb), tile(t_s_emb))
+        if rcfg.remat and under_grad:
+            raw = checkpoint(_eval_field, *args, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            raw = _eval_field(*args)
 
     def unflat(x, rows, n_s):
         if x.ndim == 1:
@@ -236,6 +315,13 @@ def render_image_chunked(
             r = torch.cat([r, r[-1:].expand(pad, -1)], dim=0)
             e = torch.cat([e, e[-1:].expand(pad, -1)], dim=0)
         res = render_rays(params, rcfg, r.to(dev), e.to(dev))
+        # the hierarchical pass nests the coarse result: keep its per-ray
+        # outputs as "<k>_coarse" and drop its per-sample tensors
+        coarse = res.pop("coarse", None)
+        if coarse is not None:
+            for k in ("rgb", "depth", "semantic_logits", "semantic_label"):
+                if k in coarse:
+                    res[f"{k}_coarse"] = coarse[k]
         keep = chunk - pad
         outs.append({k: v[:keep].cpu().numpy() for k, v in res.items()})
     return {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}

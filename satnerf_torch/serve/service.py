@@ -1,10 +1,12 @@
 """RenderService: field weights loaded once onto the card, rendered many times
 (port of ``satnerf_tpu/serve/service.py``).
 
-Weights stay resident on the device, already packed for the fused field
-kernel; a lock serialises device access, and ``stats()`` counts requests,
-rays and render seconds. The solar-correction pass is off, as in every
-eval/serve consumer of the reference (satnerf_tpu/eval/loader.py).
+Weights stay resident on the device, already packed for the kernels (K1's
+whole field, or K3's trunk for the ablation fields); a hierarchical model's
+fine field is kept beside the coarse one and renders the fine pass. A lock
+serialises device access, and ``stats()`` counts requests, rays and render
+seconds. The solar-correction pass is off, as in every eval/serve consumer
+of the reference (satnerf_tpu/eval/loader.py).
 
 Not ported yet: ``render(view)`` (RPC view resolution) and the HTTP front
 end, which come with the host layer.
@@ -21,7 +23,7 @@ import torch
 
 from satnerf_torch.configs import load_render_config
 from satnerf_torch.device import disable_tf32, resolve_device
-from satnerf_torch.models.field import Field, use_fused_field
+from satnerf_torch.models.field import Field, use_fused_field, use_fused_trunk
 from satnerf_torch.models.import_params import load_lightning_ckpt
 from satnerf_torch.render.renderer import RenderConfig, render_image_chunked
 
@@ -43,8 +45,9 @@ SEMANTIC_CLASS_COLOR_MAPPING = np.array(
 class RenderService:
     """Persistent renderer over one set of field weights.
 
-    ``params``: {"field": ``Field`` module or its state dict, "t": (vocab,
-    tau) table, "t_s": optional table}.
+    ``params``: {"field": ``Field`` module or its state dict, "fine":
+    optional fine field (module or state dict), "t": (vocab, tau) table,
+    "t_s": optional table}.
     """
 
     def __init__(self, params: dict, rcfg: RenderConfig, chunk: int = 16384,
@@ -54,28 +57,33 @@ class RenderService:
             disable_tf32()  # the plain f32 path runs in full f32, as JAX does
         self.rcfg = replace(rcfg, solar_correction=False)
         self.chunk = int(chunk)
-        field = params["field"]
-        if not isinstance(field, Field):
-            state = field
-            field = Field(self.rcfg.field)
-            field.load_state_dict(state)
-        field = field.to(self.device).eval()
-        self.params = {"field": field}
+        self.params = {}
+        for key in ("field", "fine"):
+            field = params.get(key)
+            if field is None:
+                continue
+            if not isinstance(field, Field):
+                state = field
+                field = Field(self.rcfg.field)
+                field.load_state_dict(state)
+            self.params[key] = field = field.to(self.device).eval()
+            if use_fused_field(self.rcfg.field) or use_fused_trunk(self.rcfg.field):
+                field.packed(self.rcfg.dtype)  # pack once, keep on the device
         for key in ("t", "t_s"):
             if params.get(key) is not None:
                 self.params[key] = torch.as_tensor(params[key]).to(
                     self.device, torch.float32
                 )
-        if use_fused_field(self.rcfg.field):
-            field.packed(self.rcfg.dtype)  # pack once, keep on the device
         self._lock = threading.Lock()
         self._stats = {"requests": 0, "rays": 0, "render_seconds": 0.0}
 
     @classmethod
     def from_checkpoint(cls, ckpt_fp: str, pipeline_toml: str, n_classes: int = 5,
                         chunk: int = 16384, device=None, **overrides):
-        """Reference-format checkpoint + pipeline TOML -> service.
-        ``overrides`` replace pipeline keys (e.g. ``trunk_impl="pallas"``)."""
+        """Reference-format checkpoint + pipeline TOML -> service; a
+        checkpoint with ``model_fine.*`` entries serves its fine field in the
+        hierarchical pass. ``overrides`` replace pipeline keys (e.g.
+        ``trunk_impl="pallas"``)."""
         dev = resolve_device(device)
         rcfg = load_render_config(pipeline_toml, n_classes=n_classes,
                                   device=dev, **overrides)

@@ -20,11 +20,14 @@ from satnerf_torch.train.schedule import make_lr_schedule
 
 
 def init_params(generator: torch.Generator | None, fcfg: FieldConfig,
-                t_vocab: int = 50, device=None) -> dict:
-    """{"field": ``Field``, "t": table, "t_s": table} on ``device`` (None:
-    the card), made from ``generator``; the tables are trainable leaves."""
+                t_vocab: int = 50, device=None, use_fine_network: bool = False) -> dict:
+    """{"field": ``Field``, "fine": ``Field`` (with ``use_fine_network``),
+    "t": table, "t_s": table} on ``device`` (None: the card), made from
+    ``generator`` in that order; the tables are trainable leaves."""
     dev = resolve_device(device)
     params = {"field": Field(fcfg, generator=generator).to(dev)}
+    if use_fine_network:
+        params["fine"] = Field(fcfg, generator=generator).to(dev)
     if fcfg.has_beta:
         params["t"] = init_embedding(t_vocab, fcfg.t_embedding_tau, generator,
                                      dev, requires_grad=True)
@@ -35,8 +38,11 @@ def init_params(generator: torch.Generator | None, fcfg: FieldConfig,
 
 
 def trainable(params: dict) -> list:
-    """The parameters Adam updates, in a fixed order."""
+    """The parameters Adam updates, in a fixed order: the coarse field's,
+    the fine field's, then the tables."""
     out = list(params["field"].parameters())
+    if params.get("fine") is not None:
+        out += list(params["fine"].parameters())
     out += [params[k] for k in ("t", "t_s") if params.get(k) is not None]
     return out
 

@@ -8,6 +8,9 @@ As in the reference:
   from the step counter;
 * depth supervision is a static flag (``StepConfig.depth``), and the depth
   rays are rendered without the solar-correction pass;
+* with the hierarchical pass (``n_importance > 0``) the rgb, depth and
+  semantic losses run over the fine result and, under the ``c_`` prefix,
+  the coarse one; car-reg and the semantic accuracy read the fine result;
 * ``grad_accum = K`` splits the batch into K micro-steps whose gradients are
   summed, then scaled by 1/K before one update; leaves with fewer than K
   rows go whole into every micro-step, others are trimmed to a multiple of K.
@@ -86,60 +89,75 @@ def compute_losses(scfg: StepConfig, params: dict, batch: dict, step: int,
             beta_active = _f32(float(epoch >= scfg.first_beta_epoch), dev)
         loss_dict["beta_loss_activated"] = beta_active
 
+    # with the hierarchical pass the fine result is the primary one and the
+    # coarse pass is supervised too, its terms under the "c_" prefix
+    rgb_passes = [("", results)]
+    if "coarse" in results:
+        rgb_passes.append(("c_", results["coarse"]))
+
     gt = batch["rgbs"]
-    if scfg.variant == "nerf":
-        loss, rgb_dict = losses.nerf_loss(results, gt)
-    elif scfg.variant == "snerf":
-        loss, rgb_dict = losses.snerf_loss(results, gt, scfg.sc_lambda, sc_on)
-    else:
-        l_beta, d_beta = losses.satnerf_loss(results, gt, scfg.sc_lambda, sc_on)
-        l_plain, d_plain = losses.snerf_loss(results, gt, scfg.sc_lambda, sc_on)
-        loss = beta_active * l_beta + (1.0 - beta_active) * l_plain
-        rgb_dict = {
-            "coarse_color": beta_active * d_beta["coarse_color"]
-            + (1.0 - beta_active) * d_plain["coarse_color"],
-            "coarse_logbeta": beta_active * d_beta["coarse_logbeta"],
-        }
-        if sc_on:
-            rgb_dict["coarse_sc_term2"] = d_beta["coarse_sc_term2"]
-            rgb_dict["coarse_sc_term3"] = d_beta["coarse_sc_term3"]
-    loss_dict.update(rgb_dict)
+    loss = None
+    for prefix, res in rgb_passes:
+        if scfg.variant == "nerf":
+            rgb_loss, rgb_dict = losses.nerf_loss(res, gt)
+        elif scfg.variant == "snerf":
+            rgb_loss, rgb_dict = losses.snerf_loss(res, gt, scfg.sc_lambda, sc_on)
+        else:
+            l_beta, d_beta = losses.satnerf_loss(res, gt, scfg.sc_lambda, sc_on)
+            l_plain, d_plain = losses.snerf_loss(res, gt, scfg.sc_lambda, sc_on)
+            rgb_loss = beta_active * l_beta + (1.0 - beta_active) * l_plain
+            rgb_dict = {
+                "coarse_color": beta_active * d_beta["coarse_color"]
+                + (1.0 - beta_active) * d_plain["coarse_color"],
+                "coarse_logbeta": beta_active * d_beta["coarse_logbeta"],
+            }
+            if sc_on:
+                rgb_dict["coarse_sc_term2"] = d_beta["coarse_sc_term2"]
+                rgb_dict["coarse_sc_term3"] = d_beta["coarse_sc_term3"]
+        loss = rgb_loss if loss is None else loss + rgb_loss
+        loss_dict.update({prefix + k: v for k, v in rgb_dict.items()})
 
     if scfg.depth:
         d_results = render_rays(params, replace(scfg.render, solar_correction=False),
                                 batch["depth_rays"], batch["depth_extras"],
                                 generator=generator)
         kp_w = 1.0 if scfg.ds_noweights else batch["depth_weights"].reshape(-1)
-        d_loss, d_dict = losses.depth_loss(
-            d_results, batch["depth_depths"].reshape(-1), kp_w, scfg.ds_lambda)
-        loss = loss + d_loss
-        loss_dict.update(d_dict)
+        depth_passes = [("", d_results)]
+        if "coarse" in d_results:
+            depth_passes.append(("c_", d_results["coarse"]))
+        for prefix, dres in depth_passes:
+            d_loss, d_dict = losses.depth_loss(
+                dres, batch["depth_depths"].reshape(-1), kp_w, scfg.ds_lambda)
+            loss = loss + d_loss
+            loss_dict.update({prefix + k: v for k, v in d_dict.items()})
         loss_dict["depth_loss_activated"] = _f32(1.0, dev)
 
     if scfg.semantic:
         sem = batch["semantic"]
         sem_mask = batch.get("semantic_sparsity_mask")
-        l_plain_s, d_plain_s = losses.semantic_loss(
-            results, sem, sem_mask, scfg.lambda_s, scfg.car_index,
-            scfg.ignore_car_index)
-        if scfg.use_beta_for_s:
-            l_unc_s, d_unc_s = losses.semantic_uncertainty_loss(
-                results, sem, sem_mask, scfg.lambda_s, scfg.car_index,
-                scfg.ignore_car_index, scfg.detach_beta_for_s)
-            sem_loss = beta_active * l_unc_s + (1.0 - beta_active) * l_plain_s
-            loss_dict["coarse_semantic"] = (
-                beta_active * d_unc_s["coarse_semantic"]
-                + (1.0 - beta_active) * d_plain_s["coarse_semantic"])
-            if "coarse_semantic_logbeta" in d_unc_s:
-                loss_dict["coarse_semantic_logbeta"] = (
-                    beta_active * d_unc_s["coarse_semantic_logbeta"])
-            loss_dict["semantic_beta_loss_activated"] = beta_active
-        else:
-            sem_loss = l_plain_s
-            loss_dict.update(d_plain_s)
-            loss_dict["semantic_beta_loss_activated"] = _f32(0.0, dev)
-        loss = loss + sem_loss
+        for prefix, res in rgb_passes:
+            l_plain_s, d_plain_s = losses.semantic_loss(
+                res, sem, sem_mask, scfg.lambda_s, scfg.car_index,
+                scfg.ignore_car_index)
+            if scfg.use_beta_for_s:
+                l_unc_s, d_unc_s = losses.semantic_uncertainty_loss(
+                    res, sem, sem_mask, scfg.lambda_s, scfg.car_index,
+                    scfg.ignore_car_index, scfg.detach_beta_for_s)
+                sem_loss = beta_active * l_unc_s + (1.0 - beta_active) * l_plain_s
+                loss_dict[prefix + "coarse_semantic"] = (
+                    beta_active * d_unc_s["coarse_semantic"]
+                    + (1.0 - beta_active) * d_plain_s["coarse_semantic"])
+                if "coarse_semantic_logbeta" in d_unc_s:
+                    loss_dict[prefix + "coarse_semantic_logbeta"] = (
+                        beta_active * d_unc_s["coarse_semantic_logbeta"])
+                loss_dict["semantic_beta_loss_activated"] = beta_active
+            else:
+                sem_loss = l_plain_s
+                loss_dict.update({prefix + k: v for k, v in d_plain_s.items()})
+                loss_dict["semantic_beta_loss_activated"] = _f32(0.0, dev)
+            loss = loss + sem_loss
 
+        # car-reg and the accuracy read the fine (primary) result only
         if scfg.use_car_reg_loss:
             car_active = _f32(float(epoch >= scfg.car_reg_loss_start), dev)
             l_car, d_car = losses.semantic_car_reg_loss(

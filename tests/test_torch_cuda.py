@@ -1,5 +1,6 @@
-"""Each CUDA kernel of satnerf_torch (K1 with its residuals, K2, K4, K5 and
-its backward) against its plain PyTorch version, on the card. Marked
+"""Each CUDA kernel of satnerf_torch (K1 with its residuals, K2, K3 and its
+interleaved variant K6, K4, K5 and its backward) against its plain PyTorch
+version, on the card. Marked
 ``cuda``: without a GPU every test here skips.
 
 The file imports neither JAX nor the JAX package, so it runs on a machine
@@ -165,3 +166,102 @@ def test_cuda_composite_backward_matches_plain(cuda_device, b, s):
                                (1e-6, 1e-5, 1e-6, 1e-6)):
         assert float((a - r).abs().max()) <= tol, name
     assert torch.all(got[0][:4] == 0)
+
+
+def _trunk_case(cuda_device, n=1001, **cfg_kw):
+    from satnerf_torch.core.encoding import positional_encoding
+    from satnerf_torch.models.field import Field, FieldConfig, fused_field_spec
+
+    cfg = FieldConfig(variant="rs_semantic", layers=4, feat=512, skips=(2,), mapping=True,
+                      trunk_impl="pallas", use_separate_beta_for_s=True, **cfg_kw)
+    field = Field(cfg, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    g = torch.Generator().manual_seed(4)
+    enc = positional_encoding(torch.rand(n, 3, generator=g) * 2 - 1, 10).to(cuda_device)
+    return cfg, field, fused_field_spec(cfg), enc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("emit_acts", [False, True])
+def test_cuda_trunk_kernel_matches_plain(cuda_device, dtype, emit_acts, record_property):
+    """K3 against its plain version at feat 512 on 1,001 points (ragged
+    against the 32-row tile), bitwise repeatable; K6 bitwise equal to K3."""
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    _, field, spec, enc = _trunk_case(cuda_device)
+    with torch.no_grad():
+        packed = field.packed(dtype)
+        x = ff.pack_x(spec, enc, dtype)
+        before = (trunk.FWD_LAUNCHES, trunk.INTERLEAVED_LAUNCHES)
+        out, acts = trunk._forward(spec, x, packed, emit_acts)
+        again, acts2 = trunk._forward(spec, x, packed, emit_acts)
+        il = trunk.fused_trunk_interleaved(spec, x, packed)
+        torch.cuda.synchronize()
+        assert (trunk.FWD_LAUNCHES, trunk.INTERLEAVED_LAUNCHES) == (before[0] + 2, before[1] + 1)
+        ref, ref_acts = trunk.fused_trunk_reference(spec, x, packed, emit_acts)
+        # K6 is bitwise the K3 variant without residuals (the residual store
+        # changes how nvcc contracts layer 0's sine argument)
+        k3 = out if not emit_acts else trunk._forward(spec, x, packed, False)[0]
+    assert out.dtype == dtype and out.shape == (x.shape[0], 512)
+    assert torch.equal(out, again) and torch.equal(il, k3)
+    # chip_smoke.py TOL_FIELD / TOL_RESID say why bf16 has its own bar
+    err = float((out.float() - ref.float()).abs().max())
+    record_property("max_abs_err", err)
+    assert err < (5e-5 if dtype == torch.float32 else 2e-2)
+    if emit_acts:
+        assert acts.shape == (spec.layers, x.shape[0], 512) and torch.equal(acts, acts2)
+        assert _rel(acts, ref_acts) < (5e-5 if dtype == torch.float32 else 4e-2)
+    else:
+        assert acts is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bwd", ["recompute", "stored"])
+def test_cuda_fused_trunk_backward_matches_plain(cuda_device, bwd):
+    """FusedTrunk (K3 forward, K4 backward) against the plain forward and
+    backward on the same inputs, f32."""
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    _, field, spec, enc = _trunk_case(cuda_device, trunk_bwd=bwd)
+    packed = {k: v.clone().requires_grad_(True) for k, v in field.packed(torch.float32).items()}
+    x = ff.pack_x(spec, enc, torch.float32).requires_grad_(True)
+    cot = torch.randn(x.shape[0], 512, generator=torch.Generator().manual_seed(5))
+    cot = cot.to(cuda_device)
+    before = (trunk.FWD_LAUNCHES, trunk.LAUNCHES)
+    grads = torch.autograd.grad(trunk.fused_trunk(spec, x, packed),
+                                [x] + [packed[k] for k in trunk.TRUNK_KEYS], cot)
+    torch.cuda.synchronize()
+    assert (trunk.FWD_LAUNCHES, trunk.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    plain = {k: v.detach() for k, v in packed.items()}
+    _, acts = trunk.fused_trunk_reference(spec, x.detach(), plain, emit_acts=True)
+    ref = trunk.trunk_backward_reference(spec, x.detach(), plain,
+                                         acts if bwd == "stored" else None, cot)
+    assert max(_rel(a, b) for a, b in zip(grads, ref)) < 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_tj_instead_of_beta_field_runs_k3(cuda_device):
+    """The use_tj_instead_of_beta field through K3 on the card against the
+    same field's plain path on the CPU (5e-5, the field bar)."""
+    from satnerf_torch.models.field import Field, field_forward
+    from satnerf_torch.ops import trunk
+
+    cfg, field, spec, _ = _trunk_case(cuda_device, use_tj_instead_of_beta=True)
+    g = torch.Generator().manual_seed(6)
+    xyz = torch.rand(777, 3, generator=g) * 2 - 1
+    sun = torch.nn.functional.normalize(torch.randn(777, 3, generator=g), dim=1)
+    te = torch.randn(777, 4, generator=g)
+    cpu_field = Field(cfg)
+    cpu_field.load_state_dict({k: v.cpu() for k, v in field.state_dict().items()})
+    before = trunk.FWD_LAUNCHES
+    with torch.no_grad():
+        got = field_forward(field, cfg, xyz.to(cuda_device), sun_d=sun.to(cuda_device),
+                            t_emb=te.to(cuda_device), n_full=500)
+        torch.cuda.synchronize()
+        ref = field_forward(cpu_field, cfg, xyz, sun_d=sun, t_emb=te, n_full=500)
+    assert trunk.FWD_LAUNCHES == before + 1
+    assert set(got) == set(ref)
+    for k in ref:
+        assert float((got[k].cpu() - ref[k]).abs().max()) < 5e-5, k

@@ -5,7 +5,8 @@ The same weights (JAX ``init_field_params``, carried over by
 Each port engine ("xla": layer by layer; "pallas": the fused kernel's plain
 version on the CPU) is held against each JAX engine ("xla", and "pallas" in
 interpret mode). Bars: 5e-5 abs in f32 (tests/test_pallas_trunk.py:61),
-0.1 in bf16 (:78). The flagship 8x512 case is in test_torch_field_fused.py.
+0.1 in bf16 (:78). The flagship 8x512 case is in test_torch_field_fused.py;
+the trunk-only kernel's ablation fields in test_torch_trunk.py.
 """
 
 import functools
@@ -107,11 +108,23 @@ def test_unfused_semantic_options_match_jax(flag):
 
 
 def test_pallas_on_unfused_config_raises():
-    """The fused_trunk case is a later slice: no silent fallback."""
+    """trunk_impl="pallas" outside the fused field, which once raised, takes
+    the trunk-only kernel's path (its plain version on the CPU), never a
+    silent layer-by-layer fallback; the kernel wrapper raises on a device it
+    cannot launch on (the name is kept so that the test's history stays
+    one)."""
+    from satnerf_torch.ops import trunk as ttrunk
+
     kw = dict(variant="rs_semantic", layers=3, feat=256, skips=(1,), mapping=True,
               use_tj_instead_of_beta=True, trunk_impl="pallas")
     _, _, tcfg, module = field_pair(**kw)
-    assert not tfield.use_fused_field(tcfg)
+    assert not tfield.use_fused_field(tcfg) and tfield.use_fused_trunk(tcfg)
     xyz, sun, view, te, _ = (torch.from_numpy(a) for a in field_inputs(8))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    before = ttrunk.FWD_PLAIN_CALLS
+    with torch.no_grad():
         module(xyz, sun_d=sun, t_emb=te)
+    assert ttrunk.FWD_PLAIN_CALLS == before + 1
+    spec = tfield.fused_field_spec(tcfg)
+    meta = torch.empty((8, spec.cx), device="meta")
+    with pytest.raises(ValueError):
+        ttrunk.fused_trunk(spec, meta, module.packed(torch.float32))

@@ -136,14 +136,23 @@ def test_nerf_render_matches_jax():
 
 
 def test_unported_and_degenerate_options_raise():
+    """No option is left unported: the hierarchical pass, which once raised,
+    renders; a degenerate sc_stride still raises (the name is kept so that
+    the test's history stays one)."""
     _, _, tcfg, module = field_pair(**FIELD)
     rays, extras = (torch.from_numpy(a) for a in synthetic_rays(4))
     params = {"field": module, "t": torch.from_numpy(_table())}
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tr.render_rays(params, tr.RenderConfig(field=tcfg, n_importance=8), rays, extras)
-    with pytest.raises(ValueError, match="sc_stride"):
-        tr.render_rays(params, tr.RenderConfig(field=tcfg, n_samples=8, sc_stride=5),
-                       rays, extras)
+    # every option of the reference is ported: the hierarchical pass renders
+    with torch.no_grad():
+        out = tr.render_rays(params, tr.RenderConfig(field=tcfg, n_samples=8,
+                                                     n_importance=8), rays, extras)
+    assert out["weights"].shape == (4, 16) and out["coarse"]["weights"].shape == (4, 8)
+    # a stride that leaves fewer than 2 solar-correction rungs raises, with or
+    # without the hierarchical pass
+    for over in (dict(n_samples=8, sc_stride=5), dict(n_samples=4, n_importance=60,
+                                                      sc_stride=3)):
+        with pytest.raises(ValueError, match="sc_stride"):
+            tr.render_rays(params, tr.RenderConfig(field=tcfg, **over), rays, extras)
 
 
 # -- core math ---------------------------------------------------------------
