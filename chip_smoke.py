@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (satnerf_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the CUDA kernels from ``satnerf_torch/csrc`` and runs, printing one
 JSON line per phase:
 
 1. device and toolchain;
-2. the kernel build (one nvcc per source, in parallel);
+2. the kernel build (one nvcc per source, in parallel), with the HGMMA
+   (wgmma) count in each backward kernel's SASS and its registers and spills;
 3. the sine engines of ``csrc/sine.cuh`` and their cosines against
    ``ops/fastmath.py``;
 4. the fused field kernel against its plain PyTorch version at the
@@ -30,7 +31,12 @@ JSON line per phase:
    of every kernel and no plain version; one 32-ray step held against the
    same step on the CPU; one step with the "stored" trunk backward held
    against "recompute"; CUDA-event times of each kernel at the training
-   shapes;
+   shapes, K2 and K4 in f32 and bf16 with their row-GEMM launches and
+   reductions apart, beside both bounds and one torch.matmul per building
+   block (with ``--parent DIR``, an older checkout's K2/K4 in turns with
+   these, each in its own process, and K1/K3 held bit for bit against it);
+   ``torch.profiler`` over two steady steps (kernels by device time, the
+   device's idle share);
 10. the trunk-only kernel K3 against its plain version at the flagship
    width (f32 and bf16, with and without the "stored" pre-activations, each
    run twice for bitwise-equal results) and its interleaved variant K6 bit
@@ -60,12 +66,14 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager as contextlib_contextmanager
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PIPELINE_TOML = os.path.join(REPO, "configs", "pipelines", "rs_semantic.toml")
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # tf32 tensor cores (3xTF32 f32 products: 3 passes)
 PEAK_BF16_FLOPS = 989e12  # bf16 tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
@@ -495,18 +503,17 @@ def train_phase(dev, vocab: int, name: str = "train", overrides: dict | None = N
     return {"launches": got, "scfg": scfg, "params": state.params}
 
 
-def train_times_phase(dev, scfg, params) -> dict:
+def train_times_phase(dev, scfg, params, parent: str | None) -> dict:
     """CUDA-event times of each kernel and its plain version at the shapes of
-    one flagship training step (65,536 points, f32), with the bounds."""
-    import dataclasses
-
+    one flagship training step (65,536 points, f32), with the bounds; K2 and
+    K4 (f32 and bf16, split into row launches and reductions, with the
+    parent's times under ``--parent``) come from bwd_times."""
     import torch
 
     from satnerf_torch.core.encoding import positional_encoding
     from satnerf_torch.models.field import fused_field_spec
     from satnerf_torch.ops import composite as comp
     from satnerf_torch.ops import field_fused as ff
-    from satnerf_torch.ops import trunk
 
     fcfg = scfg.render.field
     n = TRAIN_RAYS * scfg.render.n_samples
@@ -515,7 +522,6 @@ def train_times_phase(dev, scfg, params) -> dict:
                               fcfg.mapping_pos_n_freq).to(dev)
     sun = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1).to(dev)
     te = torch.randn(n, fcfg.t_embedding_tau, generator=g).to(dev)
-    g_out = torch.randn(n, ff.OUT_W, generator=g).to(dev)
     dt, f4 = torch.float32, 4
     out = {}
 
@@ -529,42 +535,16 @@ def train_times_phase(dev, scfg, params) -> dict:
     with torch.no_grad():
         packed = params["field"].packed(dt)
         w_bytes = sum(t.numel() * t.element_size() for t in packed.values())
-        for bwd in ("recompute", "stored"):
-            spec = dataclasses.replace(fused_field_spec(fcfg), trunk_bwd=bwd)
-            x = ff.pack_x(spec, enc, dt)
-            aux = ff.pack_aux(spec, sun, te, None, dt)
-            res = ff._forward(spec, x, aux, packed, resid=True)
-            shared, acts = res[1], res[2]
-            io = (x.numel() + aux.numel()) * f4
-            if bwd == "recompute":
-                k1 = cuda_ms(lambda: ff._forward(spec, x, aux, packed, True), reps=3)
-                k1p = cuda_ms(lambda: ff._reference_forward(spec, x, aux, packed, True),
-                              reps=2)
-                out["field_fused"] = entry(
-                    k1, k1p, 2.0 * spec.mac_per_point() * n,
-                    io + w_bytes + n * (ff.OUT_W + spec.feat) * f4, [n, spec.cx])
-                h = ff.heads_backward(spec, shared, aux, g_out, packed)
-                k2 = cuda_ms(lambda: ff.heads_backward(spec, shared, aux, g_out, packed),
-                             reps=3)
-                k2p = cuda_ms(lambda: ff.heads_backward_reference(spec, shared, aux, g_out,
-                                                                  packed), reps=2)
-                head_w = sum(packed[k].numel() * f4 for k in spec.head_keys())
-                out["heads_bwd"] = entry(
-                    k2, k2p, 2.0 * spec.heads_bwd_mac_per_point() * n,
-                    (shared.numel() + aux.numel() + g_out.numel()) * f4
-                    + (shared.numel() + aux.numel()) * f4 + 2 * head_w, [n, spec.feat])
-                g_shared = h[0]
-            trunk_w = sum(packed[k].numel() * f4 for k in ff.TRUNK_KEYS)
-            k4 = cuda_ms(lambda: trunk.trunk_backward(spec, x, packed, acts, g_shared,
-                                                      need_gx=False), reps=3)
-            k4p = cuda_ms(lambda: trunk.trunk_backward_reference(spec, x, packed, acts,
-                                                                 g_shared), reps=2)
-            in_bytes = (x.numel() + g_shared.numel()
-                        + (acts.numel() if acts is not None else 0)) * f4
-            out[f"trunk_bwd_{bwd}"] = entry(
-                k4, k4p, 2.0 * spec.trunk_bwd_mac_per_point() * n,
-                in_bytes + 2 * trunk_w, [n, spec.feat])
-            del res, shared, acts
+        spec = fused_field_spec(fcfg)
+        x = ff.pack_x(spec, enc, dt)
+        aux = ff.pack_aux(spec, sun, te, None, dt)
+        io = (x.numel() + aux.numel()) * f4
+        k1 = cuda_ms(lambda: ff._forward(spec, x, aux, packed, True), reps=3)
+        k1p = cuda_ms(lambda: ff._reference_forward(spec, x, aux, packed, True), reps=2)
+        out["field_fused"] = entry(
+            k1, k1p, 2.0 * spec.mac_per_point() * n,
+            io + w_bytes + n * (ff.OUT_W + spec.feat) * f4, [n, spec.cx])
+        del x, aux
 
     # compositing at the main render's shape: (1,024 rays, 64 samples)
     b, s = TRAIN_RAYS, scfg.render.n_samples
@@ -590,8 +570,288 @@ def train_times_phase(dev, scfg, params) -> dict:
     # write the gradients of sigma, albedo, sun and sky
     cb_bytes = 4 * (b * s * 8 + b * 3 + 2 * b * s + b + 3 * b) + 4 * (b * s * 5 + 3 * b)
     out["composite_bwd"] = entry(kb, kbp, 60.0 * b * s, cb_bytes, [b, s])
-    emit({"phase": "train_kernel_times", "dtype": "float32", "times": out})
+    bwd, extra = bwd_times(dev, parent)
+    emit({"phase": "train_kernel_times", "dtype": "float32 (K2, K4: and bfloat16)",
+          "times": {**out, **bwd}, **extra})
+    return {**out, **bwd}
+
+
+@contextlib_contextmanager
+def timed_blocks(rec: list):
+    """Record CUDA events around every row-GEMM launch and every reduction of
+    K2 and K4 (the two helpers of ``ops/_bwd.py``) into ``rec``."""
+    import torch
+
+    from satnerf_torch.ops import _bwd
+
+    saved = _bwd.row_op, _bwd.reduce_op
+
+    def wrap(kind, fn):
+        def call(*args, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn(*args, **kw)
+            e.record()
+            rec.append((kind, s, e))
+        return call
+
+    _bwd.row_op, _bwd.reduce_op = wrap("row", saved[0]), wrap("reduce", saved[1])
+    try:
+        yield
+    finally:
+        _bwd.row_op, _bwd.reduce_op = saved
+
+
+def flagship_case(dev, enc_copies: int = 1) -> dict:
+    """The flagship field from seed 0 and seeded inputs at the training shape
+    (65,536 points; ``enc_copies`` times as many encoded positions): the
+    set-up port_times and bwd_times share."""
+    import torch
+
+    from satnerf_torch.configs import load_render_config
+    from satnerf_torch.core.encoding import positional_encoding
+    from satnerf_torch.models.field import Field
+    from satnerf_torch.ops import field_fused as ff
+
+    rcfg = load_render_config(PIPELINE_TOML, device=dev, trunk_impl="pallas")
+    fcfg = rcfg.field
+    n = TRAIN_RAYS * rcfg.n_samples
+    g = torch.Generator().manual_seed(11)
+    return {
+        "fcfg": fcfg, "n": n,
+        "field": Field(fcfg, generator=torch.Generator().manual_seed(0)).to(dev).eval(),
+        "enc": positional_encoding(torch.rand(enc_copies * n, 3, generator=g) * 2 - 1,
+                                   fcfg.mapping_pos_n_freq).to(dev),
+        "sun": torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1).to(dev),
+        "te": torch.randn(n, fcfg.t_embedding_tau, generator=g).to(dev),
+        "g_out": torch.randn(n, ff.OUT_W, generator=g).to(dev),
+    }
+
+
+def port_times(dev, save: str | None = None, reps: int = 3) -> dict:
+    """CUDA-event times at the flagship training shapes of K2 and K4 (both
+    engines; 65,536 points, f32 and bf16), each with its row-GEMM launches
+    and its reductions summed apart, and of K1 with residuals (65,536) and
+    K3 (131,072) in f32, on a field from seed 0. With ``save``, K1's and K3's
+    outputs go to that file. It calls only entry points that every slice of
+    the port has, so ``--tree`` runs it on an older checkout too."""
+    import dataclasses
+
+    import torch
+
+    from satnerf_torch.models.field import fused_field_spec
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    case = flagship_case(dev, enc_copies=2)  # K3 runs on 131,072 points
+    fcfg, field, n = case["fcfg"], case["field"], case["n"]
+    enc, sun, te, g_out = (case[k] for k in ("enc", "sun", "te", "g_out"))
+
+    def split(fn):
+        ms = cuda_ms(fn, reps=reps)
+        rec = []
+        with timed_blocks(rec):
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+        row = [s.elapsed_time(e) for k, s, e in rec if k == "row"]
+        red = [s.elapsed_time(e) for k, s, e in rec if k == "reduce"]
+        return {"ms": ms, "row_ms": sum(row) / reps, "reduce_ms": sum(red) / reps,
+                "row_launches": len(row) // reps, "reductions": len(red) // reps}
+
+    out, saved = {}, {}
+    with torch.no_grad():
+        for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            packed = field.packed(dt)
+            for bwd in ("recompute", "stored"):
+                spec = dataclasses.replace(fused_field_spec(fcfg), trunk_bwd=bwd)
+                x = ff.pack_x(spec, enc[:n], dt)
+                aux = ff.pack_aux(spec, sun, te, None, dt)
+                res = ff._forward(spec, x, aux, packed, resid=True)
+                shared, acts = res[1], res[2]
+                if bwd == "recompute":
+                    saved[f"k1/{dname}"] = res[:2]
+                    g_shared = ff.heads_backward(spec, shared, aux, g_out, packed)[0]
+                    out[f"heads_bwd/{dname}"] = split(
+                        lambda: ff.heads_backward(spec, shared, aux, g_out, packed))
+                    if dname == "float32":
+                        out["field_fused/float32"] = {"ms": cuda_ms(
+                            lambda: ff._forward(spec, x, aux, packed, True), reps=reps)}
+                out[f"trunk_bwd_{bwd}/{dname}"] = split(
+                    lambda: trunk.trunk_backward(spec, x, packed, acts, g_shared,
+                                                 need_gx=False))
+                del res, shared, acts
+        packed = field.packed(torch.float32)
+        spec = fused_field_spec(fcfg)
+        x2 = ff.pack_x(spec, enc, torch.float32)
+        saved["k3/float32"] = trunk._forward(spec, x2, packed, True)
+        out["trunk_fwd/float32"] = {"ms": cuda_ms(
+            lambda: trunk._forward(spec, x2, packed, False), reps=reps)}
+    if save:
+        torch.save({k: [t.cpu() for t in v] for k, v in saved.items()}, save)
     return out
+
+
+def bwd_times(dev, parent: str | None) -> tuple:
+    """({key: entry}, extra fields): K2's and K4's times (port_times) beside
+    their bounds, their plain versions' times and one torch.matmul of each
+    building block's product shape; with ``parent`` (an older checkout), that
+    tree's times in turns (parent, this, this, parent), each in its own
+    process, and K1's and K3's outputs held bit for bit against the
+    parent's."""
+    import dataclasses
+
+    import torch
+
+    from satnerf_torch.models.field import fused_field_spec
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    turns, bitwise = [], None
+    if parent:
+        outdir = os.path.join(REPO, "build", "turns")
+        os.makedirs(outdir, exist_ok=True)
+        for i, tree in enumerate((parent, REPO, REPO, parent)):
+            path = os.path.join(outdir, f"turn{i}.pt")
+            res = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree",
+                                  os.path.abspath(tree), "--save", path],
+                                 capture_output=True, text=True, timeout=900)
+            check(res.returncode == 0, f"turn {i} in {tree}: {res.stderr[-2000:]}")
+            turns.append({"tree": "parent" if tree == parent else "this",
+                          "times": json.loads(res.stdout.strip().splitlines()[-1])})
+        a, b = (torch.load(os.path.join(outdir, f"turn{i}.pt")) for i in (0, 1))
+        bitwise = {k: all(torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a}
+        check(all(bitwise.values()), f"K1/K3 outputs differ from the parent's: {bitwise}")
+        mine = {k: sum(t["times"][k]["ms"] for t in turns[1:3]) / 2 for k in turns[1]["times"]}
+        theirs = {k: sum(t["times"][k]["ms"] for t in (turns[0], turns[3])) / 2
+                  for k in turns[0]["times"]}
+    times = turns[1]["times"] if parent else port_times(dev)
+
+    case = flagship_case(dev)
+    fcfg, field, n = case["fcfg"], case["field"], case["n"]
+    enc, sun, te, g_out = (case[k] for k in ("enc", "sun", "te", "g_out"))
+    plain = {}
+    with torch.no_grad():
+        packed = field.packed(torch.float32)
+        for bwd in ("recompute", "stored"):
+            spec = dataclasses.replace(fused_field_spec(fcfg), trunk_bwd=bwd)
+            x = ff.pack_x(spec, enc, torch.float32)
+            aux = ff.pack_aux(spec, sun, te, None, torch.float32)
+            _, shared, acts = ff._forward(spec, x, aux, packed, resid=True)
+            if bwd == "recompute":
+                g_shared = ff.heads_backward_reference(spec, shared, aux, g_out, packed)[0]
+                plain["heads_bwd"] = cuda_ms(lambda: ff.heads_backward_reference(
+                    spec, shared, aux, g_out, packed), reps=2)
+            plain[f"trunk_bwd_{bwd}"] = cuda_ms(lambda: trunk.trunk_backward_reference(
+                spec, x, packed, acts, g_shared), reps=2)
+            del shared, acts
+
+    # one torch.matmul of each building block's product, as a yardstick only
+    yard = {}
+    for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        a = torch.randn(n, 512, device=dev).to(dt)
+        w = torch.randn(512, 512, device=dev).to(dt)
+        with_prec = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+        yard[f"row_{n}x512x512/{dname}"] = cuda_ms(lambda: torch.matmul(a, w), reps=20, warmup=3)
+        yard[f"reduce_512x{n}x512/{dname}"] = cuda_ms(lambda: torch.matmul(a.t(), a),
+                                                      reps=20, warmup=3)
+        torch.set_float32_matmul_precision(with_prec)
+        del a, w
+
+    spec = fused_field_spec(fcfg)
+    f4 = 4
+    entries = {}
+    for key, macs in (("heads_bwd", spec.heads_bwd_mac_per_point()),
+                      ("trunk_bwd_recompute", dataclasses.replace(
+                          spec, trunk_bwd="recompute").trunk_bwd_mac_per_point()),
+                      ("trunk_bwd_stored", dataclasses.replace(
+                          spec, trunk_bwd="stored").trunk_bwd_mac_per_point())):
+        flops = 2.0 * macs * n
+        for dname in ("float32", "bfloat16"):
+            esz = f4 if dname == "float32" else 2
+            if key == "heads_bwd":  # shared, aux, g in; g_shared, g_aux, head grads out
+                nbytes = n * (2 * spec.feat + 2 * spec.aux_w) * esz + n * ff.OUT_W * f4 \
+                    + 2 * sum(packed[k].numel() for k in spec.head_keys()) * f4
+            else:  # x, g_shared (and the stored pre-activations) in; gradients out
+                nbytes = n * (spec.cx + spec.feat) * esz + 2 * sum(
+                    packed[k].numel() for k in ff.TRUNK_KEYS) * f4
+                if key.endswith("stored"):
+                    nbytes += spec.layers * n * spec.feat * esz
+            tc_ms = (3.0 * flops / PEAK_TF32_FLOPS if dname == "float32"
+                     else flops / PEAK_BF16_FLOPS) * 1e3
+            bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+            t = times[f"{key}/{dname}"]
+            e = dict(t, bound_ms=max(tc_ms, bytes_ms),
+                     bound_by="operations" if tc_ms >= bytes_ms else "bytes",
+                     bound_f32_fma_ms=flops / PEAK_F32_FLOPS * 1e3, flops=flops,
+                     bytes=nbytes, shape=[n, spec.feat],
+                     achieved_tflops=flops / (t["ms"] * 1e-3) / 1e12,
+                     library_ms_blocks={
+                         "row": yard[f"row_{n}x512x512/{dname}"],
+                         "reduce": yard[f"reduce_512x{n}x512/{dname}"]})
+            if dname == "float32":
+                e["plain_ms"] = plain[key]
+            if parent:
+                e["parent_ms"] = theirs[f"{key}/{dname}"]
+                e["turns_ms"] = [tr["times"][f"{key}/{dname}"]["ms"] for tr in turns]
+            entries[f"{key}/{dname}"] = e
+    extra = {"yardsticks_matmul_ms": yard,
+             "bwd_bound_note": "K2/K4 bound_ms: f32 as 3xTF32 (3 x flops at 495 TFLOP/s), "
+                               "bf16 at 989 TFLOP/s; bound_f32_fma_ms at 67 TFLOP/s"}
+    if parent:
+        extra["parent"] = {"turns": turns, "this_ms": mine, "parent_ms": theirs,
+                           "k1_k3_outputs_bitwise_parent": bitwise}
+    return entries, extra
+
+
+def profile_phase(dev, scfg, params, vocab: int) -> dict:
+    """torch.profiler over two steady flagship steps: the kernels by device
+    time and the device's idle share of the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from satnerf_torch.train.state import create_train_state
+    from satnerf_torch.train.step import build_train_step
+
+    state = create_train_state(copy_params(params, dev), LR, "step", scfg.steps_per_epoch)
+    step = build_train_step(scfg)
+    batch = train_batch(TRAIN_RAYS, TRAIN_RAYS, 5, vocab, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(2):
+            state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    kernels = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            kernels.append((ev.key, dev_us / 1e3, ev.count))
+    kernels.sort(key=lambda k: -k[1])
+    busy = sum(k[1] for k in kernels)
+    groups = {"bwd row GEMM (K2+K4)": ("tc_row_kernel", "row_kernel<"),
+              "bwd reduction (K2+K4)": ("reduce_kernel", "finish_kernel"),
+              "K1 field_fused": ("field_fused",), "K5 composite": ("composite",)}
+    by_group = {name: sum(k[1] for k in kernels if any(p in k[0] for p in pats))
+                for name, pats in groups.items()}
+    by_group["other kernels"] = busy - sum(by_group.values())
+    line = {"phase": "train_profile", "steps": 2, "wall_ms": wall_ms,
+            "device_busy_ms": busy,
+            "idle_share": (1.0 - busy / wall_ms) if kernels else None,
+            "by_group_ms": by_group,
+            "top_kernels": [{"name": k[0][:120], "ms": k[1], "calls": k[2]}
+                            for k in kernels[:15]]}
+    if not kernels:
+        line["note"] = "key_averages() showed no device time; the CUDA-event split stands"
+    emit(line)
+    return line
+
 
 def trunk_forward_phase(dev, field, spec, enc) -> dict:
     """K3 against its plain version (f32, bf16; with and without the "stored"
@@ -786,8 +1046,28 @@ def trunk_times_phase(dev, field, spec, enc_fn) -> dict:
     return out
 
 
+def child_times(tree: str, save: str) -> int:
+    """``--tree DIR --save FILE``: port_times on the checkout at DIR (its own
+    package and kernels), printing the times as the last line."""
+    sys.path.insert(0, tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.ops import _build
+
+    disable_tf32()
+    _build.build_all()
+    print(json.dumps(port_times(torch.device("cuda"), save)), flush=True)
+    return 0
+
 
 def main() -> int:
+    argv = sys.argv[1:]
+    if "--tree" in argv:
+        return child_times(argv[argv.index("--tree") + 1], argv[argv.index("--save") + 1])
+    parent = argv[argv.index("--parent") + 1] if "--parent" in argv else None
     import torch
 
     if not torch.cuda.is_available():
@@ -826,6 +1106,17 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 2),
           "per_source_seconds": {k: round(v, 2) for k, v in per_lib.items()},
           "build_dir": os.path.relpath(_build.build_dir(), REPO)})
+    # the backward libraries on the tensor cores: HGMMA (wgmma) instructions in
+    # each kernel's SASS, and ptxas's registers and spills
+    sass = {lib: _build.sass_counts(lib) for lib in ("field_bwd", "trunk_bwd")}
+    ptxas = {lib: _build.ptxas_report(lib) for lib in ("field_bwd", "trunk_bwd")}
+    emit({"phase": "build_bwd_sass", "hgmma_per_kernel": sass, "ptxas": ptxas})
+    for lib in ("field_bwd", "trunk_bwd"):
+        check(not isinstance(sass[lib], dict)
+              or all(n > 0 for k, n in sass[lib].items() if "tc_row_kernel" in k
+                     or "reduce_kernel" in k), f"{lib}: a GEMM kernel has no HGMMA")
+        check(all(r.get("spill_stores", 0) == 0 for r in ptxas[lib].values()),
+              f"{lib}: a kernel spills")
 
     # ---- 3. sine engines ------------------------------------------------------
     import ctypes
@@ -1036,7 +1327,8 @@ def main() -> int:
 
     # ---- 9. training ------------------------------------------------------------------
     train = train_phase(dev, vocab)
-    train_t = train_times_phase(dev, train["scfg"], train["params"])
+    train_t = train_times_phase(dev, train["scfg"], train["params"], parent)
+    profile_phase(dev, train["scfg"], train["params"], vocab)
 
     # ---- 10. the trunk-only kernel K3 and its interleaved variant K6 ------------------
     rcfg_b = load_render_config(PIPELINE_TOML, device=dev, trunk_impl="pallas", **BETA_S)
@@ -1073,6 +1365,13 @@ def main() -> int:
     k3t = trunk_t[f"k3_f32_{TRUNK_TIME_POINTS[1]}"]
     k6t = trunk_t["k6_bf16"]
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "shape")
+
+    def bwd_line(key):  # f32 at the training shape; bf16, split and yardsticks beside
+        f, b = train_t[f"{key}/float32"], train_t[f"{key}/bfloat16"]
+        keys = ("ms", "row_ms", "reduce_ms", "bound_ms", "bound_by", "bound_f32_fma_ms",
+                "library_ms_blocks", "parent_ms")
+        return {**{k: f[k] for k in timed + keys if k in f}, "library_ms": None,
+                "bf16": {k: b[k] for k in keys if k in b}}
     kernels = [
         {
             "name": "field_fused", "route": "cuda",
@@ -1097,9 +1396,7 @@ def main() -> int:
             "launches": train["launches"]["heads_bwd"],
             "max_abs_err": bwd_err["max_abs_err_f32"]["heads"],
             "max_rel_err": bwd_err["max_rel_err"]["heads"],
-            **{k: train_t["heads_bwd"][k]
-               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
-            "library_ms": None,
+            **bwd_line("heads_bwd"),
         },
         {
             "name": "trunk_bwd", "route": "cuda",
@@ -1108,12 +1405,9 @@ def main() -> int:
             "launches": train["launches"]["trunk_bwd"],
             "max_abs_err": bwd_err["max_abs_err_f32"]["trunk"],
             "max_rel_err": bwd_err["max_rel_err"]["trunk"],
-            **{k: train_t["trunk_bwd_recompute"][k]
-               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
-            "library_ms": None,
+            **bwd_line("trunk_bwd_recompute"),
             "engine": "recompute",
-            "stored": {k: train_t["trunk_bwd_stored"][k]
-                       for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "stored": bwd_line("trunk_bwd_stored"),
         },
         {
             "name": "composite", "route": "cuda",

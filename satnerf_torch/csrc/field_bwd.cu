@@ -1,44 +1,33 @@
 // K2: the heads backward of the fused field, for every point.
 //
 // Replaces the TPU kernel satnerf_tpu/ops/pallas/field_fused.py:
-// _fused_field_bwd -> _heads_bwd_kernel (field_fused.py:435-626). From the
-// trunk output `shared` (N, F), the aux block and the incoming gradient of the
-// raw (N, 16) columns, it recomputes feats and every head hidden layer,
-// reverses each head chain (sine layers through the polynomial cosine, the sky
-// ReLU through [a > 0]), and produces g_shared (N, F), g_aux and every head
-// weight and bias gradient in f32.
+// _fused_field_bwd (pallas_call at field_fused.py:594) -> _heads_bwd_kernel
+// (:435). From the trunk output `shared` (N, F), the aux block and the
+// incoming gradient of the raw (N, 16) columns, it recomputes feats and
+// every head hidden layer, reverses each head chain (sine layers through the
+// polynomial cosine, the sky ReLU through [a > 0]), and produces g_shared
+// (N, F), g_aux and every head weight and bias gradient in f32.
 //
-// The wrapper (satnerf_torch/ops/field_fused.py:_heads_backward_cuda) drives
-// two entry points of bwd_common.cuh, which says what bounds the work and
-// how the design handles the TPU kernel's sequential grid:
+// What bounds it: operations, 2.77 M multiply-adds per point at the
+// flagship's widths (F 512, heads 256): 2.20 ms at 65,536 points on an H100's
+// tensor cores as 3xTF32 in f32, where the kernels take 8.85 ms (17.75 on the
+// f32 FMA units before). Every product runs on the tensor cores through the
+// two blocks of bwd_common.cuh (3xTF32 in f32, bf16 as it is), K 16 (the raw
+// columns, the aux block padded to 16) included; only
+// the 16-wide g_aux launch stays on the FMA row kernel, by the fixed rule
+// on shape that bwd_common.cuh states. The wrapper
+// (satnerf_torch/ops/field_fused.py:_heads_backward_cuda) drives:
 //   heads_bwd_row     one head layer over all rows (18 launches with every
 //                     head on, 10 for the sigma + sun-visibility variant);
-//   heads_bwd_reduce  every head dW = A^T B and db = sum B in one launch,
-//                     each block walking all rows in a fixed order.
-// Widths instantiated: 512 (feat), 256 and 512 (feat_last), 16 (the raw
-// columns and the aux block). Keep in sync with ops/field_fused.py.
+//   heads_bwd_reduce  every head dW = A^T B and db = sum B, in 128x128
+//                     tiles over chunks of rows, then the chunks in order.
+// Keep in sync with ops/field_fused.py.
 #include "bwd_common.cuh"
-
-namespace {
 
 using namespace satnerf::bwd;
 
-template <typename T>
-int dispatch(const RowArgs& a, cudaStream_t stream) {
-  switch (a.width) {
-    case 16: return launch_row<T, 16>(a, stream);
-    case 256: return launch_row<T, 256>(a, stream);
-    case 512: return launch_row<T, 512>(a, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-}  // namespace
-
 extern "C" int heads_bwd_row(const RowArgs* a, cudaStream_t stream) {
-  if (const int err = check_row(*a)) return err;
-  if (a->rows == 0) return 0;
-  return a->bf16 ? dispatch<__nv_bfloat16>(*a, stream) : dispatch<float>(*a, stream);
+  return row_entry(a, stream);
 }
 
 extern "C" int heads_bwd_reduce(const ReduceArgs* a, cudaStream_t stream) {

@@ -9,41 +9,30 @@
 //   gW_i = h_{i-1}^T ga_i, gWs_i = x^T ga_i, gb_i = sum ga_i (f32 ga)
 // and gx = ga_0 @ W0^T + the skip terms.
 //
-// The wrapper (satnerf_torch/ops/trunk.py:_trunk_backward_cuda) drives two
-// entry points of bwd_common.cuh, which says what bounds the work and how the
-// design handles the TPU kernel's sequential grid and its (L, tile, F) VMEM
-// stash (here global workspaces):
+// What bounds it: operations, 5.69 M multiply-adds per point for
+// "recompute" (3.79 M "stored") at the flagship's 8x512: 4.52 / 3.01 ms at
+// 65,536 points on an H100's tensor cores as 3xTF32 in f32, where the kernels
+// take 15.48 / 11.37 ms (31.84 / 23.41 on the f32 FMA units before).
+// Every product runs on the tensor cores through the two blocks of
+// bwd_common.cuh, which say how and what holds them above the bound: 3xTF32
+// in f32 (three passes, about 22 bits), one bf16 pass in bf16.
+// The wrapper (satnerf_torch/ops/trunk.py:_trunk_backward_cuda) drives:
 //   trunk_bwd_row     "recompute": L forward layers that rebuild the
-//                     pre-activations and h_i; then, for both engines, one
-//                     launch per layer of the reverse sweep (the "stored"
-//                     engine rebuilds h_i = sin(a_i) in the same launch) and
-//                     one for gx;
-//   trunk_bwd_reduce  every gW and gb in one launch, each block walking all
-//                     rows in a fixed order.
-// Widths instantiated: 512 (feat), 64 and 128 (gx, the input padded up).
+//                     pre-activations and h_i (B = W^T, stored (out, in));
+//                     then, for both engines, one launch per layer of the
+//                     reverse sweep (B = the packed (in, out) weight as it
+//                     is; the "stored" engine rebuilds h_i = sin(a_i) in the
+//                     same launch) and one for gx (input padded to 64);
+//   trunk_bwd_reduce  every gW and gb: 128x128 tiles of dW over chunks of
+//                     rows, each gb folded into the pass that stages its ga
+//                     (f32), then the chunks added in order.
 // Keep in sync with ops/trunk.py.
 #include "bwd_common.cuh"
 
-namespace {
-
 using namespace satnerf::bwd;
 
-template <typename T>
-int dispatch(const RowArgs& a, cudaStream_t stream) {
-  switch (a.width) {
-    case 64: return launch_row<T, 64>(a, stream);
-    case 128: return launch_row<T, 128>(a, stream);
-    case 512: return launch_row<T, 512>(a, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-}  // namespace
-
 extern "C" int trunk_bwd_row(const RowArgs* a, cudaStream_t stream) {
-  if (const int err = check_row(*a)) return err;
-  if (a->rows == 0) return 0;
-  return a->bf16 ? dispatch<__nv_bfloat16>(*a, stream) : dispatch<float>(*a, stream);
+  return row_entry(a, stream);
 }
 
 extern "C" int trunk_bwd_reduce(const ReduceArgs* a, cudaStream_t stream) {

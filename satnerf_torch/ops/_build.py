@@ -109,6 +109,76 @@ def build_all(names=KERNELS) -> dict:
     return times
 
 
+def _demangle(names: list) -> list:
+    tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60)
+    lines = out.stdout.splitlines()
+    return lines if out.returncode == 0 and len(lines) == len(names) else names
+
+
+def ptxas_report(name: str) -> dict:
+    """{kernel: {"registers": n, "spill_stores": bytes, "spill_loads": bytes}}
+    from the ``-Xptxas -v`` log of ``lib<name>.so``'s build."""
+    import re
+
+    path = os.path.join(build_dir(), f"{name}.log")
+    if not os.path.exists(path):
+        return {}
+    rows, fn = {}, None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                fn = m.group(1)
+                rows[fn] = {}
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and fn:
+                rows[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                rows[fn]["registers"] = int(m.group(1))
+    return dict(zip(_demangle(list(rows)), rows.values()))
+
+
+def _cuobjdump():
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "cuobjdump")
+    if os.path.exists(cand):
+        return cand
+    try:
+        import triton
+    except ImportError:
+        return shutil.which("cuobjdump")
+    bundled = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                           "cuobjdump")
+    return bundled if os.path.exists(bundled) else shutil.which("cuobjdump")
+
+
+def sass_counts(name: str, opcode: str = "HGMMA") -> dict | str:
+    """{kernel: count of ``opcode`` instructions in its SASS} of
+    ``lib<name>.so``, read with ``cuobjdump -sass``; a message when no
+    cuobjdump exists."""
+    tool = _cuobjdump()
+    if tool is None:
+        return "no cuobjdump (neither the toolkit's nor Triton's)"
+    out = subprocess.run([tool, "-sass", lib_path(name)], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        return f"cuobjdump failed: {out.stderr.strip()[:200]}"
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        s = line.strip()
+        if s.startswith("Function :"):
+            fn = s.split(":", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and opcode in s:
+            counts[fn] += 1
+    return dict(zip(_demangle(list(counts)), counts.values()))
+
+
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise with CUDA's message when a C entry point returned an error."""
     if err != 0:

@@ -575,7 +575,10 @@ def _forward(spec: FieldSpec, x, aux, packed, resid: bool):
 
 def _heads_backward_cuda(spec: FieldSpec, shared, aux, g_out, packed, need_aux):
     """K2: row launches (recompute, reverse sweep, g_feats, g_aux, g_shared)
-    and one reduction launch of ``csrc/field_bwd.cu``."""
+    and one reduction of ``csrc/field_bwd.cu``. The row GEMM takes W^T
+    (out, in) for the recomputed layers and the packed (in, out) weight as
+    it is for the reverse sweep; the aux block and the aux rows of the
+    weights are padded with zeros to 16 columns / rows."""
     dt, f32, dev = shared.dtype, torch.float32, shared.device
     n, F, fl = shared.shape[0], spec.feat, spec.fl
     bf16 = dt == torch.bfloat16
@@ -588,19 +591,21 @@ def _heads_backward_cuda(spec: FieldSpec, shared, aux, g_out, packed, need_aux):
     def ws(width, dtype=dt):
         return torch.empty((n, width), dtype=dtype, device=dev)
 
-    def tr(key, width=None):  # packed (in, out) -> (out, in) [padded to width]
+    def t(key):  # packed (in, out) -> W^T (out, in), aux rows padded to 16 columns
         w = p[key].t()
-        if width is not None:
-            w = torch.nn.functional.pad(w, (0, width - w.shape[1]))
-        return w.contiguous()
+        return (_bwd.pad_cols(w, G_AUX_W) if key.endswith("_aux") else w).contiguous()
+
+    def b_aux(key):  # an aux weight (aux_w, out) as the sweep's B: rows padded to 16
+        return torch.nn.functional.pad(p[key], (0, 0, 0, G_AUX_W - spec.aux_w))
 
     def hb(name):
         return p["b_heads"][HIDDEN_BIAS_ROWS.index(name)]
 
     g32 = g_out.to(f32).contiguous()
     g = g32.to(dt)
+    auxp = _bwd.pad_cols(aux, G_AUX_W)
     feats = ws(F)
-    row(width=F, prods=[(shared, p["w_feats"])], bias=p["b_feats"],
+    row(width=F, prods=[(shared, t("w_feats"))], bias=p["b_feats"],
         mode=_bwd.FWD_LINEAR, out_dt=feats)
     pre, hid = {}, {}
 
@@ -610,61 +615,61 @@ def _heads_backward_cuda(spec: FieldSpec, shared, aux, g_out, packed, need_aux):
             mode=_bwd.FWD_RELU if relu else _bwd.FWD_SINE,
             out_f32=pre[name], out2_dt=hid[name])
 
-    fwd("sv0", [(feats, p["w_sv0_f"]), (aux, p["w_sv0_aux"])])
-    fwd("sv1", [(hid["sv0"], p["w_sv1"])])
-    fwd("sv2", [(hid["sv1"], p["w_sv2"])])
+    fwd("sv0", [(feats, t("w_sv0_f")), (auxp, t("w_sv0_aux"))])
+    fwd("sv1", [(hid["sv0"], t("w_sv1"))])
+    fwd("sv2", [(hid["sv1"], t("w_sv2"))])
     if spec.heads_on:
-        fwd("rgb0", [(feats, p["w_rgb0"])])
-        fwd("sky0", [(aux, p["w_sky0_aux"])], relu=True)
+        fwd("rgb0", [(feats, t("w_rgb0"))])
+        fwd("sky0", [(auxp, t("w_sky0_aux"))], relu=True)
         if spec.has_beta:
-            fwd("b0", [(feats, p["w_b0_f"]), (aux, p["w_b0_aux"])])
+            fwd("b0", [(feats, t("w_b0_f")), (auxp, t("w_b0_aux"))])
         if spec.has_semantic:
-            s_prods = [(feats, p["w_s0_f"])]
+            s_prods = [(feats, t("w_s0_f"))]
             if spec.use_tj_for_s:
-                s_prods.append((aux, p["w_s0_aux"]))
+                s_prods.append((auxp, t("w_s0_aux")))
             fwd("s0", s_prods)
 
     ga = {}
 
-    def bwd(name, a, w_t, relu=False):
+    def bwd(name, a, w, relu=False):  # w: the packed (in, out) weight, the sweep's B
         ga[name] = ws(fl)
-        row(width=fl, prods=[(a, w_t)], pre=pre[name], sin_mode=mode,
+        row(width=fl, prods=[(a, w)], pre=pre[name], sin_mode=mode,
             mode=_bwd.BWD_RELU if relu else _bwd.BWD_SINE, out_dt=ga[name])
 
     if spec.heads_on:
-        bwd("rgb0", g, tr("w2_rgb"))
-    bwd("sv2", g, tr("w2_sv"))
-    bwd("sv1", ga["sv2"], tr("w_sv2"))
-    bwd("sv0", ga["sv1"], tr("w_sv1"))
-    f_prods = [(ga["sv0"], tr("w_sv0_f"))]
-    a_prods = [(ga["sv0"], tr("w_sv0_aux", G_AUX_W))]
+        bwd("rgb0", g, p["w2_rgb"])
+    bwd("sv2", g, p["w2_sv"])
+    bwd("sv1", ga["sv2"], p["w_sv2"])
+    bwd("sv0", ga["sv1"], p["w_sv1"])
+    f_prods = [(ga["sv0"], p["w_sv0_f"])]
+    a_prods = [(ga["sv0"], b_aux("w_sv0_aux"))]
     if spec.heads_on:
-        f_prods.insert(0, (ga["rgb0"], tr("w_rgb0")))
-        bwd("sky0", g, tr("w2_sky"), relu=True)
-        a_prods.append((ga["sky0"], tr("w_sky0_aux", G_AUX_W)))
+        f_prods.insert(0, (ga["rgb0"], p["w_rgb0"]))
+        bwd("sky0", g, p["w2_sky"], relu=True)
+        a_prods.append((ga["sky0"], b_aux("w_sky0_aux")))
         if spec.has_beta:
-            bwd("b0", g, tr("w2_beta"))
-            f_prods.append((ga["b0"], tr("w_b0_f")))
-            a_prods.append((ga["b0"], tr("w_b0_aux", G_AUX_W)))
+            bwd("b0", g, p["w2_beta"])
+            f_prods.append((ga["b0"], p["w_b0_f"]))
+            a_prods.append((ga["b0"], b_aux("w_b0_aux")))
         if spec.has_semantic:
-            bwd("s0", g, tr("w2_sem"))
-            f_prods.append((ga["s0"], tr("w_s0_f")))
+            bwd("s0", g, p["w2_sem"])
+            f_prods.append((ga["s0"], p["w_s0_f"]))
             if spec.use_tj_for_s:
-                a_prods.append((ga["s0"], tr("w_s0_aux", G_AUX_W)))
+                a_prods.append((ga["s0"], b_aux("w_s0_aux")))
     g_feats32 = ws(F, f32)
     g_feats = ws(F) if bf16 else g_feats32
     row(width=F, prods=f_prods, mode=_bwd.PLAIN, out_f32=g_feats32,
         out_dt=g_feats if bf16 else None)
     g_aux = None
-    if need_aux:
+    if need_aux:  # 16 wide: the FMA row kernel
         g_aux_pad = ws(G_AUX_W)
         row(width=G_AUX_W, prods=a_prods, mode=_bwd.PLAIN, out_dt=g_aux_pad)
         g_aux = g_aux_pad[:, : spec.aux_w]
     g_shared = ws(F)
-    row(width=F, prods=[(g, tr("w2_shared")), (g_feats, tr("w_feats"))],
+    row(width=F, prods=[(g, p["w2_shared"]), (g_feats, p["w_feats"])],
         mode=_bwd.PLAIN, out_dt=g_shared)
 
-    # every head dW = A^T B and db = sum B in one launch
+    # every head dW = A^T B and db = sum B in one reduction
     gw = {k: torch.empty(p[k].shape, dtype=f32, device=dev)
           for k in spec.head_keys()}
     pairs = {

@@ -308,7 +308,11 @@ def trunk_backward_reference(spec, x, packed, acts, g_shared):
 
 def _trunk_backward_cuda(spec, x, packed, acts, g_shared, need_gx: bool):
     """The kernel path: row launches (recompute, reverse sweep, gx) and one
-    reduction launch (csrc/trunk_bwd.cu)."""
+    reduction (csrc/trunk_bwd.cu). The row GEMM takes W^T (out, in) for the
+    forward layers and the packed (in, out) weight as it is for the sweep and
+    gx; x and the rows of w0 / w_skip are padded with zeros to a multiple of
+    16 once (c_in 60 -> 64). In f32 each weight is split into tf32 hi + lo
+    here, once per backward."""
     dt, L, F, n = x.dtype, spec.layers, spec.feat, x.shape[0]
     bf16 = dt == torch.bfloat16
     dev, f32 = x.device, torch.float32
@@ -317,18 +321,32 @@ def _trunk_backward_cuda(spec, x, packed, acts, g_shared, need_gx: bool):
     def row(**kw):
         _bwd.row_op("trunk_bwd", "trunk_bwd_row", dt, n, **kw)
 
+    def operand(w):  # a weight as the row GEMM takes it (split once in f32)
+        return w if bf16 else _bwd.tf32_split(w)
+
+    def t(w):  # (in, out) -> W^T (out, in)
+        return w.t().contiguous()
+
     w0, w_mid, w_skip, b = (packed[k] for k in ("w0", "w_mid", "w_skip", "b"))
+    kx = _bwd.padded_k(spec.cx)
+    xp = _bwd.pad_cols(x, kx)
+
+    def pad_rows(w):  # (cx, F) -> (kx, F), zero rows past cx
+        return w if w.shape[0] == kx else torch.nn.functional.pad(w, (0, 0, 0, kx - w.shape[0]))
+
+    w0p = pad_rows(w0)
+    skips_p = [pad_rows(w_skip[s]) for s in range(len(spec.skips))]
     scale = [spec.w0] + [1.0] * (L - 1)
     hs = torch.empty((max(L - 1, 1), n, F), dtype=dt, device=dev)  # h_0..h_{L-2}
     if acts is None:  # "recompute": the forward again, pre- and post-activations
         acts = torch.empty((L, n, F), dtype=dt, device=dev)
         for i in range(L):
             if i == 0:
-                prods = [(x, w0)]
+                prods = [(xp, operand(t(w0p)))]
             else:
-                prods = [(hs[i - 1], w_mid[i - 1])]
+                prods = [(hs[i - 1], operand(t(w_mid[i - 1])))]
                 if i in spec.skips:
-                    prods.append((x, w_skip[spec.skips.index(i)]))
+                    prods.append((xp, operand(t(skips_p[spec.skips.index(i)]))))
             row(width=F, prods=prods, bias=b[i], mode=_bwd.FWD_SINE, scale=scale[i],
                 sin_mode=mode, out_dt=acts[i], out2_dt=hs[i] if i < L - 1 else None)
         write_h = False
@@ -338,10 +356,11 @@ def _trunk_backward_cuda(spec, x, packed, acts, g_shared, need_gx: bool):
     ga = torch.empty((L, n, F), dtype=dt, device=dev)
     ga32 = torch.empty((L, n, F), dtype=f32, device=dev) if bf16 else ga
     g = g_shared.to(dt).contiguous()
-    w_mid_t = [w_mid[i].t().contiguous() for i in range(L - 1)]
+    w_mid_b = operand(w_mid)  # the sweep's B: the packed (in, out) weights
     for i in range(L - 1, -1, -1):
         top = i == L - 1
-        row(width=F, prods=[] if top else [(ga[i + 1], w_mid_t[i])],
+        wb = None if top else (w_mid_b[i] if bf16 else _bwd.Tf32Split(*(p[i] for p in w_mid_b)))
+        row(width=F, prods=[] if top else [(ga[i + 1], wb)],
             add=g if top else None, pre=acts[i], mode=_bwd.BWD_SINE,
             scale=scale[i], sin_mode=mode, out_f32=ga32[i] if bf16 else None,
             out_dt=ga[i], out2_dt=hs[i] if (write_h and i < L - 1) else None)
@@ -350,11 +369,11 @@ def _trunk_backward_cuda(spec, x, packed, acts, g_shared, need_gx: bool):
     if need_gx:
         gw = _bwd.width_for(spec.cx, GX_WIDTHS)
 
-        def t_pad(w):  # (cx, F) -> (F, gw), zero columns past cx
-            return torch.nn.functional.pad(w.t(), (0, gw - spec.cx)).contiguous()
+        def rows_to(w):  # (kx, F) -> (gw, F), zero rows past cx: gx's B
+            return torch.nn.functional.pad(w, (0, 0, 0, gw - kx)).contiguous()
 
-        prods = [(ga[0], t_pad(w0))]
-        prods += [(ga[i], t_pad(w_skip[s])) for s, i in enumerate(spec.skips)]
+        prods = [(ga[0], operand(rows_to(w0p)))]
+        prods += [(ga[i], operand(rows_to(skips_p[s]))) for s, i in enumerate(spec.skips)]
         gx_pad = torch.empty((n, gw), dtype=dt, device=dev)
         row(width=gw, prods=prods, mode=_bwd.PLAIN, out_dt=gx_pad)
         gx = gx_pad[:, : spec.cx]

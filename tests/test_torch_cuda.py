@@ -265,3 +265,77 @@ def test_cuda_tj_instead_of_beta_field_runs_k3(cuda_device):
     assert set(got) == set(ref)
     for k in ref:
         assert float((got[k].cpu() - ref[k]).abs().max()) < 5e-5, k
+
+
+# -- the two building blocks of K2 and K4 (csrc/bwd_common.cuh) at ragged sizes -----
+
+ROWS_RAGGED = 65_537  # one past a multiple of the 128-row tile and the 8,192-row chunk
+# 3xTF32 (f32) and bf16 operands both sum in f32 on the tensor cores: the
+# blocks agree with an f64 product of the same operands to the f32 rounding of
+# K-term sums, ~1e-6 of the largest output; 1e-5 is the bar
+TOL_BLOCK = 1e-5
+
+
+def _block_inputs(dev, dtype, shapes, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(*s, generator=g).to(dev).to(dtype) for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,width", [(16, 512), (60, 256), (512, 512), (512, 16), (60, 64)])
+def test_cuda_row_gemm_block_matches_torch(cuda_device, dtype, k, width, record_property):
+    """row_op: A (65,537, K) @ W (K, width) + an f32 addend + bias, both
+    epilogue outputs, against torch in f64; two runs bit for bit equal."""
+    from satnerf_torch.ops import _bwd
+    from satnerf_torch.ops.fastmath import SIN_MODES, SINE_ENGINES
+
+    n = ROWS_RAGGED
+    a, wt = _block_inputs(cuda_device, dtype, [(n, k), (width, k)], k + width)
+    add, bias = _block_inputs(cuda_device, torch.float32, [(n, width), (width,)], 7)
+    runs = []
+    for _ in range(2):
+        main = torch.empty((n, width), dtype=torch.float32, device=cuda_device)
+        second = torch.empty((n, width), dtype=dtype, device=cuda_device)
+        _bwd.row_op("trunk_bwd" if width != 16 else "field_bwd",
+                    "trunk_bwd_row" if width != 16 else "heads_bwd_row", dtype, n, width,
+                    prods=[(a, wt)], add=add, bias=bias, mode=_bwd.FWD_SINE,
+                    out_f32=main, out2_dt=second)
+        torch.cuda.synchronize()
+        runs.append((main, second))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    ref = (a.double() @ wt.double().t() + add.double() + bias.double()).float()
+    err = _rel(runs[0][0], ref)
+    record_property("max_rel_err", err)
+    assert err < TOL_BLOCK
+    # the sine epilogue of the same sums: the engines' bar (chip_smoke.py
+    # TOL_SINE) in f32, one bf16 ulp below 1 in bf16
+    sine = SINE_ENGINES[SIN_MODES[0]]
+    sin_err = float((runs[0][1].float() - sine(runs[0][0]).to(dtype).float()).abs().max())
+    assert sin_err <= (1e-6 if dtype == torch.float32 else 2 ** -8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,m", [(16, 256), (60, 512), (512, 512), (512, 16)])
+def test_cuda_reduce_block_matches_torch(cuda_device, dtype, k, m, record_property):
+    """reduce_op: dW = A^T B over 65,537 rows (9 chunks) and the column sums
+    of B (folded into the GEMM in f32, a separate job in bf16) against torch
+    in f64; two runs bit for bit equal."""
+    from satnerf_torch.ops import _bwd
+
+    n = ROWS_RAGGED
+    a, b = _block_inputs(cuda_device, dtype, [(n, k), (n, m)], k * m)
+    runs = []
+    for _ in range(2):
+        out = torch.empty((k, m), dtype=torch.float32, device=cuda_device)
+        db = torch.empty((m,), dtype=torch.float32, device=cuda_device)
+        _bwd.reduce_op("trunk_bwd", "trunk_bwd_reduce", dtype, n, gemms=[(a, b, out)],
+                       sums=[(b, db)])
+        torch.cuda.synchronize()
+        runs.append((out, db))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    err = _rel(runs[0][0], a.double().t() @ b.double())
+    db_err = _rel(runs[0][1], b.double().sum(0))
+    record_property("max_rel_err", max(err, db_err))
+    assert err < TOL_BLOCK and db_err < TOL_BLOCK

@@ -121,14 +121,27 @@ def torch_field_out(kw: dict, n: int, n_full=None, dtype=None) -> dict:
 def _emulated_row_op(lib_name, fn_name, dt, rows, width, prods=(), add=None,
                      bias=None, pre=None, mode=_bwd.PLAIN, scale=1.0, sin_mode=0,
                      out_f32=None, out_dt=None, out2_dt=None):
-    """What csrc/bwd_common.cuh:row_kernel computes, in torch."""
+    """What csrc/bwd_common.cuh's row GEMM computes, in torch (f32 sums of the
+    f32 operands; a split weight by the weight it was split from). Checks the argument
+    layout: each product is (A (rows, K), W^T (width, K)), K a multiple of
+    16 on the tensor-core route, the f32 weights split into tf32 parts."""
     name = SIN_MODES[sin_mode]
     sin, cos = SINE_ENGINES[name], COSINE_ENGINES[name]
+    thin = width == _bwd.THIN_WIDTH
     v = torch.zeros((rows, width), dtype=torch.float32)
-    for a, w in prods:
-        assert a.dtype == dt and w.dtype == dt and w.is_contiguous()
-        assert a.shape[1] % 4 == 0 and w.shape == (a.shape[1], width)
-        v = v + a.float() @ w.float()
+    for a, wt in prods:
+        assert a.dtype == dt and a.shape[0] == rows
+        if isinstance(wt, _bwd.Tf32Split):
+            assert dt == torch.float32 and not thin
+            hi, lo = _bwd.split_tf32(wt.w)
+            assert torch.equal(hi, wt.hi) and torch.equal(lo, wt.lo)
+            w = wt.w.float()
+        else:
+            assert wt.dtype == dt
+            w = wt.float()
+        assert w.shape == (width, a.shape[1]), (w.shape, width, a.shape)
+        assert a.shape[1] % (4 if thin else 16) == 0
+        v = v + a.float() @ w.t()
     if add is not None:
         v = v + add.float()
     if bias is not None:
@@ -150,11 +163,24 @@ def _emulated_row_op(lib_name, fn_name, dt, rows, width, prods=(), add=None,
 
 
 def _emulated_reduce_op(lib_name, fn_name, dt, rows, gemms=(), sums=()):
-    """What csrc/bwd_common.cuh:reduce_kernel computes, in torch."""
-    for a, b, out in gemms:
+    """What csrc/bwd_common.cuh's reduction computes, in torch: partial sums
+    over chunks of _bwd.SPLIT_ROWS rows, added in chunk order; in f32 the
+    bias sums whose rows are a GEMM's B ride along with that GEMM."""
+    folded, rest = _bwd.fold_sums(dt, gemms, sums)
+    chunks = [(s * _bwd.SPLIT_ROWS, min(rows, (s + 1) * _bwd.SPLIT_ROWS))
+              for s in range(_bwd.n_splits(rows))]
+    for j, (a, b, out) in enumerate(gemms):
         assert a.dtype == dt and b.dtype == dt and a.shape[0] == b.shape[0] == rows
-        out.copy_(a.float().t() @ b.float())
-    for b, out in sums:
+        total = bias = None
+        for s0, s1 in chunks:
+            part = a[s0:s1].float().t() @ b[s0:s1].float()
+            total = part if total is None else total + part
+            col = b[s0:s1].float().sum(0)
+            bias = col if bias is None else bias + col
+        out.copy_(total)
+        if j in folded:
+            folded[j].copy_(bias)
+    for b, out in rest:
         out.copy_(b.float().sum(0))
 
 
