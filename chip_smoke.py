@@ -8,11 +8,14 @@ JSON line per phase:
 
 1. device and toolchain;
 2. the kernel build (one nvcc per source, in parallel), with the HGMMA
-   (wgmma) count in each backward kernel's SASS and its registers and spills;
+   (wgmma) count in the SASS of each tensor-core kernel (K1, K2, K3, K4) and
+   its registers and spills;
 3. the sine engines of ``csrc/sine.cuh`` and their cosines against
    ``ops/fastmath.py``;
 4. the fused field kernel against its plain PyTorch version at the
-   flagship width (rs_semantic 8x512), f32 and bf16, both head variants;
+   flagship width (rs_semantic 8x512), f32 and bf16, both head variants,
+   256- and 512-wide heads, at 1, 63, 64, 65 and 65,537 points, each run
+   twice for bitwise-equal outputs;
 5. the compositing kernel against its plain version;
 6. the serving path: a ``RenderService`` on seeded weights answers three
    128x128 requests through both kernels (launch counters prove it), its
@@ -33,14 +36,16 @@ JSON line per phase:
    against "recompute"; CUDA-event times of each kernel at the training
    shapes, K2 and K4 in f32 and bf16 with their row-GEMM launches and
    reductions apart, beside both bounds and one torch.matmul per building
-   block (with ``--parent DIR``, an older checkout's K2/K4 in turns with
-   these, each in its own process, and K1/K3 held bit for bit against it);
+   block (with ``--parent DIR``, an older checkout's K1-K4 in turns with
+   these, each in its own process, and K1/K3's f32 outputs held against
+   its within the field bars);
    ``torch.profiler`` over two steady steps (kernels by device time, the
    device's idle share);
 10. the trunk-only kernel K3 against its plain version at the flagship
-   width (f32 and bf16, with and without the "stored" pre-activations, each
-   run twice for bitwise-equal results) and its interleaved variant K6 bit
-   for bit equal to it;
+   width (f32 and bf16, with and without the "stored" pre-activations, at
+   1, 63, 64, 65 and 65,537 points, each run twice for bitwise-equal
+   results) and its interleaved variant K6 (run twice, bitwise equal, and
+   within the field bar of the plain version);
 11. the RS-Semantic ablation field with its semantic beta head
    (``use_separate_beta_for_s``, ``use_beta_for_s``; trunk through K3):
    five training steps with exact launch counts, a 32-ray step against the
@@ -52,6 +57,10 @@ JSON line per phase:
    ``_coarse`` outputs held against the CPU;
 13. CUDA-event times of K3 and its plain version at the training shapes,
    and of K6 against K3 at the interleave prototype's shape.
+
+K1's and K3's bounds are given three ways: f32 products as 3xTF32 on the
+tensor cores (bound_ms in f32), on the f32 FMA units, and bf16 on the
+tensor cores (bound_ms in bf16).
 
 Then the card's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises and exits
@@ -108,7 +117,9 @@ TOL_STORED = 1e-4  # "stored" vs "recompute" gradients, relative, f32
 
 # the beta_s ablation step against the CPU: as TOL_STEP_*; its plain heads run
 # torch's own matmuls on both sides, so the same bars hold
-N_FIELD_CHECK = 65_537  # ragged against the 32-row tile
+N_FIELD_CHECK = 65_537  # ragged against the 64-row tile
+# K1 and K3 against their plain versions around the 64-row tile, and ragged
+FIELD_CHECK_POINTS = (1, 63, 64, 65, N_FIELD_CHECK)
 TRAIN_RAYS = 1024  # configs/pipelines/rs_semantic.toml batch_size
 TRAIN_STEPS = 5
 CPU_STEP_RAYS = 32
@@ -133,10 +144,22 @@ HIER = {"n_importance": 128, "use_fine_network": True, "remat_chunks": 2, "sc_st
 PER_STEP_HIER = {"field_fused": 24, "heads_bwd": 12, "trunk_fwd": 0, "trunk_bwd": 12,
                  "composite": 4, "composite_bwd": 4, "trunk_fwd_interleaved": 0}
 TRUNK_TIME_POINTS = (65_536, 131_072)  # K3 per depth render / per main render
+SERVE_COPIES = 8  # port_times: K1 at 8 x 131,072 = 1,048,576 points, the serve chunk
 K6_POINTS, K6_C_IN = 1_048_576, 63  # tools/interleave_trunk_proto.py:82, :30
 SERVE_H = SERVE_W = 128
 N_REQUESTS = 3
 CHUNK = 16_384
+
+
+def op_bounds(flops: float, dname: str) -> dict:
+    """The ms that ``flops`` of work take at each engine's peak: f32 products
+    as 3xTF32 on the tensor cores (three passes), on the f32 FMA units, and
+    bf16 on the tensor cores; "ops_ms" is the one the kernel's dtype uses."""
+    b = {"bound_3xtf32_ms": 3.0 * flops / PEAK_TF32_FLOPS * 1e3,
+         "bound_f32_fma_ms": flops / PEAK_F32_FLOPS * 1e3,
+         "bound_bf16_ms": flops / PEAK_BF16_FLOPS * 1e3}
+    b["ops_ms"] = b["bound_3xtf32_ms"] if dname == "float32" else b["bound_bf16_ms"]
+    return b
 
 
 def emit(obj: dict) -> None:
@@ -541,9 +564,15 @@ def train_times_phase(dev, scfg, params, parent: str | None) -> dict:
         io = (x.numel() + aux.numel()) * f4
         k1 = cuda_ms(lambda: ff._forward(spec, x, aux, packed, True), reps=3)
         k1p = cuda_ms(lambda: ff._reference_forward(spec, x, aux, packed, True), reps=2)
-        out["field_fused"] = entry(
-            k1, k1p, 2.0 * spec.mac_per_point() * n,
-            io + w_bytes + n * (ff.OUT_W + spec.feat) * f4, [n, spec.cx])
+        k1_flops = 2.0 * spec.mac_per_point() * n
+        k1_bytes = io + w_bytes + n * (ff.OUT_W + spec.feat) * f4
+        bounds = op_bounds(k1_flops, "float32")
+        ops_ms = bounds.pop("ops_ms")
+        bytes_ms = k1_bytes / PEAK_HBM_BYTES * 1e3
+        out["field_fused"] = dict(
+            entry(k1, k1p, k1_flops, k1_bytes, [n, spec.cx]), **bounds,
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes")
         del x, aux
 
     # compositing at the main render's shape: (1,024 rays, 64 samples)
@@ -631,8 +660,9 @@ def flagship_case(dev, enc_copies: int = 1) -> dict:
 def port_times(dev, save: str | None = None, reps: int = 3) -> dict:
     """CUDA-event times at the flagship training shapes of K2 and K4 (both
     engines; 65,536 points, f32 and bf16), each with its row-GEMM launches
-    and its reductions summed apart, and of K1 with residuals (65,536) and
-    K3 (131,072) in f32, on a field from seed 0. With ``save``, K1's and K3's
+    and its reductions summed apart, of K1 with residuals (65,536) and K3
+    (131,072), and of K1 at the serve chunk (1,048,576 points), f32 and bf16,
+    on a field from seed 0. With ``save``, K1's and K3's
     outputs go to that file. It calls only entry points that every slice of
     the port has, so ``--tree`` runs it on an older checkout too."""
     import dataclasses
@@ -674,19 +704,26 @@ def port_times(dev, save: str | None = None, reps: int = 3) -> dict:
                     g_shared = ff.heads_backward(spec, shared, aux, g_out, packed)[0]
                     out[f"heads_bwd/{dname}"] = split(
                         lambda: ff.heads_backward(spec, shared, aux, g_out, packed))
-                    if dname == "float32":
-                        out["field_fused/float32"] = {"ms": cuda_ms(
-                            lambda: ff._forward(spec, x, aux, packed, True), reps=reps)}
+                    out[f"field_fused/{dname}"] = {"ms": cuda_ms(
+                        lambda: ff._forward(spec, x, aux, packed, True), reps=reps)}
                 out[f"trunk_bwd_{bwd}/{dname}"] = split(
                     lambda: trunk.trunk_backward(spec, x, packed, acts, g_shared,
                                                  need_gx=False))
                 del res, shared, acts
-        packed = field.packed(torch.float32)
         spec = fused_field_spec(fcfg)
-        x2 = ff.pack_x(spec, enc, torch.float32)
-        saved["k3/float32"] = trunk._forward(spec, x2, packed, True)
-        out["trunk_fwd/float32"] = {"ms": cuda_ms(
-            lambda: trunk._forward(spec, x2, packed, False), reps=reps)}
+        for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            packed = field.packed(dt)
+            x2 = ff.pack_x(spec, enc, dt)
+            saved[f"k3/{dname}"] = trunk._forward(spec, x2, packed, True)
+            out[f"trunk_fwd/{dname}"] = {"ms": cuda_ms(
+                lambda: trunk._forward(spec, x2, packed, False), reps=reps)}
+            # K1 at the serve chunk's 1,048,576 points, no residuals
+            xs = ff.pack_x(spec, enc.repeat(SERVE_COPIES, 1), dt)
+            auxs = ff.pack_aux(spec, sun.repeat(2 * SERVE_COPIES, 1),
+                               te.repeat(2 * SERVE_COPIES, 1), None, dt)
+            out[f"field_fused_serve/{dname}"] = {"ms": cuda_ms(
+                lambda: ff._forward(spec, xs, auxs, packed, False), reps=reps)}
+            del x2, xs, auxs
     if save:
         torch.save({k: [t.cpu() for t in v] for k, v in saved.items()}, save)
     return out
@@ -697,8 +734,9 @@ def bwd_times(dev, parent: str | None) -> tuple:
     their bounds, their plain versions' times and one torch.matmul of each
     building block's product shape; with ``parent`` (an older checkout), that
     tree's times in turns (parent, this, this, parent), each in its own
-    process, and K1's and K3's outputs held bit for bit against the
-    parent's."""
+    process, and K1's and K3's f32 outputs held against the parent's within
+    the field bars (whether they are bit for bit equal is printed).
+    ``forward_times``: K1's and K3's times from the same turns."""
     import dataclasses
 
     import torch
@@ -707,7 +745,7 @@ def bwd_times(dev, parent: str | None) -> tuple:
     from satnerf_torch.ops import field_fused as ff
     from satnerf_torch.ops import trunk
 
-    turns, bitwise = [], None
+    turns, bitwise, vs_parent = [], None, None
     if parent:
         outdir = os.path.join(REPO, "build", "turns")
         os.makedirs(outdir, exist_ok=True)
@@ -721,7 +759,17 @@ def bwd_times(dev, parent: str | None) -> tuple:
                           "times": json.loads(res.stdout.strip().splitlines()[-1])})
         a, b = (torch.load(os.path.join(outdir, f"turn{i}.pt")) for i in (0, 1))
         bitwise = {k: all(torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a}
-        check(all(bitwise.values()), f"K1/K3 outputs differ from the parent's: {bitwise}")
+        # the engine changed (FMA -> tensor cores): K1/K3 against the parent's
+        # f32 outputs within the bars against the plain version, out in abs,
+        # the residual (h_{L-1} or the pre-activations) relative
+        vs_parent = {}
+        for k in ("k1/float32", "k3/float32"):
+            if k in a:
+                vs_parent[k] = {"out": float((b[k][0].float() - a[k][0].float()).abs().max()),
+                                "resid": rel_err(b[k][1], a[k][1])}
+                check(vs_parent[k]["out"] <= TOL_FIELD["float32"]
+                      and vs_parent[k]["resid"] <= TOL_RESID["float32"],
+                      f"{k} differs from the parent's: {vs_parent[k]}")
         mine = {k: sum(t["times"][k]["ms"] for t in turns[1:3]) / 2 for k in turns[1]["times"]}
         theirs = {k: sum(t["times"][k]["ms"] for t in (turns[0], turns[3])) / 2
                   for k in turns[0]["times"]}
@@ -796,12 +844,22 @@ def bwd_times(dev, parent: str | None) -> tuple:
                 e["parent_ms"] = theirs[f"{key}/{dname}"]
                 e["turns_ms"] = [tr["times"][f"{key}/{dname}"]["ms"] for tr in turns]
             entries[f"{key}/{dname}"] = e
+    fwd = {}
+    for k in times:
+        if k.startswith(("field_fused", "trunk_fwd")):
+            fwd[k] = {"ms": mine[k] if parent else times[k]["ms"]}
+            if parent and k in theirs:
+                fwd[k].update(parent_ms=theirs[k],
+                              turns_ms=[tr["times"][k]["ms"] for tr in turns
+                                        if k in tr["times"]])
+    entries["forward_times"] = fwd
     extra = {"yardsticks_matmul_ms": yard,
              "bwd_bound_note": "K2/K4 bound_ms: f32 as 3xTF32 (3 x flops at 495 TFLOP/s), "
                                "bf16 at 989 TFLOP/s; bound_f32_fma_ms at 67 TFLOP/s"}
     if parent:
         extra["parent"] = {"turns": turns, "this_ms": mine, "parent_ms": theirs,
-                           "k1_k3_outputs_bitwise_parent": bitwise}
+                           "k1_k3_outputs_bitwise_parent": bitwise,
+                           "k1_k3_vs_parent_f32": vs_parent}
     return entries, extra
 
 
@@ -855,8 +913,9 @@ def profile_phase(dev, scfg, params, vocab: int) -> dict:
 
 def trunk_forward_phase(dev, field, spec, enc) -> dict:
     """K3 against its plain version (f32, bf16; with and without the "stored"
-    pre-activations), each run twice for bitwise-equal results, and K6 bit
-    for bit equal to K3."""
+    pre-activations; at every size of FIELD_CHECK_POINTS), each run twice for
+    bitwise-equal results; K6 at the largest size, run twice for
+    bitwise-equal results and held against the plain version."""
     import torch
 
     from satnerf_torch.ops import field_fused as ff
@@ -867,35 +926,42 @@ def trunk_forward_phase(dev, field, spec, enc) -> dict:
     with torch.no_grad():
         for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             packed = field.packed(dt)
-            x = ff.pack_x(spec, enc, dt)
-            outs = {}
-            for emit_acts in (False, True):
-                out, acts = trunk._forward(spec, x, packed, emit_acts)
-                again, acts2 = trunk._forward(spec, x, packed, emit_acts)
-                torch.cuda.synchronize()
-                ref, ref_acts = trunk.fused_trunk_reference(spec, x, packed, emit_acts)
-                check(bool(torch.isfinite(out).all()), f"trunk {dname} non-finite")
-                bitwise = torch.equal(out, again) and (
-                    not emit_acts or torch.equal(acts, acts2))
-                err = float((out.float() - ref.float()).abs().max())
-                key = f"{dname}/{'acts' if emit_acts else 'no_acts'}"
-                cases[key] = {"max_abs_err": err, "bitwise_repeat": bitwise}
-                check(bitwise, f"trunk {key}: two runs differ")
-                check(err <= TOL_FIELD[dname], f"trunk {key} err {err}")
-                if emit_acts:
-                    e = rel_err(acts, ref_acts)
-                    cases[key]["acts_rel_err"] = e
-                    check(e <= TOL_RESID[dname], f"trunk {key} acts err {e}")
-                if dname == "float32":
-                    worst_f32 = max(worst_f32, err)
-                outs[emit_acts] = out
-                del acts, acts2, ref_acts
+            for n in FIELD_CHECK_POINTS:
+                x = ff.pack_x(spec, enc[:n], dt)
+                outs = {}
+                for emit_acts in (False, True):
+                    out, acts = trunk._forward(spec, x, packed, emit_acts)
+                    again, acts2 = trunk._forward(spec, x, packed, emit_acts)
+                    torch.cuda.synchronize()
+                    ref, ref_acts = trunk.fused_trunk_reference(spec, x, packed, emit_acts)
+                    check(bool(torch.isfinite(out).all()), f"trunk {dname} non-finite")
+                    bitwise = torch.equal(out, again) and (
+                        not emit_acts or torch.equal(acts, acts2))
+                    err = float((out.float() - ref.float()).abs().max())
+                    key = f"{dname}/{'acts' if emit_acts else 'no_acts'}/n{n}"
+                    cases[key] = {"max_abs_err": err, "bitwise_repeat": bitwise}
+                    check(bitwise, f"trunk {key}: two runs differ")
+                    check(err <= TOL_FIELD[dname], f"trunk {key} err {err}")
+                    if emit_acts:
+                        e = rel_err(acts, ref_acts)
+                        cases[key]["acts_rel_err"] = e
+                        check(e <= TOL_RESID[dname], f"trunk {key} acts err {e}")
+                    if dname == "float32":
+                        worst_f32 = max(worst_f32, err)
+                    outs[emit_acts] = out
+                    del acts, acts2, ref_acts
+                cases[f"{dname}/n{n}/acts_variant_bitwise"] = torch.equal(outs[True], outs[False])
+            # K6 (the FMA interleaved variant): repeatable and within the bar
             il = trunk.fused_trunk_interleaved(spec, x, packed)
+            il2 = trunk.fused_trunk_interleaved(spec, x, packed)
             torch.cuda.synchronize()
-            cases[f"{dname}/interleaved_bitwise_k3"] = torch.equal(il, outs[False])
-            cases[f"{dname}/acts_variant_bitwise_k3"] = torch.equal(outs[True], outs[False])
-            check(torch.equal(il, outs[False]), f"K6 differs from K3 in {dname}")
-    emit({"phase": "trunk_forward_check", "n": enc.shape[0], "layers": spec.layers,
+            il_err = float((il.float() - ref.float()).abs().max())
+            cases[f"{dname}/interleaved"] = {"bitwise_repeat": torch.equal(il, il2),
+                                             "max_abs_err": il_err,
+                                             "bitwise_k3": torch.equal(il, outs[False])}
+            check(torch.equal(il, il2), f"K6 two runs differ in {dname}")
+            check(il_err <= TOL_FIELD[dname], f"K6 vs plain in {dname}: {il_err}")
+    emit({"phase": "trunk_forward_check", "points": FIELD_CHECK_POINTS, "layers": spec.layers,
           "feat": spec.feat, "c_in": spec.c_in, "cases": cases,
           "tol": {"out": TOL_FIELD, "acts": TOL_RESID}})
     return {"max_abs_err_f32": worst_f32}
@@ -976,13 +1042,14 @@ def trunk_times_phase(dev, field, spec, enc_fn) -> dict:
         return sp.c_in * sp.feat + (sp.layers - 1) * sp.feat ** 2 \
             + len(sp.skips) * sp.c_in * sp.feat
 
-    def entry(ms, plain_ms, sp, n, x, packed, peak):
+    def entry(ms, plain_ms, sp, n, x, packed):
         flops = 2.0 * macs(sp) * n
         nbytes = (x.numel() + n * sp.feat) * x.element_size() + sum(
             t.numel() * t.element_size() for t in packed.values())
-        ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        bounds = op_bounds(flops, "float32" if x.dtype == torch.float32 else "bfloat16")
+        ops_ms, bytes_ms = bounds.pop("ops_ms"), nbytes / PEAK_HBM_BYTES * 1e3
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
-                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", **bounds,
                 "flops": flops, "bytes": nbytes, "shape": [n, sp.cx],
                 "achieved_tflops": flops / (ms * 1e-3) / 1e12}
 
@@ -993,7 +1060,7 @@ def trunk_times_phase(dev, field, spec, enc_fn) -> dict:
             x = ff.pack_x(spec, enc_fn(n), torch.float32)
             k = cuda_ms(lambda: trunk.fused_trunk(spec, x, packed), reps=5)
             pl = cuda_ms(lambda: trunk.fused_trunk_reference(spec, x, packed), reps=2)
-            out[f"k3_f32_{n}"] = entry(k, pl, spec, n, x, packed, PEAK_F32_FLOPS)
+            out[f"k3_f32_{n}"] = entry(k, pl, spec, n, x, packed)
             # the same comparison as trunk_forward_check, at the path's shape
             err = float((trunk.fused_trunk(spec, x, packed)
                          - trunk.fused_trunk_reference(spec, x, packed)[0]).abs().max())
@@ -1022,23 +1089,25 @@ def trunk_times_phase(dev, field, spec, enc_fn) -> dict:
         x6 = x6.to(bf).contiguous()
         k3 = trunk.fused_trunk(sp, x6, p6)
         k6 = trunk.fused_trunk_interleaved(sp, x6, p6)
+        k6_again = trunk.fused_trunk_interleaved(sp, x6, p6)
         torch.cuda.synchronize()
-        bitwise = torch.equal(k3, k6)
-        check(bitwise, "K6 differs from K3 at the prototype's shape")
+        bitwise = torch.equal(k6, k6_again)
+        check(bitwise, "K6: two runs differ at the prototype's shape")
         ref = trunk.fused_trunk_reference(sp, x6, p6)[0]
         k6_err = float((k6.float() - ref.float()).abs().max())
+        k3_err = float((k3.float() - ref.float()).abs().max())
         check(k6_err <= TOL_FIELD["bfloat16"], f"K6 vs plain err {k6_err}")
-        del k3, k6, ref
+        check(k3_err <= TOL_FIELD["bfloat16"], f"K3 vs plain err {k3_err} (K6's shape)")
+        del k3, k6, k6_again, ref
         turns = []  # K3, K6, K6, K3
         for fn in (trunk.fused_trunk, trunk.fused_trunk_interleaved,
                    trunk.fused_trunk_interleaved, trunk.fused_trunk):
             turns.append(cuda_ms(lambda: fn(sp, x6, p6), reps=5))
         pl6 = cuda_ms(lambda: trunk.fused_trunk_reference(sp, x6, p6), reps=1)
-        e3 = entry((turns[0] + turns[3]) / 2, pl6, sp, K6_POINTS, x6, p6, PEAK_BF16_FLOPS)
-        e6 = entry((turns[1] + turns[2]) / 2, pl6, sp, K6_POINTS, x6, p6, PEAK_BF16_FLOPS)
-        for e in (e3, e6):
-            e["bound_f32_fma_ms"] = 2.0 * macs(sp) * K6_POINTS / PEAK_F32_FLOPS * 1e3
-        e6.update(max_abs_err=k6_err, bitwise_k3=bitwise)
+        e3 = entry((turns[0] + turns[3]) / 2, pl6, sp, K6_POINTS, x6, p6)
+        e6 = entry((turns[1] + turns[2]) / 2, pl6, sp, K6_POINTS, x6, p6)
+        e3["max_abs_err"] = k3_err
+        e6.update(max_abs_err=k6_err, bitwise_repeat=bitwise)
         out["k3_bf16_k6_shape"], out["k6_bf16"] = e3, e6
         out["k3_k6_turns_ms"] = turns
     emit({"phase": "trunk_kernel_times", "mac_per_point_c_in_60": macs(spec),
@@ -1106,15 +1175,20 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 2),
           "per_source_seconds": {k: round(v, 2) for k, v in per_lib.items()},
           "build_dir": os.path.relpath(_build.build_dir(), REPO)})
-    # the backward libraries on the tensor cores: HGMMA (wgmma) instructions in
-    # each kernel's SASS, and ptxas's registers and spills
-    sass = {lib: _build.sass_counts(lib) for lib in ("field_bwd", "trunk_bwd")}
-    ptxas = {lib: _build.ptxas_report(lib) for lib in ("field_bwd", "trunk_bwd")}
+    # the libraries on the tensor cores: HGMMA (wgmma) instructions in each
+    # kernel's SASS, and ptxas's registers and spills (K6, trunk_fwd_il_kernel,
+    # stays on the FMA units)
+    tc_libs = {"field_bwd": ("tc_row_kernel", "reduce_kernel"),
+               "trunk_bwd": ("tc_row_kernel", "reduce_kernel"),
+               "field_fused": ("field_fused_kernel",), "trunk_fwd": ("trunk_fwd_kernel",)}
+    sass = {lib: _build.sass_counts(lib) for lib in tc_libs}
+    ptxas = {lib: _build.ptxas_report(lib) for lib in tc_libs}
     emit({"phase": "build_bwd_sass", "hgmma_per_kernel": sass, "ptxas": ptxas})
-    for lib in ("field_bwd", "trunk_bwd"):
-        check(not isinstance(sass[lib], dict)
-              or all(n > 0 for k, n in sass[lib].items() if "tc_row_kernel" in k
-                     or "reduce_kernel" in k), f"{lib}: a GEMM kernel has no HGMMA")
+    for lib, names in tc_libs.items():
+        check(isinstance(sass[lib], dict), f"{lib}: no SASS listing ({sass[lib]})")
+        tc_kernels = {k: n for k, n in sass[lib].items() if any(p in k for p in names)}
+        check(len(tc_kernels) > 0 and all(n > 0 for n in tc_kernels.values()),
+              f"{lib}: a tensor-core kernel has no HGMMA: {tc_kernels}")
         check(all(r.get("spill_stores", 0) == 0 for r in ptxas[lib].values()),
               f"{lib}: a kernel spills")
 
@@ -1160,28 +1234,39 @@ def main() -> int:
     groups = {"sigma": (ff.COL_SIGMA, 1), "rgb": (ff.COL_RGB, 3),
               "sun": (ff.COL_SUN, 1), "sky": (ff.COL_SKY, 3),
               "beta": (ff.COL_BETA, 1), "semantic": (ff.COL_SEM, fcfg.n_classes)}
-    enc, sun_d, t_emb = field_inputs(N_FIELD_CHECK, 1)
+    enc, sun_d, t_emb = field_inputs(max(FIELD_CHECK_POINTS), 1)
+    # both instantiated head widths: the flagship's 256 and, with
+    # fc_use_full_features, 512
+    fcfg_fl512 = replace(fcfg, fc_use_full_features=True)
+    field_fl512 = Field(fcfg_fl512, generator=torch.Generator().manual_seed(0)).to(dev).eval()
     field_err = {}
     with torch.inference_mode():
-        for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            packed = field.packed(dt)
-            for heads_on in (True, False):
-                sp = replace(spec, heads_on=heads_on)
-                xk = ff.pack_x(sp, enc, dt)
-                aux = ff.pack_aux(sp, sun_d, t_emb, None, dt)
-                out_k = ff.fused_field(sp, xk, aux, packed)
-                torch.cuda.synchronize()
-                out_p = ff.fused_field_reference(sp, xk, aux, packed)
-                check(bool(torch.isfinite(out_k).all()), f"field {dname} non-finite")
-                errs = {k: float((out_k[:, c:c + w] - out_p[:, c:c + w]).abs().max())
-                        for k, (c, w) in groups.items()}
-                key = f"{dname}/heads_{'on' if heads_on else 'off'}"
-                field_err[key] = errs
-                worst = max(errs.values())
-                check(worst <= TOL_FIELD[dname], f"field {key} err {errs}")
-    emit({"phase": "field_fused_check", "n": N_FIELD_CHECK, "layers": spec.layers,
-          "feat": spec.feat, "c_in": spec.c_in, "fl": spec.fl,
-          "n_classes": spec.n_classes, "max_abs_err": field_err, "tol": TOL_FIELD})
+        for fld, cfg_fl in ((field, fcfg), (field_fl512, fcfg_fl512)):
+            sp_fl = fused_field_spec(cfg_fl)
+            for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                packed = fld.packed(dt)
+                for heads_on in (True, False):
+                    sp = replace(sp_fl, heads_on=heads_on)
+                    for n in FIELD_CHECK_POINTS:
+                        xk = ff.pack_x(sp, enc[:n], dt)
+                        aux = ff.pack_aux(sp, sun_d[:n], t_emb[:n], None, dt)
+                        out_k = ff.fused_field(sp, xk, aux, packed)
+                        again = ff.fused_field(sp, xk, aux, packed)
+                        torch.cuda.synchronize()
+                        out_p = ff.fused_field_reference(sp, xk, aux, packed)
+                        key = f"fl{sp.fl}/{dname}/heads_{'on' if heads_on else 'off'}/n{n}"
+                        check(bool(torch.isfinite(out_k).all()), f"field {key} non-finite")
+                        check(torch.equal(out_k, again), f"field {key}: two runs differ")
+                        errs = {k: float((out_k[:, c:c + w] - out_p[:, c:c + w]).abs().max())
+                                for k, (c, w) in groups.items()}
+                        field_err[key] = errs if n == max(FIELD_CHECK_POINTS) else max(
+                            errs.values())
+                        check(max(errs.values()) <= TOL_FIELD[dname], f"field {key} err {errs}")
+    del field_fl512
+    emit({"phase": "field_fused_check", "points": FIELD_CHECK_POINTS, "layers": spec.layers,
+          "feat": spec.feat, "c_in": spec.c_in, "fl": [spec.fl, 512],
+          "n_classes": spec.n_classes, "bitwise_repeat": True, "max_abs_err": field_err,
+          "tol": TOL_FIELD})
 
     # ---- 5. composite vs plain -------------------------------------------------
     def comp_inputs(b: int, s: int, seed: int):
@@ -1296,12 +1381,12 @@ def main() -> int:
             flops = 2.0 * spec.mac_per_point() * n_pts
             weight_bytes = sum(t.numel() * t.element_size() for t in packed.values())
             io_bytes = (xk.numel() + aux.numel()) * xk.element_size() + n_pts * 16 * 4
-            peak = PEAK_F32_FLOPS if dt == torch.float32 else PEAK_BF16_FLOPS
-            ops_ms = flops / peak * 1e3
+            bounds = op_bounds(flops, dname)
+            ops_ms = bounds.pop("ops_ms")
             bytes_ms = (io_bytes + weight_bytes) / PEAK_HBM_BYTES * 1e3
             times[dname] = {
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
-                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", **bounds,
                 "max_abs_err": err, "flops": flops, "bytes": io_bytes + weight_bytes,
                 "achieved_tflops": flops / (k_ms * 1e-3) / 1e12,
             }
@@ -1365,6 +1450,8 @@ def main() -> int:
     k3t = trunk_t[f"k3_f32_{TRUNK_TIME_POINTS[1]}"]
     k6t = trunk_t["k6_bf16"]
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "shape")
+    op_keys = ("bound_3xtf32_ms", "bound_f32_fma_ms", "bound_bf16_ms")
+    fwd_t = train_t["forward_times"]
 
     def bwd_line(key):  # f32 at the training shape; bf16, split and yardsticks beside
         f, b = train_t[f"{key}/float32"], train_t[f"{key}/bfloat16"]
@@ -1379,13 +1466,15 @@ def main() -> int:
             "replaces": "satnerf_tpu/ops/pallas/field_fused.py:361",
             "launches": train["launches"]["field_fused"],
             "max_abs_err": max([f32["max_abs_err"]]
-                               + [max(e.values()) for k, e in field_err.items()
-                                  if k.startswith("float32")]),
-            **{k: k1t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                               + [max(e.values()) if isinstance(e, dict) else e
+                                  for k, e in field_err.items() if "/float32/" in k]),
+            **{k: k1t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by") + op_keys},
             "library_ms": None,
             "shape": k1t["shape"],
+            "turns": {k: v for k, v in fwd_t.items() if k.startswith("field_fused")},
             "serve": {"launches": launches["field_fused"], "points": n_pts,
-                      **{k: f32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                      **{k: f32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")
+                         + op_keys},
                       "bf16": {k: times["bfloat16"][k]
                                for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
         },
@@ -1441,19 +1530,20 @@ def main() -> int:
             "max_abs_err": max([trunk_chk["max_abs_err_f32"]]
                                + [trunk_t[f"k3_f32_{n}"]["max_abs_err"]
                                   for n in TRUNK_TIME_POINTS]),
-            **{k: k3t[k] for k in timed},
+            **{k: k3t[k] for k in timed + op_keys},
             "library_ms": None,
+            "turns": {k: v for k, v in fwd_t.items() if k.startswith("trunk_fwd")},
             "at_65536": {k: trunk_t[f"k3_f32_{TRUNK_TIME_POINTS[0]}"][k] for k in timed},
             "bf16_at_k6_shape": {k: trunk_t["k3_bf16_k6_shape"][k]
-                                 for k in timed + ("bound_f32_fma_ms",)},
+                                 for k in timed + op_keys},
         },
         {
             "name": "trunk_fwd_interleaved", "route": "cuda",
             "source": "satnerf_torch/csrc/trunk_fwd.cu",
             "replaces": "tools/interleave_trunk_proto.py:64",
             "launches": beta_s["launches"]["trunk_fwd_interleaved"], "on_main_path": False,
-            "max_abs_err": k6t["max_abs_err"], "bitwise_equal_k3": k6t["bitwise_k3"],
-            **{k: k6t[k] for k in timed + ("bound_f32_fma_ms",)},
+            "max_abs_err": k6t["max_abs_err"], "bitwise_repeat": k6t["bitwise_repeat"],
+            **{k: k6t[k] for k in timed + op_keys},
             "library_ms": None,
         },
     ]

@@ -1,4 +1,4 @@
-// Fused field forward: SIREN trunk + every head for one 32-row tile per block.
+// K1: the fused field forward, SIREN trunk + every head, on the tensor cores.
 //
 // Replaces the TPU kernel satnerf_tpu/ops/pallas/field_fused.py:fused_field
 // (_fwd_call -> _fwd_kernel, _heads_forward), with its backward residuals.
@@ -6,45 +6,41 @@
 //   h_0 = sin(w0 * (x @ W0 + b0)),  h_i = sin(h_{i-1} @ W_i [+ x @ Ws_i] + b_i)
 //   feats = h @ Wf + bf
 //   sv = sin(feats @ Wsv0f + aux @ Wsv0a + b) -> sin(. @ Wsv1 + b) -> sin(. @ Wsv2 + b)
-//   HEADS_ON: rgb, sky (ReLU on aux), beta and semantic hidden layers
-//   out(16 cols) = shared @ W2s + sv @ W2sv [+ rgb/sky/beta/sem projections] + b
+//   heads_on: rgb, sky (ReLU on aux), beta and semantic hidden layers
+//   out(16 cols) = h @ W2s + sv @ W2sv [+ rgb/sky/beta/sem projections] + b
 // See satnerf_torch/ops/field_fused.py for the packed layouts and columns.
-// The kResid instantiations also write the backward's residuals, as the TPU
+// With shared_out it also writes the backward's residuals, as the TPU
 // kernel's emit_shared / emit_acts do: the (N, F) trunk output h_{L-1}, and,
 // when acts_out is given (trunk_bwd="stored"), the (L, N, F) pre-activations
 // a_i = h_{i-1} @ W_i [+ x @ Ws_i] + b_i (before the w0 scale of layer 0), both
-// in the compute dtype. The serve path launches the other instantiations.
+// in the compute dtype.
 //
 // What bounds it on an H100: operations. The flagship field (8x512 trunk,
 // skip at 4, 60 encoded inputs, 256-wide heads) does ~2.8 M multiply-adds
-// and ~5.6 k sines per point and reads only ~300 bytes of input per point,
-// so it sits far above the card's flops-per-byte ridge.
+// and ~5.6 k sines per point and reads ~300 bytes of input per point, far
+// above the card's flops-per-byte ridge: at 65,536 points 2.24 ms as 3xTF32
+// (f32, three tensor-core passes at 495 TFLOP/s), 0.37 ms in bf16.
 //
-// What the design does about it. The TPU kernel keeps every weight resident
-// in a 64 MB VMEM; an H100 block has 227 KB of shared memory. So this kernel
-// keeps the ACTIVATIONS of one 32-row tile on chip instead, and streams the
-// weights from L2 (8 MB of f32 trunk weights fit the 50 MB L2 many times
-// over, so after the first tiles every weight read is an L2 hit):
-//  - shared memory holds the x tile, the aux tile, one (32, F) activation
-//    buffer H and one (32, FL) head buffer P, ~109 KB in f32 at the flagship
-//    widths, so two blocks share an SM; every layer is computed in place
-//    (all products land in registers, a barrier, then the write-back);
-//  - 256 threads; for an N-wide layer each thread owns two adjacent output
-//    columns of 32*N/512 rows, so per 4-deep k step it does one 16-byte
-//    shared load per row against 4 prefetched weight pairs (the next step's
-//    weights load while this step's FMAs run);
-//  - the skip concat [x, h] and [feats, aux] are split GEMMs accumulated in
-//    the same registers; the final projections accumulate into two
-//    registers per thread across every head, so no head hidden ever leaves
-//    the chip and only (N, 16) f32 is written back.
-// Products accumulate in f32 (fmaf), the bias is added in f32, the sine is
-// the f32 polynomial of sine.cuh, and each activation is stored in the
-// compute dtype (float or bf16), as the reference stores it. Tensor cores,
-// TMA and warp specialisation are left for a later revision.
+// What the design does about it (trunk_tc.cuh): one 64-row tile per block,
+// its activations in shared memory for the whole field, every product a
+// wgmma with the weights streamed from L2 through a two-slot ring; each
+// head's hidden layer is projected onto the 16 output columns straight from
+// the accumulator, so no head hidden is stored and only (N, 16) f32 leaves
+// the chip. Order of the heads: sigma (from h_{L-1}, before feats overwrites
+// it), feats in place in H, rgb, sky, beta, semantic, then the sun-visibility
+// chain in place in H. The weights arrive prepared by the wrapper
+// (ops/field_fused.py:tc_weights): every pointer of FieldArgs but the biases
+// is a W^T (out, in) tensor, K padded with zeros to a multiple of 16
+// (c_in 60 -> 64, aux 12 -> 16); the 16-wide projections W2^T (16, in) have
+// K permuted within groups of 8 in f32.
+//
+// Ceiling of this design: each tile reads every weight from L2 (~11 MB per
+// 64 rows in f32), so L2 bandwidth, not the tensor cores, is the next limit;
+// and the epilogue's sines run beside no MMAs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "trunk_layers.cuh"
+#include "trunk_tc.cuh"
 
 // Mirror of satnerf_torch.ops.field_fused._FieldArgs (ctypes); keep in sync.
 struct FieldArgs {
@@ -75,8 +71,8 @@ struct FieldArgs {
   const void* w2_sem;
   const void* b_heads;
   const void* b_small;
-  void* shared_out;  // (n, F) compute dtype, kResid only
-  void* acts_out;    // (L, n, F) compute dtype or null, kResid only
+  void* shared_out;  // (n, F) compute dtype or null (no residuals)
+  void* acts_out;    // (L, n, F) compute dtype or null; needs shared_out
   int n, layers, feat, fl, cx, aux_w, skip_mask, heads_on, has_beta,
       has_semantic, use_s_aux, sin_mode, bf16;
   float w0_scale;
@@ -84,137 +80,150 @@ struct FieldArgs {
 
 namespace {
 
-using namespace satnerf::tile;
-using namespace satnerf::trunk;
+using namespace satnerf::fwd;
 
 // rows of b_heads (satnerf_torch.ops.field_fused.HIDDEN_BIAS_ROWS)
 enum HiddenBias { kRgb0 = 0, kSv0, kSv1, kSv2, kSky0, kB0, kS0 };
 
-// ---- the kernel ---------------------------------------------------------------
+// the plan of B operands, in the order the kernel consumes them
+template <typename T>
+int build_plan(const FieldArgs& a, Plan& pl) {
+  const size_t es = sizeof(T);
+  const int F = a.feat, FL = a.fl, kx = round16(a.cx), ka = round16(a.aux_w);
+  pl.njobs = 0;
+  // 2 passes per trunk layer, 2 + 2 for sigma and feats, and per pass of the
+  // heads 7 hidden layers and 5 projections
+  if (2 * a.layers + 4 + 12 * (FL / kPassCols) > kMaxJobs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  add_trunk_jobs(pl, es, a.layers, F, kx, a.skip_mask, a.w0, a.w_mid, a.w_skip);
+  add_proj_job(pl, es, a.w2_shared, 0);
+  add_proj_job(pl, es, a.w2_shared, 1);
+  add_layer_jobs(pl, es, F, a.w_feats, F);
+  if (a.heads_on) {
+    add_projected_jobs(pl, es, FL, a.w2_rgb, a.w_rgb0, F);
+    add_projected_jobs(pl, es, FL, a.w2_sky, a.w_sky0_aux, ka);
+    if (a.has_beta) add_projected_jobs(pl, es, FL, a.w2_beta, a.w_b0_f, F, a.w_b0_aux, ka);
+    if (a.has_semantic)
+      add_projected_jobs(pl, es, FL, a.w2_sem, a.w_s0_f, F,
+                         a.use_s_aux ? a.w_s0_aux : nullptr, a.use_s_aux ? ka : 0);
+  }
+  add_layer_jobs(pl, es, FL, a.w_sv0_f, F, a.w_sv0_aux, ka);
+  add_layer_jobs(pl, es, FL, a.w_sv1, FL);
+  add_projected_jobs(pl, es, FL, a.w2_sv, a.w_sv2, FL);
+  return check_plan(pl);
+}
 
-template <typename T, bool kHeadsOn, bool kResid, int F, int FL>
-__global__ void __launch_bounds__(kThreads, 2)
-field_fused_kernel(const FieldArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int ldh = F + kPad;
-  constexpr int ldp = FL + kPad;
-  const int ldx = a.cx + kPad;
-  const int ldaux = a.aux_w + kPad;
-  T* X = reinterpret_cast<T*>(smem_raw);
-  T* AX = X + kRows * ldx;
-  T* H = AX + kRows * ldaux;
-  T* P = H + kRows * ldh;
+template <typename T, int F, int FL>
+__global__ void __launch_bounds__(kThreads, 1)
+    field_fused_kernel(const __grid_constant__ FieldArgs a, const __grid_constant__ Plan pl) {
+  extern __shared__ unsigned char smem_raw[];
+  using S = Smem<T, F>;
+  unsigned char* smem = align1024(smem_raw);
+  T* H = reinterpret_cast<T*>(smem);
+  T* X = H + kRows * S::kLdh;
+  T* AX = X + kRows * S::kLdx;
   const int row0 = blockIdx.x * kRows;
   const int mode = a.sin_mode;
+  const int kx = round16(a.cx), ka = round16(a.aux_w);
 
-  // x and aux tiles, zero past the last row
-  const int tid = static_cast<int>(threadIdx.x);
-  load_tile(X, ldx, static_cast<const T*>(a.x), a.cx, row0, a.n, tid, kThreads);
-  load_tile(AX, ldaux, static_cast<const T*>(a.aux), a.aux_w, row0, a.n, tid, kThreads);
-  __syncthreads();
+  Ring r = make_ring<T, F>(smem);
+  produce<T>(pl, r);  // the first two chunks of the stream
+  produce<T>(pl, r);
+  load_tile(X, S::kLdx, kx, static_cast<const T*>(a.x), a.cx, row0, a.n);
+  load_tile(AX, S::kLda, ka, static_cast<const T*>(a.aux), a.aux_w, row0, a.n);
+  // (the first layer's barrier publishes the tiles)
 
-  // trunk (trunk_layers.cuh): layer 0 (w0-scaled sine), then layers 1.. in place in H
-  const int rows_valid = a.n - row0;
-  T* acts = kResid ? static_cast<T*>(a.acts_out) : nullptr;
-  T* acts_tile = acts != nullptr ? acts + static_cast<size_t>(row0) * F : nullptr;
-  trunk_tile<F, T, kResid>(a, X, ldx, H, ldh, acts_tile, rows_valid);
-  if (kResid)  // the trunk output h_{L-1}, the heads backward's residual
-    store_tile<T, F>(static_cast<T*>(a.shared_out), H, ldh, row0, rows_valid, tid,
-                     kThreads);
+  const ATile<T> Xt{X, S::kLdx}, Ht{H, S::kLdh}, At{AX, S::kLda}, none{nullptr, 0};
+  // the output accumulators live in the x tile once the trunk is done with it
+  float* keep = reinterpret_cast<float*>(X);
+  // the trunk, sigma from h_{L-1} and feats in place in H: jobs 0 .. 2L + 3
+  run_trunk<T, F, true>(a, pl, r, Xt, H, static_cast<T*>(a.acts_out),
+                        static_cast<T*>(a.shared_out), row0, keep,
+                        static_cast<const float*>(a.b_feats));
 
-  // heads. out: this thread's (row, column pair) of the 16-column output
-  float out[Map<16>::kRpt][2] = {{0.0f, 0.0f}};
+  // the FL-wide hidden layers in plan order: rgb, sky, beta, semantic (each
+  // pass projected), then the sun-visibility chain sv0, sv1 in place in H
+  // once feats is dead, and sv2 (projected). One loop, not unrolled.
+  constexpr int kPasses = FL / kPassCols;
   const float* bh = static_cast<const float*>(a.b_heads);
-  const T* AUXn = nullptr;  // "no second operand"
-  gemm_acc<16>(out, H, ldh, F, static_cast<const T*>(a.w2_shared));
-  layer<F, T>(H, ldh, F, static_cast<const T*>(a.w_feats), AUXn, 0, 0, nullptr,
-              static_cast<const float*>(a.b_feats), H, ldh, kLinear, 1.0f, mode);
-  // H now holds feats; the sun-visibility chain runs in P
-  layer<FL, T>(H, ldh, F, static_cast<const T*>(a.w_sv0_f), AX, ldaux, a.aux_w,
-               static_cast<const T*>(a.w_sv0_aux), bh + kSv0 * FL, P, ldp, kSine,
-               1.0f, mode);
-  layer<FL, T>(P, ldp, FL, static_cast<const T*>(a.w_sv1), AUXn, 0, 0, nullptr,
-               bh + kSv1 * FL, P, ldp, kSine, 1.0f, mode);
-  layer<FL, T>(P, ldp, FL, static_cast<const T*>(a.w_sv2), AUXn, 0, 0, nullptr,
-               bh + kSv2 * FL, P, ldp, kSine, 1.0f, mode);
-  gemm_acc<16>(out, P, ldp, FL, static_cast<const T*>(a.w2_sv));
-
-  if (kHeadsOn) {
-    layer<FL, T>(H, ldh, F, static_cast<const T*>(a.w_rgb0), AUXn, 0, 0, nullptr,
-                 bh + kRgb0 * FL, P, ldp, kSine, 1.0f, mode);
-    gemm_acc<16>(out, P, ldp, FL, static_cast<const T*>(a.w2_rgb));
-    layer<FL, T>(AX, ldaux, a.aux_w, static_cast<const T*>(a.w_sky0_aux), AUXn, 0,
-                 0, nullptr, bh + kSky0 * FL, P, ldp, kRelu, 1.0f, mode);
-    gemm_acc<16>(out, P, ldp, FL, static_cast<const T*>(a.w2_sky));
-    if (a.has_beta) {
-      layer<FL, T>(H, ldh, F, static_cast<const T*>(a.w_b0_f), AX, ldaux, a.aux_w,
-                   static_cast<const T*>(a.w_b0_aux), bh + kB0 * FL, P, ldp, kSine,
-                   1.0f, mode);
-      gemm_acc<16>(out, P, ldp, FL, static_cast<const T*>(a.w2_beta));
+  int q = 2 * a.layers + 4;
+  Held<T> held[kNW / 2];
+  float total[kNW / 2];
+#pragma unroll 1
+  for (int h = 0; h < 7; ++h) {
+    if ((h < 4 && !a.heads_on) || (h == 2 && !a.has_beta) || (h == 3 && !a.has_semantic))
+      continue;
+    const bool in_place = h == 4 || h == 5;
+    const bool with_aux = h == 2 || (h == 3 && a.use_s_aux) || h == 4;
+    const int row = h == 0 ? kRgb0 : h == 1 ? kSky0 : h == 2 ? kB0 : h == 3 ? kS0
+                  : h == 4 ? kSv0 : h == 5 ? kSv1 : kSv2;
+#pragma unroll 1
+    for (int p = 0; p < kPasses; ++p) {
+      pass<T>(pl, r, q++, h == 1 ? At : Ht, with_aux ? At : none, total);
+      // in place, after the last pass's barrier (nothing reads H any more):
+      // the first pass's values go first, so they are not live in its epilogue
+      if (in_place && kPasses == 2 && p == 1) store_pass<T>(held, H, S::kLdh);
+      epilogue<T>(total, bh + row * FL + p * kPassCols, h == 1 ? kRelu : kSine, 1.0f, mode,
+                  nullptr, 0, nullptr, 0, nullptr, 0, 0, 0);
+      if (!in_place) {
+        project<T>(pl, r, q++, total, keep, false);
+      } else if (kPasses == 2 && p == 0) {
+#pragma unroll
+        for (int i = 0; i < kNW / 2; ++i) held[i] = total[i];
+      }
     }
-    if (a.has_semantic) {
-      layer<FL, T>(H, ldh, F, static_cast<const T*>(a.w_s0_f),
-                   a.use_s_aux ? AX : AUXn, ldaux, a.aux_w,
-                   static_cast<const T*>(a.w_s0_aux), bh + kS0 * FL, P, ldp, kSine,
-                   1.0f, mode);
-      gemm_acc<16>(out, P, ldp, FL, static_cast<const T*>(a.w2_sem));
-    }
+    if (in_place) store_pass<T>(total, H + (kPasses - 1) * kPassCols, S::kLdh);
   }
 
-  using M = Map<16>;
-  const float* bs = static_cast<const float*>(a.b_small);
-  const int c = 2 * (threadIdx.x % M::kPairs);
-  const int r0 = (threadIdx.x / M::kPairs) * M::kRpt;
-  float* og = static_cast<float*>(a.out);
+  // the two warpgroups' partial outputs (same rows, same columns), kept by
+  // threads t and t + 128, added in order with the bias (project ended on a
+  // barrier)
+  if (threadIdx.x < 128) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int rr = warp * 16 + (lane >> 2), cc = 2 * (lane & 3);
+    const float* bs = static_cast<const float*>(a.b_small);
+    float* og = static_cast<float*>(a.out);
+    const float* mine = keep + 8 * threadIdx.x;
+    const float* other = keep + 8 * (threadIdx.x + 128);
 #pragma unroll
-  for (int r = 0; r < M::kRpt; ++r) {
-    const int row = row0 + r0 + r;
-    if (row < a.n)
-      st2(og + static_cast<size_t>(row) * 16 + c, out[r][0] + __ldg(bs + c),
-          out[r][1] + __ldg(bs + c + 1));
+    for (int i = 0; i < 8; i += 2) {  // value i: row + 8 ((i / 2) % 2), column 8 (i / 4)
+      const int row = rr + 8 * ((i >> 1) & 1), col = 8 * (i >> 2) + cc;
+      if (row0 + row < a.n)
+        *reinterpret_cast<float2*>(og + static_cast<size_t>(row0 + row) * 16 + col) =
+            make_float2(mine[i] + other[i] + __ldg(bs + col),
+                        mine[i + 1] + other[i + 1] + __ldg(bs + col + 1));
+    }
   }
 }
 
-template <typename T, bool kHeadsOn, bool kResid, int F, int FL>
+template <typename T, int F, int FL>
 int launch(const FieldArgs& a, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * kRows *
-                      static_cast<size_t>((a.cx + kPad) + (a.aux_w + kPad) +
-                                          (F + kPad) + (FL + kPad));
-  auto kern = field_fused_kernel<T, kHeadsOn, kResid, F, FL>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  Plan pl;
+  if (const int err = build_plan<T>(a, pl)) return err;
+  constexpr int smem = Smem<T, F>::kBytes;
+  auto kern = field_fused_kernel<T, F, FL>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (a.n + kRows - 1) / kRows;
-  kern<<<blocks, kThreads, smem, stream>>>(a);
+  kern<<<(a.n + kRows - 1) / kRows, kThreads, smem, stream>>>(a, pl);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kHeadsOn, bool kResid>
+template <typename T>
 int dispatch_widths(const FieldArgs& a, cudaStream_t stream) {
   // keep in sync with satnerf_torch.ops.field_fused.KERNEL_WIDTHS
-  if (a.feat == 512 && a.fl == 256) return launch<T, kHeadsOn, kResid, 512, 256>(a, stream);
-  if (a.feat == 512 && a.fl == 512) return launch<T, kHeadsOn, kResid, 512, 512>(a, stream);
+  if (a.feat == 512 && a.fl == 256) return launch<T, 512, 256>(a, stream);
+  if (a.feat == 512 && a.fl == 512) return launch<T, 512, 512>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename T, bool kHeadsOn>
-int dispatch_resid(const FieldArgs& a, cudaStream_t stream) {
-  return a.shared_out != nullptr ? dispatch_widths<T, kHeadsOn, true>(a, stream)
-                                 : dispatch_widths<T, kHeadsOn, false>(a, stream);
 }
 
 }  // namespace
 
 extern "C" int field_fused_forward(const FieldArgs* a, cudaStream_t stream) {
   if (a->n <= 0) return 0;
-  if (a->cx % 4 || a->aux_w % 4 || a->cx > 128 || a->aux_w > 64 || a->layers < 1)
+  if (a->cx <= 0 || round16(a->cx) > kMaxK || a->aux_w <= 0 || a->aux_w > 16 ||
+      a->layers < 1 || (a->skip_mask & 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a->acts_out != nullptr && a->shared_out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (a->bf16) {
-    return a->heads_on ? dispatch_resid<__nv_bfloat16, true>(*a, stream)
-                       : dispatch_resid<__nv_bfloat16, false>(*a, stream);
-  }
-  return a->heads_on ? dispatch_resid<float, true>(*a, stream)
-                     : dispatch_resid<float, false>(*a, stream);
+  return a->bf16 ? dispatch_widths<__nv_bfloat16>(*a, stream) : dispatch_widths<float>(*a, stream);
 }

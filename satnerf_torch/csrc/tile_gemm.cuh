@@ -1,5 +1,6 @@
-// Row-tile GEMM helpers shared by the forward kernels (trunk_layers.cuh:
-// field_fused.cu, trunk_fwd.cu) and the backward kernels (bwd_common.cuh).
+// Row-tile GEMM helpers on the f32 FMA units, shared by K6's trunk loop
+// (trunk_layers.cuh) and the backward kernels' 16-wide row kernel
+// (bwd_common.cuh); trunk_tc.cuh takes its element stores.
 //
 // A block of kThreads threads owns a kRows-row tile of points; its activations
 // sit in shared memory and the weights stream from global memory (L2). For an

@@ -9,35 +9,39 @@
 // for exactly n rows (the TPU kernel's padded tail is not kept). The heads
 // stay plain PyTorch (models/field.py), as they are XLA code in the reference.
 //
-// K6 replaces the prototype tools/interleave_trunk_proto.py (pallas_call :64,
-// body _fwd_kernel_il :33): the same function over two independent 32-row
-// sub-tiles per block, one group of 256 threads each. The block runs 2L + 1
-// phases split by barriers; in phase p group A does step p and group B step
-// p - 1, where step 2i is layer i's products and step 2i + 1 its epilogue (bias,
-// sine, store). So one group's FMAs issue while the other group evaluates its
-// sine polynomial, which is what the prototype tried between the TPU's MXU and
-// VPU. Each group computes its elements with K3's thread mapping, products and
-// epilogue, so K6's outputs are bitwise K3's.
-//
-// What bounds both on an H100: operations. The flagship trunk (8x512, skip at
+// What bounds K3 on an H100: operations. The flagship trunk (8x512, skip at
 // 4, 60 encoded inputs) does 1.9 M multiply-adds and 4 k sines per point and
 // moves ~2 kB per point (input, output) in f32, far above the card's
-// flops-per-byte ridge. The design is K1's trunk (trunk_layers.cuh): the
-// activations of a 32-row tile stay in shared memory, the 8 MB of f32 weights
-// stream from L2, every product is an f32 FMA. Tensor cores (wgmma), TMA and
-// warp specialisation are left for a later revision.
+// flops-per-byte ridge: 1.51 ms as 3xTF32 at 65,536 points. It runs K1's
+// tensor-core trunk (trunk_tc.cuh, which says how): a 64-row tile per block,
+// its activations in shared memory, every product a wgmma, h_{L-1} stored
+// from the last layer's epilogue registers. trunk_fwd_forward takes the
+// prepared weights (satnerf_torch/ops/trunk.py:tc_trunk_weights: W^T, K
+// padded to a multiple of 16).
+//
+// K6 replaces the prototype tools/interleave_trunk_proto.py (pallas_call :64,
+// body _fwd_kernel_il :33): the same function over two independent 32-row
+// sub-tiles per block, one group of 256 threads each, on the f32 FMA trunk
+// loop of trunk_layers.cuh. The block runs 2L + 1 phases split by barriers;
+// in phase p group A does step p and group B step p - 1, where step 2i is
+// layer i's products and step 2i + 1 its epilogue (bias, sine, store). So one
+// group's FMAs issue while the other group evaluates its sine polynomial,
+// which is what the prototype tried between the TPU's MXU and VPU. It takes
+// the packed (in, out) weights. Its redesign (warpgroup ping-pong on wgmma)
+// is later work; it is off every path.
 //
 // Width instantiated: feat 512 (as K4, satnerf_torch/ops/trunk.py FEAT_WIDTHS).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "trunk_layers.cuh"
+#include "trunk_tc.cuh"
 
 // Mirror of satnerf_torch.ops.trunk._TrunkArgs (ctypes); keep in sync.
 struct TrunkArgs {
   const void* x;    // (n, cx) compute dtype
   void* out;        // (n, F) compute dtype
-  const void* w0;   // (cx, F)
+  const void* w0;   // K3: prepared W^T (tc_trunk_weights); K6: packed (cx, F)
   const void* w_mid;
   const void* w_skip;
   const void* b;    // (L, F) f32
@@ -54,23 +58,24 @@ using namespace satnerf::trunk;
 constexpr int kFeat = 512;
 constexpr int kSubTiles = 2;  // K6: row sub-tiles (thread groups) per block
 
-template <typename T, bool kActs, int F>
-__global__ void __launch_bounds__(kThreads, 2)
-trunk_fwd_kernel(const TrunkArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int ldh = F + kPad;
-  const int ldx = a.cx + kPad;
-  T* X = reinterpret_cast<T*>(smem_raw);
-  T* H = X + kRows * ldx;
-  const int row0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x;
-  load_tile(X, ldx, static_cast<const T*>(a.x), a.cx, row0, a.n, tid, kThreads);
-  __syncthreads();
-  const int rows_valid = a.n - row0;
-  T* acts_tile = kActs ? static_cast<T*>(a.acts_out) + static_cast<size_t>(row0) * F
-                       : nullptr;
-  trunk_tile<F, T, kActs>(a, X, ldx, H, ldh, acts_tile, rows_valid);
-  store_tile<T, F>(static_cast<T*>(a.out), H, ldh, row0, rows_valid, tid, kThreads);
+namespace fw = satnerf::fwd;
+
+template <typename T, int F>
+__global__ void __launch_bounds__(fw::kThreads, 1)
+    trunk_fwd_kernel(const __grid_constant__ TrunkArgs a, const __grid_constant__ fw::Plan pl) {
+  extern __shared__ unsigned char smem_raw[];
+  using S = fw::Smem<T, F>;
+  unsigned char* smem = fw::align1024(smem_raw);
+  T* H = reinterpret_cast<T*>(smem);
+  T* X = H + fw::kRows * S::kLdh;
+  const int row0 = blockIdx.x * fw::kRows;
+  fw::Ring r = fw::make_ring<T, F>(smem);
+  fw::produce<T>(pl, r);  // the first two chunks of the stream
+  fw::produce<T>(pl, r);
+  fw::load_tile(X, S::kLdx, fw::round16(a.cx), static_cast<const T*>(a.x), a.cx, row0, a.n);
+  fw::run_trunk<T, F, false>(a, pl, r, fw::ATile<T>{X, S::kLdx}, H,
+                             static_cast<T*>(a.acts_out), static_cast<T*>(a.out), row0,
+                             nullptr, nullptr);
 }
 
 template <typename T, int F>
@@ -121,14 +126,20 @@ trunk_fwd_il_kernel(const TrunkArgs a) {
   store_tile<T, F>(static_cast<T*>(a.out), H, ldh, row0, a.n - row0, tid, kThreads);
 }
 
-template <typename T, bool kActs>
+template <typename T>
 int launch(const TrunkArgs& a, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * kRows * static_cast<size_t>((a.cx + kPad) + (kFeat + kPad));
-  auto kern = trunk_fwd_kernel<T, kActs, kFeat>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  fw::Plan pl;
+  pl.njobs = 0;
+  if (2 * a.layers > fw::kMaxJobs || fw::round16(a.cx) > fw::kMaxK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  fw::add_trunk_jobs(pl, sizeof(T), a.layers, kFeat, fw::round16(a.cx), a.skip_mask, a.w0,
+                     a.w_mid, a.w_skip);
+  if (const int err = fw::check_plan(pl)) return err;
+  constexpr int smem = fw::Smem<T, kFeat>::kBytes;
+  auto kern = trunk_fwd_kernel<T, kFeat>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<(a.n + kRows - 1) / kRows, kThreads, smem, stream>>>(a);
+  kern<<<(a.n + fw::kRows - 1) / fw::kRows, fw::kThreads, smem, stream>>>(a, pl);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -157,11 +168,7 @@ int check(const TrunkArgs& a) {
 extern "C" int trunk_fwd_forward(const TrunkArgs* a, cudaStream_t stream) {
   if (const int err = check(*a)) return err;
   if (a->n <= 0) return 0;
-  if (a->bf16)
-    return a->acts_out != nullptr ? launch<__nv_bfloat16, true>(*a, stream)
-                                  : launch<__nv_bfloat16, false>(*a, stream);
-  return a->acts_out != nullptr ? launch<float, true>(*a, stream)
-                                : launch<float, false>(*a, stream);
+  return a->bf16 ? launch<__nv_bfloat16>(*a, stream) : launch<float>(*a, stream);
 }
 
 extern "C" int trunk_fwd_interleaved(const TrunkArgs* a, cudaStream_t stream) {

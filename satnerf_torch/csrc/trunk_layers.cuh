@@ -1,6 +1,6 @@
-// The SIREN trunk over one 32-row tile, shared by the fused field kernel K1
-// (field_fused.cu, which runs the heads after it) and the trunk-only kernel
-// K3 (trunk_fwd.cu), so that one trunk exists:
+// The SIREN trunk over one 32-row tile on the f32 FMA units, the loop of K6
+// (trunk_fwd.cu trunk_fwd_il_kernel, the interleaved variant off every path);
+// K1 and K3 run the tensor-core trunk of trunk_tc.cuh:
 //   h_0 = sin(w0 * (x @ W0 + b0)),  h_i = sin(h_{i-1} @ W_i [+ x @ Ws_i] + b_i)
 // The tile's activations live in shared memory; the weights stream from L2
 // through the row-tile GEMM of tile_gemm.cuh. A skip concat [x, h] is a split
@@ -64,24 +64,6 @@ __device__ __forceinline__ void layer_store(float (&acc)[Map<N>::kRpt][2],
   }
 }
 
-// D = act(scale * (A @ W [+ A2 @ W2] + bias)), stored in T. D may alias A:
-// every product is in registers before the barrier that precedes the write.
-template <int N, typename T, bool kActs = false>
-__device__ __forceinline__ void layer(const T* A, int lda, int K, const T* W,
-                                      const T* A2, int lda2, int K2, const T* W2,
-                                      const float* __restrict__ bias, T* D, int ldd,
-                                      int act, float scale, int sin_mode,
-                                      T* pre = nullptr, int ldpre = 0,
-                                      int rows_valid = 0) {
-  const unsigned tid = threadIdx.x;
-  float acc[Map<N>::kRpt][2];
-  layer_acc<N, T>(acc, A, lda, K, W, A2, lda2, K2, W2, tid);
-  __syncthreads();
-  layer_store<N, T, kActs>(acc, bias, D, ldd, act, scale, sin_mode, pre, ldpre,
-                           rows_valid, tid);
-  __syncthreads();
-}
-
 // Copy rows row0.. of a (n, cols) row-major global array into a (kRows, ld)
 // shared tile, zero past the last row; `count` threads from index tid.
 template <typename T>
@@ -103,34 +85,6 @@ __device__ __forceinline__ void store_tile(T* out, const T* H, int ldh, int row0
   for (int i = tid; i < kRows * F; i += count) {
     const int r = i / F, c = i - r * F;
     if (r < rows_valid) og[static_cast<size_t>(r) * F + c] = H[r * ldh + c];
-  }
-}
-
-// Every layer of the trunk over the x tile X, in place in H, which ends holding
-// h_{L-1}. Args is the kernel's argument struct, read in place: w0 (cx, F), w_mid (L-1, F, F), w_skip
-// (n_skip, cx, F) in the compute dtype and b (L, F) f32, in the packed layout of
-// satnerf_torch/ops/trunk.py, and n, layers, cx, skip_mask, sin_mode, w0_scale.
-// kActs: layer i's pre-activations go to acts_tile + i * n * F (rows <
-// rows_valid, row stride F), when acts_tile is given.
-template <int F, typename T, bool kActs, typename Args>
-__device__ __forceinline__ void trunk_tile(const Args& a, const T* X, int ldx, T* H,
-                                           int ldh, T* acts_tile, int rows_valid) {
-  const float* b = static_cast<const float*>(a.b);
-  const T* w_mid = static_cast<const T*>(a.w_mid);
-  const T* w_skip = static_cast<const T*>(a.w_skip);
-  const size_t act_stride = static_cast<size_t>(a.n) * F;  // one layer's (n, F)
-  layer<F, T, kActs>(X, ldx, a.cx, static_cast<const T*>(a.w0), nullptr, 0, 0, nullptr,
-                     b, H, ldh, kSine, a.w0_scale, a.sin_mode, acts_tile, F, rows_valid);
-  int s = 0;
-  for (int i = 1; i < a.layers; ++i) {
-    const bool skip = (a.skip_mask >> i) & 1;
-    layer<F, T, kActs>(H, ldh, F, w_mid + static_cast<size_t>(i - 1) * F * F,
-                       skip ? X : nullptr, ldx, a.cx,
-                       skip ? w_skip + static_cast<size_t>(s) * a.cx * F : nullptr,
-                       b + i * F, H, ldh, kSine, 1.0f, a.sin_mode,
-                       acts_tile != nullptr ? acts_tile + i * act_stride : nullptr, F,
-                       rows_valid);
-    s += skip;
   }
 }
 

@@ -5,7 +5,8 @@ Port of ``satnerf_tpu/ops/pallas/field_fused.py``: the TPU kernel
 ``fused_field`` (``_fwd_kernel`` / ``_heads_forward``, K1) and its custom
 VJP (``_fused_field_bwd``: the heads backward ``_heads_bwd_kernel``, K2,
 chained into the trunk backward of ``ops/trunk.py``, K4). ``fused_field``
-launches the hand-written CUDA kernels (``csrc/field_fused.cu``,
+launches the hand-written CUDA kernels (``csrc/field_fused.cu`` on the
+tensor cores, with the weights of :func:`tc_weights`,
 ``csrc/field_bwd.cu``) for CUDA tensors and runs their plain PyTorch
 versions (:func:`fused_field_reference`, :func:`heads_backward_reference`)
 for CPU tensors. Under autograd it goes through :class:`FusedField`, whose
@@ -464,6 +465,44 @@ def heads_backward_reference(spec: FieldSpec, shared, aux, g_out, packed):
 
 
 # -----------------------------------------------------------------------
+# weights for the tensor-core kernel
+# -----------------------------------------------------------------------
+
+# the f32 projections' K order within each group of 8: the wgmma accumulator
+# holds columns (2t, 2t + 1) where the tf32 A fragment takes (t, t + 4)
+PROJ_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def tc_projection(w: torch.Tensor, ks: int | None = None) -> torch.Tensor:
+    """A 16-wide projection (K, 16) as K1 takes it: W^T (16, K), in f32 (8
+    elements per k-step) with K permuted within each group of 8 by
+    :data:`PROJ_PERM`, in :func:`trunk.tc_operand`'s layout for 16 rows."""
+    ks = ks or 32 // w.element_size()
+    wt = w.t()
+    if ks == 8:
+        k = wt.shape[1]
+        idx = torch.arange(k, device=w.device).view(-1, 8)[:, list(PROJ_PERM)].reshape(-1)
+        wt = wt[:, idx]
+    return trunk.tc_operand(wt, rows=16, ks=ks)
+
+
+def tc_weights(packed: dict) -> dict:
+    """The packed field prepared for ``csrc/field_fused.cu``: the trunk as
+    :func:`trunk.tc_trunk_weights`, every head weight W^T (out, in) with K
+    padded to a multiple of 16 (the aux rows 12 -> 16,
+    :func:`trunk.tc_operand`), the 16-wide projections by
+    :func:`tc_projection`, the biases as they are; one gather
+    (:func:`trunk.tc_gather`)."""
+    layouts = dict(trunk.TRUNK_LAYOUTS)
+    for k in packed:
+        if k.startswith("w2_"):
+            layouts[k] = lambda t, ks: tc_projection(t, ks)
+        elif k.startswith("w") and k not in layouts:
+            layouts[k] = lambda t, ks: trunk.tc_operand(t.t(), ks=ks)
+    return trunk.tc_gather(packed, layouts)
+
+
+# -----------------------------------------------------------------------
 # CUDA kernel binding
 # -----------------------------------------------------------------------
 
@@ -491,9 +530,11 @@ class _FieldArgs(ctypes.Structure):
 
 
 def _launch(spec: FieldSpec, x, aux, packed, out, shared=None, acts=None) -> None:
+    """One K1 launch on the weights of :func:`tc_weights` (made from
+    ``packed``, reused while ``packed`` is unchanged)."""
     lib = load_library("field_fused")
     dt = x.dtype
-    tensors = {"x": x, "aux": aux, "out": out}
+    keys = {}
     for name in _PTR_FIELDS[3:]:
         key = "b_small_sc" if (name == "b_small" and not spec.heads_on) else name
         t = packed.get(key)
@@ -503,7 +544,11 @@ def _launch(spec: FieldSpec, x, aux, packed, out, shared=None, acts=None) -> Non
             want = torch.float32 if name.startswith("b") else dt
             if t.dtype != want:
                 raise ValueError(f"packed[{key!r}] is {t.dtype}, expected {want}")
-        tensors[name] = t
+        keys[name] = key
+    prepared = trunk.tc_cached(f"field/{dt}", packed, lambda: tc_weights(packed))
+    tensors = {"x": x, "aux": aux, "out": out}
+    for name, key in keys.items():
+        tensors[name] = prepared.get(key)
     tensors["shared_out"], tensors["acts_out"] = shared, acts
     args = _FieldArgs()
     for name in _PTR_FIELDS:
@@ -538,6 +583,9 @@ def _check_cuda(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor) -> None:
         )
     if x.dtype not in (torch.float32, torch.bfloat16) or aux.dtype != x.dtype:
         raise ValueError(f"fused_field: x {x.dtype} / aux {aux.dtype} unsupported")
+    if _bwd.padded_k(spec.cx) > trunk.TC_MAX_K or spec.aux_w > G_AUX_W:
+        raise ValueError(f"fused_field kernel takes at most {trunk.TC_MAX_K} inputs and "
+                         f"{G_AUX_W} aux columns, got {spec.cx} / {spec.aux_w}")
     n = x.shape[0]
     if x.shape != (n, spec.cx) or aux.shape != (n, spec.aux_w):
         raise ValueError(

@@ -12,7 +12,9 @@ for CPU tensors they run their plain PyTorch versions
 (:func:`fused_trunk_reference`, :func:`trunk_backward_reference`). Under
 autograd :func:`fused_trunk` goes through :class:`FusedTrunk`: K3 forward,
 K4 backward. K1 (``ops/field_fused.py``) runs the same trunk in front of its
-heads; the CUDA trunk loop of both is ``csrc/trunk_layers.cuh``.
+heads; the CUDA trunk loop of both is ``csrc/trunk_tc.cuh`` (tensor cores),
+which takes the weights prepared by :func:`tc_trunk_weights`; K6 keeps the
+f32 FMA loop of ``csrc/trunk_layers.cuh`` on the packed weights.
 
 The trunk is ``h_0 = sin(w0 * (x @ W0 + b0))``,
 ``h_i = sin(h_{i-1} @ W_i [+ x @ Ws_i] + b_i)``, on the packed layout of
@@ -33,6 +35,7 @@ c_in, cx, w0, sin_mode, trunk_bwd).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -49,6 +52,7 @@ INTERLEAVED_LAUNCHES = 0  # K6 launches made by fused_trunk_interleaved
 FEAT_WIDTHS = (512,)  # trunk widths the kernels are instantiated for
 GX_WIDTHS = (64, 128)  # padded input widths of the gx launch (csrc/trunk_bwd.cu)
 TRUNK_KEYS = ("w0", "w_mid", "w_skip", "b")
+TC_MAX_K = 64  # widest padded input the tensor-core forward kernels take
 
 
 def dot_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -98,6 +102,102 @@ def pack_trunk(field, spec, dtype: torch.dtype) -> dict:
                    else w0.new_zeros((1, cx, spec.feat))),  # placeholder, never read
         "b": torch.stack([l.bias.to(torch.float32) for l in fc]).contiguous(),
     }
+
+
+# -----------------------------------------------------------------------
+# weights for the tensor-core forward kernels (K1, K3)
+# -----------------------------------------------------------------------
+
+
+TC_PASS_ROWS = 256  # output columns of one tensor-core pass (csrc/trunk_tc.cuh)
+
+
+def tc_operand(wt: torch.Tensor, rows: int = TC_PASS_ROWS, ks: int | None = None) -> torch.Tensor:
+    """A weight as the tensor-core forward takes it: ``wt`` = W^T (..., N, K),
+    K padded with zeros to a multiple of 16, laid out as the kernels' shared
+    memory tiles so that every chunk they stage is one contiguous copy:
+    (..., N / rows, K / ks, rows, ks) for ks = 32 bytes of K (8 f32, 16
+    bf16), each row's two 16-byte halves swapped where (row / 4) is odd (the
+    32-byte swizzle of ``csrc/wgmma.cuh`` desc_sw32). A pass of ``rows``
+    output columns and one k-step of it is a (rows, 32-byte) tile. (In f32
+    the kernels split the weights into tf32 hi + lo themselves.) ``ks``
+    overrides the element count per k-step (for an index tensor standing in
+    for the weight, :func:`tc_gather`)."""
+    wt = _bwd.pad_cols(wt, _bwd.padded_k(wt.shape[-1]))
+    *lead, n, k = wt.shape
+    ks = ks or 32 // wt.element_size()
+    x = wt.reshape(*lead, n // rows, rows, k // ks, 2, ks // 2)
+    swap = ((torch.arange(rows, device=wt.device) >> 2) & 1).bool()
+    x = torch.where(swap.view(rows, 1, 1, 1), x.flip(-2), x)
+    return x.transpose(-4, -3).reshape(*lead, n // rows, k // ks, rows, ks).contiguous()
+
+
+_TC_INDEX: dict = {}
+
+
+def tc_gather(packed: dict, layouts: dict) -> dict:
+    """The weights of ``packed`` named in ``layouts`` ({key: fn(t, ks)}, the
+    layout of one weight for ``ks`` elements per k-step) rearranged by one
+    gather: the layouts are applied once per shape set to an index tensor
+    (1-based; 0, the padding, reads a zero) and cached, so each call costs a
+    concatenation and one indexing kernel, not a chain of small ops per
+    weight. Keys not in ``layouts`` pass through."""
+    keys = sorted(layouts)
+    ws = [packed[k] for k in keys]
+    dev, ks = ws[0].device, 32 // ws[0].element_size()
+    ck = (tuple((k, tuple(packed[k].shape)) for k in keys), ks, dev)
+    hit = _TC_INDEX.get(ck)
+    if hit is None:
+        off, parts, shapes = 1, [], []
+        for k, t in zip(keys, ws):
+            ii = torch.arange(off, off + t.numel(), dtype=torch.int64, device=dev)
+            arranged = layouts[k](ii.view(t.shape), ks)
+            parts.append(arranged.reshape(-1))
+            shapes.append(tuple(arranged.shape))
+            off += t.numel()
+        hit = _TC_INDEX[ck] = (torch.cat(parts), shapes)
+    index, shapes = hit
+    flat = torch.cat([ws[0].new_zeros(1)] + [t.reshape(-1) for t in ws])[index]
+    out, pos = {k: t for k, t in packed.items() if k not in layouts}, 0
+    for k, shape in zip(keys, shapes):
+        n = math.prod(shape)
+        out[k] = flat[pos:pos + n].view(shape)
+        pos += n
+    return out
+
+
+TRUNK_LAYOUTS = {
+    "w0": lambda t, ks: tc_operand(t.t(), ks=ks),
+    "w_mid": lambda t, ks: tc_operand(t.transpose(1, 2), ks=ks),
+    "w_skip": lambda t, ks: tc_operand(t.transpose(1, 2), ks=ks),
+}
+
+
+def tc_trunk_weights(packed: dict) -> dict:
+    """The trunk's packed weights prepared for ``csrc/trunk_tc.cuh``: w0,
+    w_mid (per layer) and w_skip (per skip), each W^T of the packed (in, out)
+    block in :func:`tc_operand`'s layout; the bias as it is."""
+    return tc_gather({k: packed[k] for k in TRUNK_KEYS}, TRUNK_LAYOUTS)
+
+
+_TC_CACHE: dict = {}
+
+
+def tc_cached(kind: str, packed: dict, make) -> dict:
+    """``make()``, reused while the packed tensors are the same storage at the
+    same version (a serving field packs once; training packs every step).
+    The entry pins the tensors' storage, so no other tensor can take its
+    address. Inference tensors keep no version: one changed in place inside
+    ``torch.inference_mode`` is not seen."""
+    srcs = [t.detach() for _, t in sorted(packed.items()) if isinstance(t, torch.Tensor)]
+    key = tuple((t.data_ptr(), t.dtype, tuple(t.shape),
+                 None if t.is_inference() else t._version) for t in srcs)
+    hit = _TC_CACHE.get(kind)
+    if hit is not None and hit[0] == key:
+        return hit[2]
+    out = make()
+    _TC_CACHE[kind] = (key, srcs, out)
+    return out
 
 
 # -----------------------------------------------------------------------
@@ -161,6 +261,8 @@ def _check_forward(name: str, spec, x, packed) -> None:
 
 
 def _launch_forward(fn_name: str, spec, x, packed, out, acts) -> None:
+    """One launch of ``fn_name`` on ``packed``: K3 takes the weights of
+    :func:`tc_trunk_weights`, K6 the packed ones."""
     lib = load_library("trunk_fwd")
     args = _TrunkArgs()
     for k, t in (("x", x), ("out", out), ("acts_out", acts),
@@ -183,12 +285,16 @@ def _forward(spec, x, packed, emit_acts: bool):
     if x.device.type == "cpu":
         return fused_trunk_reference(spec, x, packed, emit_acts)
     _check_forward("fused_trunk", spec, x, packed)
+    if _bwd.padded_k(spec.cx) > TC_MAX_K:
+        raise ValueError(f"fused_trunk kernel takes at most {TC_MAX_K} inputs, got {spec.cx}")
     n, dev = x.shape[0], x.device
     out = torch.empty((n, spec.feat), dtype=x.dtype, device=dev)
     acts = (torch.empty((spec.layers, n, spec.feat), dtype=x.dtype, device=dev)
             if emit_acts else None)
     if n:
-        _launch_forward("trunk_fwd_forward", spec, x, packed, out, acts)
+        prepared = tc_cached(f"trunk/{x.dtype}", {k: packed[k] for k in TRUNK_KEYS},
+                             lambda: tc_trunk_weights(packed))
+        _launch_forward("trunk_fwd_forward", spec, x, prepared, out, acts)
         FWD_LAUNCHES += 1
     return out, acts
 
@@ -236,8 +342,9 @@ def fused_trunk(spec, x: torch.Tensor, packed: dict) -> torch.Tensor:
 
 def fused_trunk_interleaved(spec, x: torch.Tensor, packed: dict) -> torch.Tensor:
     """K6: :func:`fused_trunk`'s function computed over two interleaved row
-    sub-tiles per block (forward only, as the prototype). Bitwise equal to
-    K3 on the card. CPU tensors run :func:`fused_trunk_reference`; CUDA
+    sub-tiles per block (forward only, as the prototype), on the f32 FMA
+    units; bitwise repeatable, within the field bar of the plain version.
+    CPU tensors run :func:`fused_trunk_reference`; CUDA
     tensors launch K6 (counted in ``INTERLEAVED_LAUNCHES``) or raise."""
     global INTERLEAVED_LAUNCHES
     if x.device.type == "cpu":

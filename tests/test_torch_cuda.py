@@ -1,6 +1,7 @@
 """Each CUDA kernel of satnerf_torch (K1 with its residuals, K2, K3 and its
 interleaved variant K6, K4, K5 and its backward) against its plain PyTorch
-version, on the card. Marked
+version, on the card, and one tensor-core layer of the forward against the
+3xTF32 emulation of ops/_bwd.py. Marked
 ``cuda``: without a GPU every test here skips.
 
 The file imports neither JAX nor the JAX package, so it runs on a machine
@@ -185,7 +186,8 @@ def _trunk_case(cuda_device, n=1001, **cfg_kw):
 @pytest.mark.parametrize("emit_acts", [False, True])
 def test_cuda_trunk_kernel_matches_plain(cuda_device, dtype, emit_acts, record_property):
     """K3 against its plain version at feat 512 on 1,001 points (ragged
-    against the 32-row tile), bitwise repeatable; K6 bitwise equal to K3."""
+    against the 64-row tile), bitwise repeatable; K6 bitwise repeatable and
+    within the same bar of the plain version."""
     from satnerf_torch.ops import field_fused as ff
     from satnerf_torch.ops import trunk
 
@@ -197,18 +199,20 @@ def test_cuda_trunk_kernel_matches_plain(cuda_device, dtype, emit_acts, record_p
         out, acts = trunk._forward(spec, x, packed, emit_acts)
         again, acts2 = trunk._forward(spec, x, packed, emit_acts)
         il = trunk.fused_trunk_interleaved(spec, x, packed)
+        il2 = trunk.fused_trunk_interleaved(spec, x, packed)
         torch.cuda.synchronize()
-        assert (trunk.FWD_LAUNCHES, trunk.INTERLEAVED_LAUNCHES) == (before[0] + 2, before[1] + 1)
+        assert (trunk.FWD_LAUNCHES, trunk.INTERLEAVED_LAUNCHES) == (before[0] + 2, before[1] + 2)
         ref, ref_acts = trunk.fused_trunk_reference(spec, x, packed, emit_acts)
-        # K6 is bitwise the K3 variant without residuals (the residual store
-        # changes how nvcc contracts layer 0's sine argument)
-        k3 = out if not emit_acts else trunk._forward(spec, x, packed, False)[0]
     assert out.dtype == dtype and out.shape == (x.shape[0], 512)
-    assert torch.equal(out, again) and torch.equal(il, k3)
+    # K3 on the tensor cores, K6 on the FMA units: each bitwise repeatable,
+    # each within the field bar of the plain version
+    assert torch.equal(out, again) and torch.equal(il, il2)
     # chip_smoke.py TOL_FIELD / TOL_RESID say why bf16 has its own bar
+    tol = 5e-5 if dtype == torch.float32 else 2e-2
     err = float((out.float() - ref.float()).abs().max())
     record_property("max_abs_err", err)
-    assert err < (5e-5 if dtype == torch.float32 else 2e-2)
+    assert err < tol
+    assert float((il.float() - ref.float()).abs().max()) < tol
     if emit_acts:
         assert acts.shape == (spec.layers, x.shape[0], 512) and torch.equal(acts, acts2)
         assert _rel(acts, ref_acts) < (5e-5 if dtype == torch.float32 else 4e-2)
@@ -339,3 +343,88 @@ def test_cuda_reduce_block_matches_torch(cuda_device, dtype, k, m, record_proper
     db_err = _rel(runs[0][1], b.double().sum(0))
     record_property("max_rel_err", max(err, db_err))
     assert err < TOL_BLOCK and db_err < TOL_BLOCK
+
+
+# -- the tensor-core forward (csrc/trunk_tc.cuh) -------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_forward_layer_is_3xtf32(cuda_device, dtype, record_property):
+    """Two trunk layers through K3 with their pre-activations: layer 0 (K 60,
+    padded to 64) and layer 1 (K 512) against the 3xTF32 emulation
+    (ops/_bwd.py:matmul_3xtf32) of the same operands in f32, against an f64
+    product of the bf16 operands in bf16. Both tf32 parts of the activations
+    are split in registers (register-A wgmma), so the kernel's products are
+    the emulation's up to the order of the f32 sums; one TF32 pass misses the
+    same bar by far."""
+    from satnerf_torch.ops import _bwd
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+    from satnerf_torch.ops.fastmath import SINE_ENGINES
+
+    cfg, field, spec, enc = _trunk_case(cuda_device, n=4099)
+    spec = dataclasses.replace(spec, layers=2, skips=())
+    with torch.no_grad():
+        packed = field.packed(dtype)
+        packed = {"w0": packed["w0"], "w_mid": packed["w_mid"][:1].contiguous(),
+                  "w_skip": packed["w_skip"], "b": packed["b"]}
+        x = ff.pack_x(spec, enc, dtype)
+        out, acts = trunk._forward(spec, x, packed, True)
+        torch.cuda.synchronize()
+    f32, f64 = torch.float32, torch.float64
+    sin = SINE_ENGINES[spec.sin_mode]
+    h0 = sin(spec.w0 * acts[0].float()).to(dtype)
+    if dtype == torch.float32:
+        ref0 = _bwd.matmul_3xtf32(x, packed["w0"]) + packed["b"][0]
+        ref1 = _bwd.matmul_3xtf32(h0, packed["w_mid"][0]) + packed["b"][1]
+        one = _bwd.tf32_round(h0) @ _bwd.tf32_round(packed["w_mid"][0]) + packed["b"][1]
+    else:
+        ref0 = (x.to(f64) @ packed["w0"].to(f64) + packed["b"][0]).to(f32)
+        ref1 = (h0.to(f64) @ packed["w_mid"][0].to(f64) + packed["b"][1]).to(f32)
+    errs = [_rel(acts[0], ref0.to(dtype)), _rel(acts[1], ref1.to(dtype))]
+    record_property("rel_err", errs)
+    bar = 1e-5 if dtype == torch.float32 else 2 ** -7  # bf16: one ulp of the store
+    assert max(errs) <= bar
+    if dtype == torch.float32:
+        assert _rel(one, ref1) > 10 * bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 64, 65])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_forward_kernels_ragged(cuda_device, n, dtype):
+    """K1 (both head variants, with residuals) and K3 at point counts around
+    the 64-row tile, against their plain versions; two runs bitwise equal."""
+    from satnerf_torch.models.field import Field, FieldConfig, fused_field_spec
+    from satnerf_torch.core.encoding import positional_encoding
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    cfg = FieldConfig(variant="rs_semantic", layers=4, feat=512, skips=(2,), mapping=True,
+                      use_tj_for_s=True, trunk_impl="pallas", trunk_bwd="stored")
+    field = Field(cfg, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    g = torch.Generator().manual_seed(n)
+    enc = positional_encoding(torch.rand(n, 3, generator=g) * 2 - 1, 10).to(cuda_device)
+    sun = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1).to(cuda_device)
+    te = torch.randn(n, 4, generator=g).to(cuda_device)
+    tol = 5e-5 if dtype == torch.float32 else 2e-2
+    resid_tol = 5e-5 if dtype == torch.float32 else 4e-2
+    with torch.no_grad():
+        packed = field.packed(dtype)
+        for heads_on in (True, False):
+            spec = dataclasses.replace(fused_field_spec(cfg), heads_on=heads_on)
+            x = ff.pack_x(spec, enc, dtype)
+            aux = ff.pack_aux(spec, sun, te, None, dtype)
+            runs = [ff._forward(spec, x, aux, packed, True) for _ in range(2)]
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(*runs))
+            ro, rs, ra = ff._reference_forward(spec, x, aux, packed, True)
+            assert float((runs[0][0] - ro).abs().max()) < tol
+            assert _rel(runs[0][1], rs) < resid_tol and _rel(runs[0][2], ra) < resid_tol
+        k3 = [trunk._forward(spec, x, packed, True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ref, ref_acts = trunk.fused_trunk_reference(spec, x, packed, True)
+    assert all(torch.equal(a, b) for a, b in zip(*k3))
+    assert float((k3[0][0].float() - ref.float()).abs().max()) < tol
+    assert _rel(k3[0][1], ref_acts) < resid_tol
