@@ -16,19 +16,24 @@ JSON line per phase:
    flagship width (rs_semantic 8x512), f32 and bf16, both head variants,
    256- and 512-wide heads, at 1, 63, 64, 65 and 65,537 points, each run
    twice for bitwise-equal outputs;
-5. the compositing kernel against its plain version;
+5. the compositing kernel K5 against its plain version at the main path's
+   four shapes and ragged ones, on the renderer's strided sun/sky views,
+   twice (bitwise equal) and on contiguous copies (bitwise equal);
 6. the serving path: a ``RenderService`` on seeded weights answers three
    128x128 requests through both kernels (launch counters prove it), its
    first 1,024 rays are held against the plain path on the CPU, and one
    solar-correction render runs the sigma+sun-only field variant;
 7. CUDA-event times of each kernel and its plain version at the serve
    shapes, beside the least time the card could take; the field kernel is
-   held against its plain version at that shape too;
+   held against its plain version at that shape too; K5's device times
+   (``device_time``: the timed calls queue behind a ``torch.cuda._sleep``
+   that outlasts their host issue, on inputs rotated past the L2) and the
+   host's issue µs per call;
 8. the backward kernels at the flagship width: K1's residuals, the heads
    backward (K2) and the trunk backward (K4, both engines) against their
    plain versions, f32 and bf16, both head variants, and run twice for
    bitwise-equal gradients; the compositing backward (K5) against autograd
-   of its plain version;
+   of its plain version at K5's shapes, as phase 5;
 9. training: five flagship RS-Semantic steps (1,024 rays + 1,024 depth
    rays, every loss term on) through the kernels, with the launch counts
    of every kernel and no plain version; one 32-ray step held against the
@@ -38,7 +43,11 @@ JSON line per phase:
    reductions apart, beside both bounds and one torch.matmul per building
    block (with ``--parent DIR``, an older checkout's K1-K4 in turns with
    these, each in its own process, and K1/K3's f32 outputs held against
-   its within the field bars);
+   its within the field bars; K5's device times and flagship and Path B
+   step times in the same turns); phase ``composite_device_times``: K5 and
+   its backward beside the card's empty-kernel launch time, their byte
+   bound and ``torch.profiler``'s device time, and a sweep of rays per
+   block; the K1/K3 weight preparations of every step (one per field);
    ``torch.profiler`` over two steady steps (kernels by device time, the
    device's idle share);
 10. the trunk-only kernel K3 against its plain version at the flagship
@@ -71,6 +80,7 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -196,6 +206,196 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+_CYCLES_PER_MS: list = []
+
+
+def sleep_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per device ms, read once."""
+    import torch
+
+    if not _CYCLES_PER_MS:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        n = 20_000_000
+        start.record()
+        torch.cuda._sleep(n)
+        end.record()
+        torch.cuda.synchronize()
+        _CYCLES_PER_MS.append(n / start.elapsed_time(end))
+    return _CYCLES_PER_MS[0]
+
+
+def device_time(fn, reps: int = 100, warmup: int = 3, repeats: int = 3) -> dict:
+    """The device's ms per call of ``fn``, without the host's issue time.
+
+    ``cuda_ms`` puts its events around calls as the host issues them, so a
+    call whose host work outlasts its kernels times the host. Here the
+    ``reps`` calls queue behind a ``torch.cuda._sleep`` that outlasts their
+    issue (twice the plain loop's time, doubled until it covers the issue),
+    so the events around them see back-to-back kernels: ``ms`` is the median
+    of ``repeats`` such runs. Beside it: ``host_issue_us``, the least host
+    clock per call over those queued loops, and ``host_loop_us``, the host
+    clock per call over the plain loop with one synchronisation at the end.
+    Keep reps x launches per call within the launch queue (a few hundred)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    cycles = 2.0 * loop_s * 1e3 * sleep_cycles_per_ms()
+    runs, issues = [], []
+    while len(runs) < repeats:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(int(cycles))
+        ev[1].record()
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        issue_s = time.perf_counter() - t1
+        ev[2].record()
+        torch.cuda.synchronize()
+        if ev[0].elapsed_time(ev[1]) > 1.2 * issue_s * 1e3:
+            runs.append(ev[1].elapsed_time(ev[2]) / reps)
+            issues.append(issue_s / reps * 1e6)
+        else:
+            check(cycles < 2e10, f"device_time: no sleep covered the issue ({issue_s} s)")
+            cycles *= 2
+    return {"ms": sorted(runs)[len(runs) // 2], "host_issue_us": min(issues),
+            "host_loop_us": loop_s / reps * 1e6}
+
+
+def profiler_kernel_us(fn, pattern: str, reps: int = 30) -> float | None:
+    """torch.profiler's self device µs per launch of the kernels whose name
+    holds ``pattern``, over ``reps`` calls of ``fn`` (None: no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if pattern in ev.key and dev_us > 0:
+            return dev_us / ev.count
+    return None
+
+
+# K5 at the main path's shapes: flagship and Path A training (64 samples), the
+# Path B fine pass (64 + 128), a serve chunk, a Path B fine serve chunk
+K5_SHAPES = ((1024, 64), (1024, 192), (CHUNK, 64), (CHUNK, 192))
+# and ragged ones around the 32-lane warp and the lane runs
+K5_RAGGED = ((1001, 64), (77, 37), (33, 33), (1, 1), (1, 64), (7, 1))
+
+
+def k5_bytes(b: int, s: int) -> tuple:
+    """Bytes the forward and the backward must move: each input read once,
+    each output written once. Forward: sigma, z, albedo, sun (B, S) and sky
+    (B, 3) in; w, T (B, S), depth, rgb out. Backward: the forward's inputs
+    and the four outputs' gradients in; the gradients of sigma, albedo, sun
+    and sky out (the residuals a kernel reads are its design, not the
+    function's)."""
+    fwd = 4 * (6 * b * s + 3 * b) + 4 * (2 * b * s + 4 * b)
+    bwd = 4 * (6 * b * s + 3 * b + 2 * b * s + 4 * b) + 4 * (5 * b * s + 3 * b)
+    return fwd, bwd
+
+
+def k5_inputs(b: int, s: int, seed: int, dev):
+    """Seeded K5 inputs (sigma, z, albedo, sun, sky), some densities <= 0,
+    with sun and sky as the renderer passes them: ``sun_v[..., 0]`` of a
+    (B, S, 1) tensor and ``sky[:, 0, :]`` of a (B, S, 3) one (row stride 3S)."""
+    import torch
+
+    gc = torch.Generator().manual_seed(seed)
+    sig = torch.rand(b, s, generator=gc) * 6 - 1
+    z = torch.sort(torch.rand(b, s, generator=gc) * 2, dim=1).values
+    alb = torch.rand(b, s, 3, generator=gc)
+    sun = torch.rand(b, s, 1, generator=gc)
+    sky = torch.rand(b, 1, 3, generator=gc).expand(b, s, 3).contiguous()
+    sig, z, alb, sun, sky = (t.to(dev) for t in (sig, z, alb, sun, sky))
+    return [sig, z, alb, sun[..., 0], sky[:, 0, :]]
+
+
+L2_BYTES = 50e6  # H100 L2
+
+
+def k5_calls(comp, b: int, s: int, dev) -> dict:
+    """Callables for K5 at (b, s), each cycling over enough copies of its
+    inputs (3x the L2) that every call reads them from device memory, as the
+    main path does: "composite" the forward on contiguous inputs (the
+    kernel), "composite_call" the forward with the renderer's strided sun/sky
+    views (any copy included), "composite_bwd" the backward kernel's wrapper
+    (with the residuals each slice's backward takes)."""
+    import inspect
+    import itertools
+
+    import torch
+
+    ins = k5_inputs(b, s, 7 + s, dev)
+    gc = torch.Generator().manual_seed(b + s)
+    cots = [torch.randn(shape, generator=gc).to(dev)
+            for shape in ((b, s), (b, s), (b,), (b, 3))]
+    with torch.no_grad():
+        flat = [t.contiguous() for t in ins]
+        if "rgb_pre" in inspect.signature(comp.composite_backward).parameters:
+            _, t, _, _, pre = comp._forward_cuda(*flat, resid=True)
+            res = [t, pre]
+        else:  # the older backward takes the weights and the transparency
+            res = list(comp.composite(*flat)[:2])
+    # the forward reads 24 bytes a sample: the copies' reads span 3x the L2
+    copies = math.ceil(3 * L2_BYTES / (24 * b * s))
+    sets = [(ins, flat, res, cots)] + [
+        ([t.clone() for t in ins[:4]]
+         + [ins[4][:, None, :].expand(b, s, 3).contiguous()[:, 0, :]],  # as k5_inputs
+         [t.clone() for t in flat], [t.clone() for t in res], [t.clone() for t in cots])
+        for _ in range(copies - 1)]
+
+    def cycle(make):
+        it = itertools.cycle([make(*st) for st in sets])
+        return lambda: next(it)()
+
+    return {"composite": cycle(lambda i, f, r, c: lambda: comp.composite(*f)),
+            "composite_call": cycle(lambda i, f, r, c: lambda: comp.composite(*i)),
+            "composite_bwd": cycle(
+                lambda i, f, r, c: lambda: comp.composite_backward(f, *r, *c)),
+            "copies": copies}
+
+
+def composite_times(dev, reps: int = 100) -> dict:
+    """Device times (``device_time``) of K5 and its backward at K5_SHAPES,
+    with the host's issue µs, inputs read from device memory (k5_calls):
+    "composite/BxS" the forward kernel, with ``call_ms``/``call_host_issue_us``
+    for a call on the renderer's strided sun/sky views;
+    "composite_bwd/BxS" the backward. It calls only entry points every slice
+    has, so ``--tree`` runs it on an older checkout too."""
+    import torch
+
+    from satnerf_torch.ops import composite as comp
+
+    out = {}
+    with torch.no_grad():
+        for b, s in K5_SHAPES:
+            calls = k5_calls(comp, b, s, dev)
+            fwd = device_time(calls["composite"], reps)
+            call = device_time(calls["composite_call"], reps)
+            fwd.update(call_ms=call["ms"], call_host_issue_us=call["host_issue_us"],
+                       input_copies=calls["copies"])
+            out[f"composite/{b}x{s}"] = fwd
+            out[f"composite_bwd/{b}x{s}"] = device_time(calls["composite_bwd"], reps)
+            del calls
+    return out
+
+
 def synthetic_rays(n: int, seed: int, vocab: int):
     """Origins above the unit cube, near-nadir directions, near 0, far 2,
     one sun direction and one ts per request."""
@@ -285,40 +485,119 @@ def field_backward_phase(field, fcfg, enc, sun_d, t_emb) -> dict:
     return {"max_rel_err": worst_rel, "max_abs_err_f32": worst_abs}
 
 
-def composite_backward_phase(comp_inputs, n_samples: int) -> dict:
-    """K5's backward against autograd through its plain version, with rays
-    whose density is all <= 0."""
+def composite_backward_phase(dev) -> dict:
+    """K5's backward against autograd through its plain version at the main
+    path's shapes and ragged ones, with rays whose density is all <= 0 and
+    sun/sky as the renderer's strided views of (B, S, 1) and (B, S, 3)
+    leaves; two runs, and a run on contiguous copies, bit for bit equal."""
     import torch
 
     from satnerf_torch.ops import composite as comp
 
     errs = {}
-    for b, s in ((CHUNK, n_samples), (1001, n_samples), (77, 37)):
-        ins = comp_inputs(b, s, 10 + b + s)
+    for b, s in K5_SHAPES + K5_RAGGED:
+        ins = k5_inputs(b, s, 10 + b + s, dev)
         ins[0][:8] = -ins[0][:8].abs()
         gc = torch.Generator().manual_seed(b)
-        cots = [torch.randn(shape, generator=gc).to(ins[0].device)
+        cots = [torch.randn(shape, generator=gc).to(dev)
                 for shape in ((b, s), (b, s), (b,), (b, 3))]
 
-        def grads(fn):
-            leaves = [t.clone().requires_grad_(i != 1) for i, t in enumerate(ins)]
-            torch.autograd.backward(fn(*leaves), cots)
-            return [leaves[i].grad for i in (0, 2, 3, 4)]
+        def grads(fn, strided=True):
+            sig, z, alb = (t.clone().requires_grad_(i != 1) for i, t in enumerate(ins[:3]))
+            sun_b = ins[3].clone()[..., None].requires_grad_()
+            sky_b = ins[4][:, None, :].expand(b, s, 3).clone().requires_grad_()
+            sun, sky = sun_b[..., 0], sky_b[:, 0, :]
+            if not strided:
+                sun, sky = sun.contiguous(), sky.contiguous()
+            torch.autograd.backward(fn(sig, z, alb, sun, sky), cots)
+            return [sig.grad, alb.grad, sun_b.grad[..., 0], sky_b.grad[:, 0, :]]
 
         got, again = grads(comp.composite), grads(comp.composite)
+        flat = grads(comp.composite, strided=False)
         torch.cuda.synchronize()
         ref = grads(comp.composite_reference)
         check(all(torch.equal(a, c) for a, c in zip(got, again)),
               f"composite backward {b}x{s}: two runs differ")
+        check(all(torch.equal(a, c) for a, c in zip(got, flat)),
+              f"composite backward {b}x{s}: strided and contiguous inputs differ")
         check(bool(torch.all(got[0][:8] == 0)), "sigma <= 0 rays got a gradient")
         e = {n: float((a - r).abs().max())
              for n, a, r in zip(("sigmas", "albedo", "sun", "sky"), got, ref)}
         errs[f"{b}x{s}"] = e
         for n, v in e.items():
             check(v <= TOL_COMPOSITE_BWD[n], f"composite backward {b}x{s} {n} {v}")
-    emit({"phase": "composite_backward_check", "max_abs_err": errs,
-          "tol": TOL_COMPOSITE_BWD})
+    emit({"phase": "composite_backward_check", "max_abs_err": errs, "bitwise_repeat": True,
+          "strided_sun_sky": True, "tol": TOL_COMPOSITE_BWD})
     return errs
+
+
+def composite_device_phase(turns: list | None, k5: dict) -> dict:
+    """K5 and its backward at K5_SHAPES: device ms (``device_time``) of this
+    tree and, with ``turns``, the parent's in turns (parent, this, this,
+    parent); host issue µs per call; the card's launch floor (an empty
+    kernel, ``torch.cuda._sleep(0)``, timed the same way); the byte bound and
+    the share of it reached; torch.profiler's self device time of this
+    tree's kernels beside the helper's; and the device ms of each
+    warps-per-block choice (``ops/composite.py:WARPS_PER_BLOCK``)."""
+    import torch
+
+    from satnerf_torch.ops import composite as comp
+
+    dev = torch.device("cuda")
+    floor = device_time(lambda: torch.cuda._sleep(0), reps=200)
+    mine = theirs = None
+    if turns:
+        mine, theirs = turn_means(turns)
+    rows, sweep, prof = {}, {}, {}
+    chosen = comp.WARPS_PER_BLOCK
+    for b, s in K5_SHAPES:
+        calls = k5_calls(comp, b, s, dev)
+        for name, nbytes in zip(("composite", "composite_bwd"), k5_bytes(b, s)):
+            key = f"{name}/{b}x{s}"
+            here = k5[key]
+            bound = nbytes / PEAK_HBM_BYTES * 1e3
+            row = {"ms": here["ms"], "host_issue_us": here["host_issue_us"],
+                   "host_loop_us": here["host_loop_us"], "bound_ms": bound,
+                   "bound_by": "bytes", "share_of_bound": bound / here["ms"],
+                   "over_launch_floor": here["ms"] / floor["ms"]}
+            if name == "composite":
+                row.update(call_ms=here["call_ms"], call_host_issue_us=here["call_host_issue_us"])
+            if turns:
+                row.update(
+                    this_turns_ms=[tr["times"][key]["ms"] for tr in turns[1:3]],
+                    parent_turns_ms=[tr["times"][key]["ms"] for tr in (turns[0], turns[3])],
+                    this_mean_ms=mine[key], parent_ms=theirs[key],
+                    parent_host_issue_us=[tr["times"][key]["host_issue_us"]
+                                          for tr in (turns[0], turns[3])])
+                if name == "composite":
+                    row["parent_call_ms"] = [tr["times"][key]["call_ms"]
+                                             for tr in (turns[0], turns[3])]
+            pattern = "composite_backward_kernel" if name == "composite_bwd" else "composite_kernel"
+            p_us = profiler_kernel_us(calls[name], pattern)
+            prof[key] = p_us
+            if p_us is not None:
+                row["profiler_us"] = p_us
+                # the events span back-to-back launches: never below the kernels
+                check(here["ms"] * 1e3 >= 0.9 * p_us,
+                      f"{key}: device_time {here['ms']} ms below the profiler's {p_us} us")
+            rows[key] = row
+            per_w = {}
+            for w in (1, 2, 4, 8):
+                comp.WARPS_PER_BLOCK = w
+                try:
+                    per_w[w] = device_time(calls[name], reps=50)["ms"]
+                finally:
+                    comp.WARPS_PER_BLOCK = chosen
+            sweep[key] = per_w
+        del calls
+    line = {"phase": "composite_device_times", "nvidia_smi": smi_line(),
+            "launch_floor_ms": floor["ms"], "launch_floor_host_issue_us": floor["host_issue_us"],
+            "sleep_cycles_per_ms": sleep_cycles_per_ms(), "rows": rows,
+            "warps_per_block_ms": sweep,
+            "warps_per_block_chosen": chosen,
+            "profiler_us": prof}
+    emit(line)
+    return line
 
 
 def train_batch(n: int, n_depth: int, seed: int, vocab: int, device) -> dict:
@@ -415,16 +694,20 @@ def read_counters() -> tuple:
 
 
 def train_phase(dev, vocab: int, name: str = "train", overrides: dict | None = None,
-                per_step: dict = PER_STEP, stored_check: bool = True) -> dict:
+                per_step: dict = PER_STEP, stored_check: bool = True,
+                preparations: int = 1) -> dict:
     """Five training steps of the flagship step config (with ``overrides``
-    of its pipeline keys) through the kernels, then a 32-ray step against
-    the CPU plain path and, with ``stored_check``, a "stored"-engine step."""
+    of its pipeline keys) through the kernels, each preparing the K1/K3
+    weights ``preparations`` times (once per field), then a 32-ray step
+    against the CPU plain path and, with ``stored_check``, a "stored"-engine
+    step."""
     import dataclasses
     import math
 
     import torch
 
     from satnerf_torch.configs import load_pipeline_toml, step_config_from_pipeline
+    from satnerf_torch.ops import trunk
     from satnerf_torch.train.state import create_train_state, init_params, trainable
     from satnerf_torch.train.step import build_train_step
 
@@ -448,14 +731,16 @@ def train_phase(dev, vocab: int, name: str = "train", overrides: dict | None = N
 
     reset_counters()
     torch.cuda.reset_peak_memory_stats()
-    step_ms, losses = [], []
+    step_ms, losses, preps = [], [], []
     for _ in range(TRAIN_STEPS):
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        before = trunk.TC_PREPARATIONS
         t0.record()
         state, metrics = step(state, batch, gen)
         t1.record()
         torch.cuda.synchronize()
         step_ms.append(t0.elapsed_time(t1))
+        preps.append(trunk.TC_PREPARATIONS - before)
         vals = {k: float(v) for k, v in metrics.items()}
         check(all(math.isfinite(v) for v in vals.values()), f"non-finite metrics {vals}")
         losses.append(vals)
@@ -463,6 +748,8 @@ def train_phase(dev, vocab: int, name: str = "train", overrides: dict | None = N
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     check(got == want, f"{name} launches {got}, expected {want}")
     check(not any(plain_calls.values()), f"{name}: a plain version ran: {plain_calls}")
+    check(preps == [preparations] * TRAIN_STEPS,
+          f"{name}: K1/K3 weight preparations per step {preps}, expected {preparations}")
     if fine:
         c_keys = [k for k in losses[-1] if k.startswith("c_")]
         check(len(c_keys) >= 6, f"{name}: coarse loss terms {c_keys}")
@@ -473,7 +760,8 @@ def train_phase(dev, vocab: int, name: str = "train", overrides: dict | None = N
           "depth_rays": TRAIN_RAYS, "step_ms": step_ms, "ms_per_step": ms,
           "rays_per_s": TRAIN_RAYS / (ms / 1e3), "launches": got,
           "launches_per_step": {k: v / TRAIN_STEPS for k, v in got.items()},
-          "plain_calls": plain_calls, "metrics_first": losses[0],
+          "plain_calls": plain_calls, "preparations_per_step": preps,
+          "metrics_first": losses[0],
           "metrics_last": losses[-1],
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
 
@@ -526,11 +814,12 @@ def train_phase(dev, vocab: int, name: str = "train", overrides: dict | None = N
     return {"launches": got, "scfg": scfg, "params": state.params}
 
 
-def train_times_phase(dev, scfg, params, parent: str | None) -> dict:
+def train_times_phase(dev, scfg, params, turns: list | None, k5: dict) -> dict:
     """CUDA-event times of each kernel and its plain version at the shapes of
     one flagship training step (65,536 points, f32), with the bounds; K2 and
     K4 (f32 and bf16, split into row launches and reductions, with the
-    parent's times under ``--parent``) come from bwd_times."""
+    parent's times in ``turns``) come from bwd_times; K5's device times from
+    ``k5`` (composite_times)."""
     import torch
 
     from satnerf_torch.core.encoding import positional_encoding
@@ -585,21 +874,20 @@ def train_times_phase(dev, scfg, params, parent: str | None) -> dict:
     ins = [t.to(dev) for t in ins]
     cots = [torch.randn(shape, generator=gc).to(dev)
             for shape in ((b, s), (b, s), (b,), (b, 3))]
-    c_ms = cuda_ms(lambda: comp.composite(*ins), reps=50, warmup=3)
+    # the kernels' device times (composite_times); the plain versions' as a
+    # caller sees them, host included
     cp_ms = cuda_ms(lambda: comp.composite_reference(*ins), reps=50, warmup=3)
-    c_bytes = 4 * (b * s * 6 + b * 3) + 4 * (2 * b * s + b + 3 * b)
-    out["composite"] = entry(c_ms, cp_ms, 25.0 * b * s, c_bytes, [b, s])
-    w, t, _, _ = comp.composite(*ins)
-    kb = cuda_ms(lambda: comp.composite_backward(ins, w, t, *cots), reps=50, warmup=3)
+    c_bytes, cb_bytes = k5_bytes(b, s)
+    kf, kb = k5[f"composite/{b}x{s}"], k5[f"composite_bwd/{b}x{s}"]
+    out["composite"] = dict(entry(kf["ms"], cp_ms, 25.0 * b * s, c_bytes, [b, s]),
+                            host_issue_us=kf["host_issue_us"])
     leaves = [x.clone().requires_grad_(i != 1) for i, x in enumerate(ins)]
     ref_outs = comp.composite_reference(*leaves)
     kbp = cuda_ms(lambda: torch.autograd.grad(ref_outs, [leaves[i] for i in (0, 2, 3, 4)],
                                               cots, retain_graph=True), reps=50, warmup=3)
-    # read sigma, z, albedo, sun, sky, w, T and the four output gradients;
-    # write the gradients of sigma, albedo, sun and sky
-    cb_bytes = 4 * (b * s * 8 + b * 3 + 2 * b * s + b + 3 * b) + 4 * (b * s * 5 + 3 * b)
-    out["composite_bwd"] = entry(kb, kbp, 60.0 * b * s, cb_bytes, [b, s])
-    bwd, extra = bwd_times(dev, parent)
+    out["composite_bwd"] = dict(entry(kb["ms"], kbp, 60.0 * b * s, cb_bytes, [b, s]),
+                                host_issue_us=kb["host_issue_us"])
+    bwd, extra = bwd_times(dev, turns)
     emit({"phase": "train_kernel_times", "dtype": "float32 (K2, K4: and bfloat16)",
           "times": {**out, **bwd}, **extra})
     return {**out, **bwd}
@@ -729,14 +1017,39 @@ def port_times(dev, save: str | None = None, reps: int = 3) -> dict:
     return out
 
 
-def bwd_times(dev, parent: str | None) -> tuple:
+def run_turns(parent: str) -> list:
+    """child_times on the checkout ``parent`` and on this one in turns
+    (parent, this, this, parent), each in its own process: [{"tree", "times"}]."""
+    outdir = os.path.join(REPO, "build", "turns")
+    os.makedirs(outdir, exist_ok=True)
+    turns = []
+    for i, tree in enumerate((parent, REPO, REPO, parent)):
+        path = os.path.join(outdir, f"turn{i}.pt")
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree",
+                              os.path.abspath(tree), "--save", path],
+                             capture_output=True, text=True, timeout=900)
+        check(res.returncode == 0, f"turn {i} in {tree}: {res.stderr[-2000:]}")
+        turns.append({"tree": "parent" if tree == parent else "this",
+                      "times": json.loads(res.stdout.strip().splitlines()[-1])})
+    return turns
+
+
+def turn_means(turns: list) -> tuple:
+    """({key: this tree's mean ms}, {key: the parent's mean ms}) over the turns."""
+    mine = {k: sum(t["times"][k]["ms"] for t in turns[1:3]) / 2 for k in turns[1]["times"]}
+    theirs = {k: sum(t["times"][k]["ms"] for t in (turns[0], turns[3])) / 2
+              for k in turns[0]["times"]}
+    return mine, theirs
+
+
+def bwd_times(dev, turns: list | None) -> tuple:
     """({key: entry}, extra fields): K2's and K4's times (port_times) beside
     their bounds, their plain versions' times and one torch.matmul of each
-    building block's product shape; with ``parent`` (an older checkout), that
-    tree's times in turns (parent, this, this, parent), each in its own
-    process, and K1's and K3's f32 outputs held against the parent's within
-    the field bars (whether they are bit for bit equal is printed).
-    ``forward_times``: K1's and K3's times from the same turns."""
+    building block's product shape; with ``turns`` (run_turns against an
+    older checkout), that tree's times in turns, and K1's and K3's f32
+    outputs held against the parent's within the field bars (whether they are
+    bit for bit equal is printed). ``forward_times``: K1's and K3's times
+    from the same turns."""
     import dataclasses
 
     import torch
@@ -745,18 +1058,10 @@ def bwd_times(dev, parent: str | None) -> tuple:
     from satnerf_torch.ops import field_fused as ff
     from satnerf_torch.ops import trunk
 
-    turns, bitwise, vs_parent = [], None, None
+    parent = bool(turns)
+    bitwise, vs_parent = None, None
     if parent:
         outdir = os.path.join(REPO, "build", "turns")
-        os.makedirs(outdir, exist_ok=True)
-        for i, tree in enumerate((parent, REPO, REPO, parent)):
-            path = os.path.join(outdir, f"turn{i}.pt")
-            res = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree",
-                                  os.path.abspath(tree), "--save", path],
-                                 capture_output=True, text=True, timeout=900)
-            check(res.returncode == 0, f"turn {i} in {tree}: {res.stderr[-2000:]}")
-            turns.append({"tree": "parent" if tree == parent else "this",
-                          "times": json.loads(res.stdout.strip().splitlines()[-1])})
         a, b = (torch.load(os.path.join(outdir, f"turn{i}.pt")) for i in (0, 1))
         bitwise = {k: all(torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a}
         # the engine changed (FMA -> tensor cores): K1/K3 against the parent's
@@ -770,9 +1075,7 @@ def bwd_times(dev, parent: str | None) -> tuple:
                 check(vs_parent[k]["out"] <= TOL_FIELD["float32"]
                       and vs_parent[k]["resid"] <= TOL_RESID["float32"],
                       f"{k} differs from the parent's: {vs_parent[k]}")
-        mine = {k: sum(t["times"][k]["ms"] for t in turns[1:3]) / 2 for k in turns[1]["times"]}
-        theirs = {k: sum(t["times"][k]["ms"] for t in (turns[0], turns[3])) / 2
-                  for k in turns[0]["times"]}
+        mine, theirs = turn_means(turns)
     times = turns[1]["times"] if parent else port_times(dev)
 
     case = flagship_case(dev)
@@ -968,15 +1271,17 @@ def trunk_forward_phase(dev, field, spec, enc) -> dict:
 
 
 def serve_variant_phase(name: str, dev, rcfg, params: dict, vocab: int,
-                        per_chunk: dict, coarse: bool = False) -> dict:
+                        per_chunk: dict, coarse: bool = False, fields: int = 1) -> dict:
     """One 128x128 request of a ``RenderService`` over ``params`` through the
     kernels (``per_chunk`` launches of each per 16,384-ray chunk, no plain
-    version), its first 1,024 rays held against the plain path on CPU copies
-    of the weights; with ``coarse``, the hierarchical ``<k>_coarse`` outputs
-    of those rays on the card against the CPU's too."""
+    version, the K1/K3 weights of each of its ``fields`` prepared once), its
+    first 1,024 rays held against the plain path on CPU copies of the
+    weights; with ``coarse``, the hierarchical ``<k>_coarse`` outputs of those
+    rays on the card against the CPU's too."""
     import numpy as np
     import torch
 
+    from satnerf_torch.ops import trunk
     from satnerf_torch.render.renderer import render_image_chunked
     from satnerf_torch.serve.service import RenderService
 
@@ -984,10 +1289,13 @@ def serve_variant_phase(name: str, dev, rcfg, params: dict, vocab: int,
     n_rays = SERVE_H * SERVE_W
     rays, extras = synthetic_rays(n_rays, 300, vocab)
     reset_counters()
+    before = trunk.TC_PREPARATIONS
     t0 = time.monotonic()
     out = svc.render_rays(rays, extras, SERVE_H, SERVE_W)
     req_ms = (time.monotonic() - t0) * 1e3
+    preps = trunk.TC_PREPARATIONS - before
     got, plain_calls = read_counters()
+    check(preps == fields, f"{name}: {preps} K1/K3 weight preparations, expected {fields}")
     chunks = -(-n_rays // CHUNK)
     want = {k: v * chunks for k, v in per_chunk.items()}
     check({k: got[k] for k in want} == want, f"{name} launches {got}, expected {want}")
@@ -1005,7 +1313,7 @@ def serve_variant_phase(name: str, dev, rcfg, params: dict, vocab: int,
            "depth": float(np.abs(out["depth"].reshape(-1)[:n_cmp] - ref["depth"]).max())}
     agree = float(np.mean(out["semantic_label"].reshape(-1)[:n_cmp] == ref["semantic_label"]))
     line = {"phase": name, "rays": n_rays, "chunk": CHUNK, "request_ms": req_ms,
-            "rays_per_s": n_rays / (req_ms / 1e3), "launches": got,
+            "rays_per_s": n_rays / (req_ms / 1e3), "launches": got, "preparations": preps,
             "cpu_plain_max_abs_err": err, "cpu_label_agreement": agree,
             "tol": TOL_SERVE_CPU}
     for k, tol in TOL_SERVE_CPU.items():
@@ -1115,9 +1423,50 @@ def trunk_times_phase(dev, field, spec, enc_fn) -> dict:
     return out
 
 
+def step_times(dev, steps: int = 5) -> dict:
+    """ms per training step of the flagship and Path B configurations (seeded
+    as train_phase; CUDA events over ``steps`` steps after two warm-up
+    steps). Only entry points every slice has, for the turns."""
+    import dataclasses
+
+    import torch
+
+    from satnerf_torch.configs import load_pipeline_toml, step_config_from_pipeline
+    from satnerf_torch.train.state import create_train_state, init_params
+    from satnerf_torch.train.step import build_train_step
+
+    out = {}
+    for name, overrides in (("flagship", {}), ("path_b", HIER)):
+        p = load_pipeline_toml(PIPELINE_TOML)
+        p.update(trunk_impl="pallas", **overrides)
+        scfg = step_config_from_pipeline(p, steps_per_epoch=1000, n_classes=5, car_index=4,
+                                         device=dev)
+        scfg = dataclasses.replace(scfg, use_car_reg_loss=True, car_reg_loss_start=0,
+                                   first_beta_epoch=0)
+        params = init_params(torch.Generator().manual_seed(0), scfg.render.field, t_vocab=50,
+                             device=dev, use_fine_network=scfg.render.use_fine_network)
+        state = create_train_state(params, LR, "step", scfg.steps_per_epoch)
+        step = build_train_step(scfg)
+        batch = train_batch(TRAIN_RAYS, TRAIN_RAYS, 5, 50, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for _ in range(2):
+            state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(steps):
+            state, _ = step(state, batch, gen)
+        t1.record()
+        torch.cuda.synchronize()
+        out[f"step/{name}"] = {"ms": t0.elapsed_time(t1) / steps}
+        del state, params, step, batch
+    return out
+
+
 def child_times(tree: str, save: str) -> int:
-    """``--tree DIR --save FILE``: port_times on the checkout at DIR (its own
-    package and kernels), printing the times as the last line."""
+    """``--tree DIR --save FILE``: port_times, composite_times and
+    step_times on the checkout at DIR (its own package and kernels), printing
+    the times as the last line."""
     sys.path.insert(0, tree)
     import torch
 
@@ -1128,7 +1477,9 @@ def child_times(tree: str, save: str) -> int:
 
     disable_tf32()
     _build.build_all()
-    print(json.dumps(port_times(torch.device("cuda"), save)), flush=True)
+    dev = torch.device("cuda")
+    print(json.dumps({**port_times(dev, save), **composite_times(dev), **step_times(dev)}),
+          flush=True)
     return 0
 
 
@@ -1278,18 +1629,27 @@ def main() -> int:
         sky = torch.rand(b, 3, generator=gc)
         return [t.to(dev) for t in (sig, z, alb, sun, sky)]
 
+    # the main path's four shapes and ragged ones, with the renderer's strided
+    # sun/sky views; two runs and a run on contiguous copies bit for bit equal
     comp_err = {}
     names = ("weights", "transparency", "depth", "rgb")
-    for b, s in ((CHUNK, rcfg.n_samples), (1001, rcfg.n_samples), (77, 37)):
-        args = comp_inputs(b, s, b + s)
+    for b, s in K5_SHAPES + K5_RAGGED:
+        args = k5_inputs(b, s, b + s, dev)
         outs_k = comp_mod.composite(*args)
+        again = comp_mod.composite(*args)
+        flat = comp_mod.composite(*(t.contiguous() for t in args))
         torch.cuda.synchronize()
         outs_p = comp_mod.composite_reference(*args)
+        check(all(torch.equal(x, y) for x, y in zip(outs_k, again)),
+              f"composite {b}x{s}: two runs differ")
+        check(all(torch.equal(x, y) for x, y in zip(outs_k, flat)),
+              f"composite {b}x{s}: strided and contiguous inputs differ")
         errs = {n: float((a - r).abs().max()) for n, a, r in zip(names, outs_k, outs_p)}
         comp_err[f"{b}x{s}"] = errs
         for n in names:
             check(errs[n] <= TOL_COMPOSITE[n], f"composite {b}x{s} {n} {errs[n]}")
-    emit({"phase": "composite_check", "max_abs_err": comp_err, "tol": TOL_COMPOSITE})
+    emit({"phase": "composite_check", "max_abs_err": comp_err, "bitwise_repeat": True,
+          "strided_sun_sky": True, "tol": TOL_COMPOSITE})
 
     # ---- 6. serve ----------------------------------------------------------------
     svc = RenderService({"field": field, "t": table}, rcfg, chunk=CHUNK, device=dev)
@@ -1298,12 +1658,14 @@ def main() -> int:
     torch.cuda.synchronize()
     ff.LAUNCHES = 0
     comp_mod.LAUNCHES = 0
+    preps0 = ff.trunk.TC_PREPARATIONS
     results, req_ms = [], []
     for rays, extras in requests:
         t0 = time.monotonic()
         results.append(svc.render_rays(rays, extras, SERVE_H, SERVE_W))
         req_ms.append((time.monotonic() - t0) * 1e3)
     launches = {"field_fused": ff.LAUNCHES, "composite": comp_mod.LAUNCHES}
+    serve_preps = ff.trunk.TC_PREPARATIONS - preps0
     chunks = N_REQUESTS * (-(-n_rays // CHUNK))
     for out in results:
         for k, v in out.items():
@@ -1333,7 +1695,8 @@ def main() -> int:
         check(cpu_err[k] <= tol, f"serve vs CPU {k} err {cpu_err[k]}")
     check(label_agree >= 0.99, f"semantic labels agree on {label_agree}")
     emit({"phase": "serve", "requests": N_REQUESTS, "rays_per_request": n_rays,
-          "chunk": CHUNK, "launches": launches, "request_ms": req_ms,
+          "chunk": CHUNK, "launches": launches, "preparations": serve_preps,
+          "request_ms": req_ms,
           "rays_per_s": n_rays * N_REQUESTS / (sum(req_ms) / 1e3),
           "stats": svc.stats(), "cpu_plain_max_abs_err": cpu_err,
           "cpu_label_agreement": label_agree, "tol": TOL_SERVE_CPU})
@@ -1395,24 +1758,37 @@ def main() -> int:
           "mac_per_point": spec.mac_per_point(),
           "sines_per_point": spec.sines_per_point(), "times": times})
 
+    # K5's device times at its four shapes (this tree; the parent's in turns
+    # in phase composite_device_times)
+    k5 = composite_times(dev)
     cargs = comp_inputs(CHUNK, rcfg.n_samples, 7)
-    c_ms = cuda_ms(lambda: comp_mod.composite(*cargs), reps=50, warmup=3)
-    cp_ms = cuda_ms(lambda: comp_mod.composite_reference(*cargs), reps=50, warmup=3)
     b, s = CHUNK, rcfg.n_samples
-    c_bytes = 4 * (b * s * (1 + 1 + 3 + 1) + b * 3) + 4 * (2 * b * s + b + 3 * b)
+    c_ms = k5[f"composite/{b}x{s}"]["ms"]
+    cp_ms = cuda_ms(lambda: comp_mod.composite_reference(*cargs), reps=50, warmup=3)
+    c_bytes = k5_bytes(b, s)[0]
     c_flops = 25.0 * b * s  # per sample: alpha, scan, weight, depth, 3 irradiance terms
     c_bytes_ms = c_bytes / PEAK_HBM_BYTES * 1e3
     c_ops_ms = c_flops / PEAK_F32_FLOPS * 1e3
     emit({"phase": "composite_time", "shape": [b, s], "ms": c_ms, "plain_ms": cp_ms,
+          "host_issue_us": k5[f"composite/{b}x{s}"]["host_issue_us"],
           "bytes": c_bytes, "bound_ms": max(c_bytes_ms, c_ops_ms)})
 
     # ---- 8. backward kernels -----------------------------------------------------
     bwd_err = field_backward_phase(field, fcfg, enc, sun_d, t_emb)
-    comp_bwd_err = composite_backward_phase(comp_inputs, rcfg.n_samples)
+    comp_bwd_err = composite_backward_phase(dev)
 
     # ---- 9. training ------------------------------------------------------------------
     train = train_phase(dev, vocab)
-    train_t = train_times_phase(dev, train["scfg"], train["params"], parent)
+    turns = run_turns(parent) if parent else None
+    if turns:
+        mine, theirs = turn_means(turns)
+        emit({"phase": "step_turns", "steps": 5,
+              "turns_ms": {k: [t["times"][k]["ms"] for t in turns]
+                           for k in turns[0]["times"] if k.startswith("step/")},
+              "this_ms": {k: v for k, v in mine.items() if k.startswith("step/")},
+              "parent_ms": {k: v for k, v in theirs.items() if k.startswith("step/")}})
+    train_t = train_times_phase(dev, train["scfg"], train["params"], turns, k5)
+    k5_line = composite_device_phase(turns, k5)
     profile_phase(dev, train["scfg"], train["params"], vocab)
 
     # ---- 10. the trunk-only kernel K3 and its interleaved variant K6 ------------------
@@ -1431,11 +1807,13 @@ def main() -> int:
                                    "trunk_fwd_interleaved": 0})
 
     # ---- 12. Path B: the hierarchical configuration, trained and served ---------------
-    hier = train_phase(dev, vocab, "train_hier", HIER, PER_STEP_HIER, stored_check=False)
+    # one K1 weight preparation per field and step (coarse, fine), not per call
+    hier = train_phase(dev, vocab, "train_hier", HIER, PER_STEP_HIER, stored_check=False,
+                       preparations=2)
     serve_h = serve_variant_phase("serve_hier", dev, hier["scfg"].render, hier["params"],
                                   vocab, {"field_fused": 2, "trunk_fwd": 0, "composite": 2,
                                           "trunk_fwd_interleaved": 0},
-                                  coarse=True)
+                                  coarse=True, fields=2)
 
     # ---- 13. K3 and K6 times -----------------------------------------------------------
     trunk_t = trunk_times_phase(dev, field_b, spec_b, lambda n: field_inputs(n, 3)[0])
@@ -1505,11 +1883,14 @@ def main() -> int:
             "launches": train["launches"]["composite"],
             "max_abs_err": max(max(e.values()) for e in comp_err.values()),
             **{k: train_t["composite"][k]
-               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "host_issue_us")},
             "library_ms": None,
+            "timing": "device_time (launches queued behind a sleep); plain_ms: cuda_ms",
+            "launch_floor_ms": k5_line["launch_floor_ms"],
             "serve": {"launches": launches["composite"], "shape": [CHUNK, rcfg.n_samples],
                       "ms": c_ms, "plain_ms": cp_ms,
                       "bound_ms": max(c_bytes_ms, c_ops_ms)},
+            "shapes": {k: v for k, v in k5_line["rows"].items() if k.startswith("composite/")},
         },
         {
             "name": "composite_bwd", "route": "cuda",
@@ -1519,8 +1900,12 @@ def main() -> int:
             "launches": train["launches"]["composite_bwd"],
             "max_abs_err": max(max(e.values()) for e in comp_bwd_err.values()),
             **{k: train_t["composite_bwd"][k]
-               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "host_issue_us")},
             "library_ms": None,
+            "timing": "device_time (launches queued behind a sleep); plain_ms: cuda_ms",
+            "launch_floor_ms": k5_line["launch_floor_ms"],
+            "shapes": {k: v for k, v in k5_line["rows"].items()
+                       if k.startswith("composite_bwd/")},
         },
         {
             "name": "trunk_fwd", "route": "cuda",

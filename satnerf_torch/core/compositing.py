@@ -13,7 +13,9 @@ import torch
 def convert_sigmas(sigmas: torch.Tensor, z_vals: torch.Tensor):
     """sigma (N, S), z (N, S) -> (weights, depth (N,), transparency, alphas)."""
     deltas = z_vals[:, 1:] - z_vals[:, :-1]
-    delta_inf = torch.full_like(deltas[:, :1], 1e10)
+    # shaped from z_vals: at S = 1 deltas[:, :1] is empty (the JAX package's
+    # convert_sigmas returns (N, 0) weights there)
+    delta_inf = torch.full_like(z_vals[:, :1], 1e10)
     deltas = torch.cat([deltas, delta_inf], dim=-1)
 
     alphas = 1.0 - torch.exp(-deltas * torch.clamp(sigmas, min=0.0))

@@ -36,6 +36,7 @@ parameters.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass, replace
 
 import torch
@@ -269,17 +270,21 @@ class Field(nn.Module):
         """The kernel's packed weights in ``dtype`` on this module's device
         (K1's whole field or K3's trunk, as this module's config runs),
         packed once and reused until a parameter changes. ``spec`` (a
-        ``FieldSpec``) defaults to this module's config."""
+        ``FieldSpec``) defaults to this module's config.
+
+        The dict is a ``trunk.PackedWeights`` and must not be changed in
+        place: it keeps the kernels' tensor-core layout of its tensors, made
+        on first use. A changed parameter gives a new dict."""
         spec = replace(spec or fused_field_spec(self.cfg), heads_on=True)
         params = list(self.parameters())
         slot = (dtype, params[0].device)
-        key = (spec, tuple((p.data_ptr(), p._version) for p in params))
+        key = (spec, _param_key(params))
         hit = self._pack_cache.get(slot)
         if hit is None or hit[0] != key:
             with torch.no_grad():
                 packed = _pack_fn(self.cfg)(self, spec, dtype)
             # detached: an f32 bias packs as the parameter itself
-            hit = (key, {k: v.detach() for k, v in packed.items()})
+            hit = (key, trunk.PackedWeights({k: v.detach() for k, v in packed.items()}))
             self._pack_cache[slot] = hit
         return hit[1]
 
@@ -401,11 +406,43 @@ def _pack_fn(cfg: FieldConfig):
     return ff.pack_field if use_fused_field(cfg) else trunk.pack_trunk
 
 
+def _param_key(params) -> tuple:
+    return tuple((p.data_ptr(), p._version) for p in params)
+
+
+_SHARED_PACKS: dict | None = None  # the open shared_packing block's packed dicts
+
+
+@contextmanager
+def shared_packing():
+    """Inside the block, the differentiable packing of a field's weights (per
+    spec and dtype) is made once and shared by every call while the
+    parameters are unchanged, so one autograd graph reads one packed dict
+    (and K1/K3 prepare its tensor-core layout once): a training step opens
+    it around each forward and backward, the backward's recomputations
+    included. The packing records no tensor for its backward, so sharing it
+    changes no gradient, only the order of its sums."""
+    global _SHARED_PACKS
+    outer, _SHARED_PACKS = _SHARED_PACKS, {}
+    try:
+        yield
+    finally:
+        _SHARED_PACKS = outer
+
+
 def _packed_for_call(field: Field, spec, kdt) -> dict:
-    """Differentiable packing (no cache) when the parameters need gradients,
-    else the module's cached detached copy."""
-    if torch.is_grad_enabled() and any(p.requires_grad for p in field.parameters()):
-        return _pack_fn(field.cfg)(field, replace(spec, heads_on=True), kdt)
+    """Differentiable packing when the parameters need gradients (shared
+    inside :func:`shared_packing`), else the module's cached detached copy."""
+    params = list(field.parameters())
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        spec = replace(spec, heads_on=True)
+        if _SHARED_PACKS is None:
+            return _pack_fn(field.cfg)(field, spec, kdt)
+        key = (id(field), spec, kdt, _param_key(params))
+        hit = _SHARED_PACKS.get(key)
+        if hit is None:
+            hit = _SHARED_PACKS[key] = _pack_fn(field.cfg)(field, spec, kdt)
+        return hit
     return field.packed(kdt, spec)
 
 

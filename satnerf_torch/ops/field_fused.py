@@ -812,7 +812,7 @@ class FusedField(torch.autograd.Function):
         grads.update(zip(TRUNK_KEYS, g_trunk))
         need_w = ctx.needs_input_grad[4:]
         return (None, None, gx if need_x else None, g_aux if need_aux else None,
-                *(grads[k] if need else None for k, need in zip(keys, need_w)))
+                *(grads.get(k) if need else None for k, need in zip(keys, need_w)))
 
 
 def fused_field(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor,
@@ -826,7 +826,10 @@ def fused_field(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor,
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_field: unsupported device {x.device}")
-    keys = TRUNK_KEYS + spec.head_keys()
+    # every packed tensor, not only this variant's: the K1 weight preparation
+    # (tc_cached) then sees one dict for both head variants
+    keys = TRUNK_KEYS + tuple(k for k, v in packed.items()
+                              if k not in TRUNK_KEYS and isinstance(v, torch.Tensor))
     weights = [packed[k] for k in keys]
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, aux, *weights)):
         return FusedField.apply(spec, keys, x, aux, *weights)

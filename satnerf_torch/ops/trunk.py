@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import OrderedDict
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -49,6 +50,7 @@ PLAIN_CALLS = 0  # trunk_backward_reference calls
 FWD_LAUNCHES = 0  # K3 launches made by fused_trunk (CUDA tensors only)
 FWD_PLAIN_CALLS = 0  # fused_trunk_reference calls
 INTERLEAVED_LAUNCHES = 0  # K6 launches made by fused_trunk_interleaved
+TC_PREPARATIONS = 0  # tc_gather calls: K1/K3 weight preparations (tc_cached misses)
 FEAT_WIDTHS = (512,)  # trunk widths the kernels are instantiated for
 GX_WIDTHS = (64, 128)  # padded input widths of the gx launch (csrc/trunk_bwd.cu)
 TRUNK_KEYS = ("w0", "w_mid", "w_skip", "b")
@@ -141,7 +143,10 @@ def tc_gather(packed: dict, layouts: dict) -> dict:
     gather: the layouts are applied once per shape set to an index tensor
     (1-based; 0, the padding, reads a zero) and cached, so each call costs a
     concatenation and one indexing kernel, not a chain of small ops per
-    weight. Keys not in ``layouts`` pass through."""
+    weight. Keys not in ``layouts`` pass through. Counted in
+    ``TC_PREPARATIONS``."""
+    global TC_PREPARATIONS
+    TC_PREPARATIONS += 1
     keys = sorted(layouts)
     ws = [packed[k] for k in keys]
     dev, ks = ws[0].device, 32 // ws[0].element_size()
@@ -180,23 +185,49 @@ def tc_trunk_weights(packed: dict) -> dict:
     return tc_gather({k: packed[k] for k in TRUNK_KEYS}, TRUNK_LAYOUTS)
 
 
-_TC_CACHE: dict = {}
+class PackedWeights(dict):
+    """A packed dict that ``models.field.Field.packed`` made. Immutable by
+    contract (a changed parameter gives a new dict), so it keeps its own
+    tensor-core preparations (:func:`tc_cached`), which die with it."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.prepared: dict = {}
+
+
+TC_CACHE_ENTRIES = 4  # packed dicts whose preparations the LRU keeps
+_TC_CACHE: OrderedDict = OrderedDict()
 
 
 def tc_cached(kind: str, packed: dict, make) -> dict:
-    """``make()``, reused while the packed tensors are the same storage at the
-    same version (a serving field packs once; training packs every step).
-    The entry pins the tensors' storage, so no other tensor can take its
-    address. Inference tensors keep no version: one changed in place inside
-    ``torch.inference_mode`` is not seen."""
+    """``make()`` (the ``kind`` preparation of ``packed``'s tensors), reused
+    while those tensors are unchanged.
+
+    A :class:`PackedWeights` keeps its preparations itself. Any other packed
+    dict is keyed by its tensors' identity (storage pointer, dtype, shape)
+    and version in a small LRU, one entry per packed dict, so the coarse and
+    fine fields of a hierarchical render each hit their own; an entry pins
+    its tensors' storage, so no other tensor can take the address. Inference
+    tensors keep no version, so an in-place change to one could not be seen:
+    they are prepared anew on every call unless :class:`PackedWeights` holds
+    them."""
+    if isinstance(packed, PackedWeights):
+        hit = packed.prepared.get(kind)
+        if hit is None:
+            hit = packed.prepared[kind] = make()
+        return hit
     srcs = [t.detach() for _, t in sorted(packed.items()) if isinstance(t, torch.Tensor)]
-    key = tuple((t.data_ptr(), t.dtype, tuple(t.shape),
-                 None if t.is_inference() else t._version) for t in srcs)
-    hit = _TC_CACHE.get(kind)
-    if hit is not None and hit[0] == key:
-        return hit[2]
+    if any(t.is_inference() for t in srcs):
+        return make()
+    key = (kind, tuple((t.data_ptr(), t.dtype, tuple(t.shape), t._version) for t in srcs))
+    hit = _TC_CACHE.get(key)
+    if hit is not None:
+        _TC_CACHE.move_to_end(key)
+        return hit[1]
     out = make()
-    _TC_CACHE[kind] = (key, srcs, out)
+    _TC_CACHE[key] = (srcs, out)
+    while len(_TC_CACHE) > TC_CACHE_ENTRIES:
+        _TC_CACHE.popitem(last=False)
     return out
 
 
@@ -292,8 +323,7 @@ def _forward(spec, x, packed, emit_acts: bool):
     acts = (torch.empty((spec.layers, n, spec.feat), dtype=x.dtype, device=dev)
             if emit_acts else None)
     if n:
-        prepared = tc_cached(f"trunk/{x.dtype}", {k: packed[k] for k in TRUNK_KEYS},
-                             lambda: tc_trunk_weights(packed))
+        prepared = tc_cached(f"trunk/{x.dtype}", packed, lambda: tc_trunk_weights(packed))
         _launch_forward("trunk_fwd_forward", spec, x, prepared, out, acts)
         FWD_LAUNCHES += 1
     return out, acts

@@ -26,6 +26,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from satnerf_torch.models.field import shared_packing
 from satnerf_torch.render.renderer import RenderConfig, render_rays
 from satnerf_torch.train import losses
 from satnerf_torch.train.state import TrainState, trainable
@@ -197,9 +198,10 @@ def build_train_step(scfg: StepConfig):
         k = max(int(scfg.grad_accum), 1)
         loss_sum, dict_sum = None, None
         for mb in (_micro_batches(batch, k) if k > 1 else [batch]):
-            loss, loss_dict, _ = compute_losses(scfg, state.params, mb, state.step,
-                                                generator)
-            loss.backward()
+            with shared_packing():  # each field packed once per forward + backward
+                loss, loss_dict, _ = compute_losses(scfg, state.params, mb, state.step,
+                                                    generator)
+                loss.backward()
             loss = loss.detach()
             loss_dict = {key: v.detach() for key, v in loss_dict.items()}
             if loss_sum is None:

@@ -63,24 +63,45 @@ def test_cuda_field_kernel_matches_plain(cuda_device, dtype, heads_on, full_feat
     assert err < tol
 
 
+COMPOSITE_SHAPES = [(1, 1), (1001, 64), (77, 37), (1024, 192), (33, 33)]
+
+
+def _composite_inputs(cuda_device, b, s, seed):
+    """Seeded inputs with sun and sky as the renderer passes them: row views
+    of (B, S + 3) and (B, S, 3) tensors (row strides S + 3 and 3S)."""
+    g = torch.Generator().manual_seed(seed)
+    sig = torch.rand(b, s, generator=g) * 6 - 1
+    sig[:4] = -torch.rand(min(b, 4), s, generator=g)  # rays with no density
+    z = torch.sort(torch.rand(b, s, generator=g) * 2, dim=1).values
+    alb = torch.rand(b, s, 3, generator=g)
+    sun = torch.rand(b, s + 3, generator=g)
+    sky = torch.rand(b, 1, 3, generator=g).expand(b, s, 3).contiguous()
+    sig, z, alb, sun, sky = (t.to(cuda_device) for t in (sig, z, alb, sun, sky))
+    return [sig, z, alb, sun[:, :s], sky[:, 0, :]]  # views made on the card
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s", [(1001, 64), (77, 37)])
+@pytest.mark.parametrize("b,s", COMPOSITE_SHAPES)
 def test_cuda_composite_kernel_matches_plain(cuda_device, b, s):
+    """K5 on strided sun/sky rows against its plain version; two runs, and a
+    run on contiguous copies, bit for bit equal."""
     from satnerf_torch.ops import composite as comp
 
-    g = torch.Generator().manual_seed(b)
-    args = [torch.rand(b, s, generator=g) * 6 - 1,
-            torch.sort(torch.rand(b, s, generator=g) * 2, dim=1).values,
-            torch.rand(b, s, 3, generator=g), torch.rand(b, s, generator=g),
-            torch.rand(b, 3, generator=g)]
-    args = [a.to(cuda_device) for a in args]
+    args = _composite_inputs(cuda_device, b, s, b)
+    if b > 1 and s > 1:
+        assert not args[3].is_contiguous() and not args[4].is_contiguous()
     before = comp.LAUNCHES
     got = comp.composite(*args)
     torch.cuda.synchronize()
     assert comp.LAUNCHES == before + 1
+    again = comp.composite(*args)
+    flat = comp.composite(*(t.contiguous() for t in args))
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert all(torch.equal(a, c) for a, c in zip(got, flat))
     ref = comp.composite_reference(*args)
     for name, a, r, tol in zip(("w", "t", "depth", "rgb"), got, ref,
                                (1e-6, 1e-6, 1e-5, 1e-5)):
+        assert a.shape == r.shape, name
         assert float((a - r).abs().max()) <= tol, name
 
 
@@ -136,24 +157,26 @@ def test_cuda_backward_kernels_match_plain(cuda_device, dtype, heads_on, bwd,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s", [(1001, 64), (77, 37)])
+@pytest.mark.parametrize("b,s", COMPOSITE_SHAPES)
 def test_cuda_composite_backward_matches_plain(cuda_device, b, s):
+    """K5's backward on strided sun/sky rows against autograd through the
+    plain version; two runs, and a run on contiguous copies, bit for bit
+    equal; rays with no density pass no gradient to sigma."""
     from satnerf_torch.ops import composite as comp
 
-    g = torch.Generator().manual_seed(b + 1)
-    sig = torch.rand(b, s, generator=g) * 6 - 1
-    sig[:4] = -torch.rand(4, s, generator=g)  # rays with no density
-    ins = [sig, torch.sort(torch.rand(b, s, generator=g) * 2, dim=1).values,
-           torch.rand(b, s, 3, generator=g), torch.rand(b, s, generator=g),
-           torch.rand(b, 3, generator=g)]
+    ins = _composite_inputs(cuda_device, b, s, b + 1)
+    g = torch.Generator().manual_seed(b + 2)
     cots = [torch.randn(b, s, generator=g), torch.randn(b, s, generator=g),
             torch.randn(b, generator=g), torch.randn(b, 3, generator=g)]
-    ins = [t.to(cuda_device) for t in ins]
     cots = [t.to(cuda_device) for t in cots]
 
-    def grads(fn):
+    def grads(fn, strided=True):
         leaves = [t.clone().requires_grad_(i != 1) for i, t in enumerate(ins)]
-        torch.autograd.backward(fn(*leaves), cots)
+        args = list(leaves)
+        if strided:  # the same values through row views of wider tensors
+            args[3] = torch.nn.functional.pad(leaves[3], (0, 3))[:, :s]
+            args[4] = leaves[4][:, None, :].expand(b, s, 3).contiguous()[:, 0, :]
+        torch.autograd.backward(fn(*args), cots)
         return [leaves[i].grad for i in (0, 2, 3, 4)]
 
     before = comp.BWD_LAUNCHES
@@ -161,12 +184,98 @@ def test_cuda_composite_backward_matches_plain(cuda_device, b, s):
     torch.cuda.synchronize()
     assert comp.BWD_LAUNCHES == before + 1
     again = grads(comp.composite)
+    flat = grads(comp.composite, strided=False)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert all(torch.equal(a, c) for a, c in zip(got, flat))
     ref = grads(comp.composite_reference)
     for name, a, r, tol in zip(("sigmas", "albedo", "sun", "sky"), got, ref,
                                (1e-6, 1e-5, 1e-6, 1e-6)):
         assert float((a - r).abs().max()) <= tol, name
     assert torch.all(got[0][:4] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("made_in_inference", [True, False])
+def test_cuda_prepared_weights_follow_an_in_place_change(cuda_device, made_in_inference):
+    """K1 and K3 again on packed weights changed in place inside
+    ``torch.inference_mode`` run the new weights: an inference tensor keeps
+    no version, so its tensor-core preparation is never reused."""
+    from satnerf_torch.core.encoding import positional_encoding
+    from satnerf_torch.models.field import Field, FieldConfig, fused_field_spec
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    cfg = FieldConfig(variant="rs_semantic", layers=4, feat=512, skips=(2,), mapping=True,
+                      use_tj_for_s=True, trunk_impl="pallas")
+    field = Field(cfg, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    spec = fused_field_spec(cfg)
+    g = torch.Generator().manual_seed(3)
+    n, f32 = 257, torch.float32
+    enc = positional_encoding(torch.rand(n, 3, generator=g) * 2 - 1, 10).to(cuda_device)
+    sun = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1).to(cuda_device)
+    te = torch.randn(n, 4, generator=g).to(cuda_device)
+    x, aux = ff.pack_x(spec, enc, f32), ff.pack_aux(spec, sun, te, None, f32)
+    with torch.no_grad():
+        packed = {k: v.clone() for k, v in field.packed(f32).items()}
+    with torch.inference_mode():
+        if made_in_inference:
+            packed = {k: v.clone() for k, v in packed.items()}
+        first = ff.fused_field(spec, x, aux, packed), trunk.fused_trunk(spec, x, packed)
+        for k in ("w0", "w_mid", "b", "w2_rgb"):
+            packed[k].mul_(0.5)  # in place: same storage
+        out, h = ff.fused_field(spec, x, aux, packed), trunk.fused_trunk(spec, x, packed)
+        torch.cuda.synchronize()
+        ref = ff.fused_field_reference(spec, x, aux, packed)
+        ref_h = trunk.fused_trunk_reference(spec, x, packed)[0]
+    assert not torch.equal(out, first[0]) and not torch.equal(h, first[1])
+    assert float((out - ref).abs().max()) < 5e-5
+    assert float((h - ref_h).abs().max()) < 5e-5
+
+
+@pytest.mark.cuda
+def test_cuda_hierarchical_render_prepares_each_field_once(cuda_device):
+    """A hierarchical render (coarse and fine K1 fields) prepares each field's
+    tensor-core weights once: served twice from Field.packed, and trained
+    (forward and backward with remat) inside one shared_packing block."""
+    import os
+
+    from satnerf_torch.configs import load_render_config
+    from satnerf_torch.models.field import shared_packing
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+    from satnerf_torch.render.renderer import render_rays
+    from satnerf_torch.train.state import init_params
+
+    toml = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "configs", "pipelines", "rs_semantic.toml")
+    rcfg = load_render_config(toml, device=cuda_device, trunk_impl="pallas",
+                              n_importance=128, use_fine_network=True, remat_chunks=2,
+                              sc_stride=2)
+    params = init_params(torch.Generator().manual_seed(0), rcfg.field, t_vocab=8,
+                         device=cuda_device, use_fine_network=True)
+    g = torch.Generator().manual_seed(4)
+    n = 256
+    o = torch.cat([torch.rand(n, 2, generator=g) * 1.6 - 0.8, torch.ones(n, 1)], 1)
+    d = torch.nn.functional.normalize(
+        torch.cat([torch.rand(n, 2, generator=g) * 0.3 - 0.15, -torch.ones(n, 1)], 1), dim=1)
+    rays = torch.cat([o, d, torch.zeros(n, 1), torch.full((n, 1), 2.0)], 1).to(cuda_device)
+    sun = torch.nn.functional.normalize(torch.tensor([0.2, -0.1, 0.8]), dim=0)
+    extras = torch.cat([sun.expand(n, 3), torch.full((n, 1), 3.0)], 1).to(cuda_device)
+    serve_cfg = dataclasses.replace(rcfg, solar_correction=False)  # as RenderService
+    with torch.inference_mode():
+        preps, launches = trunk.TC_PREPARATIONS, ff.LAUNCHES
+        render_rays(params, serve_cfg, rays, extras)
+        assert trunk.TC_PREPARATIONS - preps == 2 and ff.LAUNCHES - launches == 2
+        render_rays(params, serve_cfg, rays, extras)
+        assert trunk.TC_PREPARATIONS - preps == 2 and ff.LAUNCHES - launches == 4
+    preps, launches = trunk.TC_PREPARATIONS, ff.LAUNCHES
+    with shared_packing():
+        out = render_rays(params, rcfg, rays, extras,
+                          generator=torch.Generator(device=cuda_device).manual_seed(0))
+        (out["rgb"].sum() + out["depth"].sum()).backward()
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES - launches > 4  # every remat tile, forward and recomputed
+    assert trunk.TC_PREPARATIONS - preps == 2
 
 
 def _trunk_case(cuda_device, n=1001, **cfg_kw):

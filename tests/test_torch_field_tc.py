@@ -266,13 +266,16 @@ def test_projection_feed_order_inverts_the_permutation():
 
 
 def test_prepared_weights_are_cached_until_the_packed_ones_change():
+    """One cache entry per packed dict, keyed by its tensors' identity and
+    version; inference tensors (no version) are reused only from the
+    immutable dicts of ``Field.packed``."""
     _, _, _, module = field_pair(**dict(FLAGSHIP, layers=2, skips=()))
     packed = dict(module.packed(torch.float32))
     calls = []
 
-    def make():
+    def make(p=packed):
         calls.append(1)
-        return trunk.tc_trunk_weights(packed)
+        return trunk.tc_trunk_weights(p)
 
     a = trunk.tc_cached("test", packed, make)
     assert trunk.tc_cached("test", packed, make) is a and len(calls) == 1
@@ -282,9 +285,48 @@ def test_prepared_weights_are_cached_until_the_packed_ones_change():
         packed["b"].add_(1.0)  # in place: a new version
     trunk.tc_cached("test", packed, make)
     assert len(calls) == 3
+    other = {k: v.clone() for k, v in packed.items()}  # a second dict: its own entry
+    trunk.tc_cached("test", other, make)
+    assert trunk.tc_cached("test", packed, make) is not None and len(calls) == 4
+    trunk.tc_cached("test", other, make)
+    assert len(calls) == 4
     with torch.inference_mode():  # inference tensors keep no version counter
         inf = {k: v.clone() for k, v in packed.items()}
         trunk.tc_cached("test", inf, make)
         trunk.tc_cached("test", inf, make)
-    assert len(calls) == 4
-    trunk._TC_CACHE.pop("test")
+        assert len(calls) == 6
+        own = module.packed(torch.float32)
+        assert isinstance(own, trunk.PackedWeights)
+        b = trunk.tc_cached("test", own, make)
+        assert trunk.tc_cached("test", own, make) is b and len(calls) == 7
+    for key in [k for k in trunk._TC_CACHE if k[0] == "test"]:
+        del trunk._TC_CACHE[key]
+
+
+def test_shared_packing_packs_each_field_once_per_block():
+    """Inside ``shared_packing`` every differentiable packing of one field is
+    one dict while its parameters are unchanged, and gradients through the
+    shared dict equal those through separate packings."""
+    _, _, cfg, module = field_pair(**dict(FLAGSHIP, layers=2, skips=()))
+    spec = tfield.fused_field_spec(cfg)
+    assert tfield._packed_for_call(module, spec, torch.float32) is not \
+        tfield._packed_for_call(module, spec, torch.float32)
+    grads = []
+    for shared in (False, True):
+        module.zero_grad()
+        block = tfield.shared_packing() if shared else torch.enable_grad()
+        with block:
+            packs = [tfield._packed_for_call(module, spec, torch.float32) for _ in range(3)]
+            assert (packs[0] is packs[2]) == shared
+            loss = sum((p["w0"] * (i + 1)).sum() + p["b"].square().sum()
+                       for i, p in enumerate(packs))
+            loss.backward()
+        grads.append([p.grad.clone() for p in module.parameters() if p.grad is not None])
+    assert len(grads[0]) == len(grads[1]) > 0
+    for a, b in zip(*grads):
+        assert torch.allclose(a, b, rtol=1e-6, atol=0)
+    with tfield.shared_packing():
+        first = tfield._packed_for_call(module, spec, torch.float32)
+        with torch.no_grad():
+            module.fc_net[0].bias.add_(1.0)  # a changed parameter: a new packing
+        assert tfield._packed_for_call(module, spec, torch.float32) is not first
