@@ -46,8 +46,7 @@ JSON line per phase:
    its within the field bars; K5's device times and flagship and Path B
    step times in the same turns); phase ``composite_device_times``: K5 and
    its backward beside the card's empty-kernel launch time, their byte
-   bound and ``torch.profiler``'s device time, and a sweep of rays per
-   block; the K1/K3 weight preparations of every step (one per field);
+   bound and ``torch.profiler``'s device time; the K1/K3 weight preparations of every step (one per field);
    ``torch.profiler`` over two steady steps (kernels by device time, the
    device's idle share);
 10. the trunk-only kernel K3 against its plain version at the flagship
@@ -294,8 +293,10 @@ def profiler_kernel_us(fn, pattern: str, reps: int = 30) -> float | None:
 # K5 at the main path's shapes: flagship and Path A training (64 samples), the
 # Path B fine pass (64 + 128), a serve chunk, a Path B fine serve chunk
 K5_SHAPES = ((1024, 64), (1024, 192), (CHUNK, 64), (CHUNK, 192))
-# and ragged ones around the 32-lane warp and the lane runs
-K5_RAGGED = ((1001, 64), (77, 37), (33, 33), (1, 1), (1, 64), (7, 1))
+# and ragged ones around the 32-lane warp and the lane runs, and rays past the
+# forward's 256-sample segment (its carries) up to MAX_SAMPLES
+K5_RAGGED = ((1001, 64), (77, 37), (33, 33), (1, 1), (1, 64), (7, 1), (1001, 300),
+             (64, 1024))
 
 
 def k5_bytes(b: int, s: int) -> tuple:
@@ -537,8 +538,7 @@ def composite_device_phase(turns: list | None, k5: dict) -> dict:
     parent); host issue µs per call; the card's launch floor (an empty
     kernel, ``torch.cuda._sleep(0)``, timed the same way); the byte bound and
     the share of it reached; torch.profiler's self device time of this
-    tree's kernels beside the helper's; and the device ms of each
-    warps-per-block choice (``ops/composite.py:WARPS_PER_BLOCK``)."""
+    tree's kernels beside the helper's."""
     import torch
 
     from satnerf_torch.ops import composite as comp
@@ -548,8 +548,7 @@ def composite_device_phase(turns: list | None, k5: dict) -> dict:
     mine = theirs = None
     if turns:
         mine, theirs = turn_means(turns)
-    rows, sweep, prof = {}, {}, {}
-    chosen = comp.WARPS_PER_BLOCK
+    rows, prof = {}, {}
     for b, s in K5_SHAPES:
         calls = k5_calls(comp, b, s, dev)
         for name, nbytes in zip(("composite", "composite_bwd"), k5_bytes(b, s)):
@@ -581,20 +580,10 @@ def composite_device_phase(turns: list | None, k5: dict) -> dict:
                 check(here["ms"] * 1e3 >= 0.9 * p_us,
                       f"{key}: device_time {here['ms']} ms below the profiler's {p_us} us")
             rows[key] = row
-            per_w = {}
-            for w in (1, 2, 4, 8):
-                comp.WARPS_PER_BLOCK = w
-                try:
-                    per_w[w] = device_time(calls[name], reps=50)["ms"]
-                finally:
-                    comp.WARPS_PER_BLOCK = chosen
-            sweep[key] = per_w
         del calls
     line = {"phase": "composite_device_times", "nvidia_smi": smi_line(),
             "launch_floor_ms": floor["ms"], "launch_floor_host_issue_us": floor["host_issue_us"],
             "sleep_cycles_per_ms": sleep_cycles_per_ms(), "rows": rows,
-            "warps_per_block_ms": sweep,
-            "warps_per_block_chosen": chosen,
             "profiler_us": prof}
     emit(line)
     return line

@@ -76,7 +76,9 @@ constexpr unsigned kFull = 0xffffffffu;
 // samples on an H100 than with runs of 2)
 constexpr int kMaxRunForward = 8;
 constexpr int kMaxRunBackward = 2;
-constexpr int kMaxWarps = 8;  // rays per block at most
+// rays (warps) per block: on an H100 4 came within 0.5% of the best of 1, 2,
+// 4 and 8 at every main-path shape (PERF.md, the K5 rows)
+constexpr int kRaysPerBlock = 4;
 
 // a lane's run of N consecutive floats at p, its first n valid (zeros after):
 // 16- or 8-byte vector loads where the address allows
@@ -186,7 +188,7 @@ struct Args {
 };
 
 template <int K>
-__global__ void __launch_bounds__(kMaxWarps * 32) composite_kernel(const Args a) {
+__global__ void __launch_bounds__(kRaysPerBlock * 32) composite_kernel(const Args a) {
   const int lane = threadIdx.x & 31;
   const int ray = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (ray >= a.n_rays) return;  // uniform per warp: the whole warp leaves
@@ -255,7 +257,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) composite_kernel(const Args a)
 }
 
 template <int K>
-__global__ void __launch_bounds__(kMaxWarps * 32) composite_backward_kernel(const Args a) {
+__global__ void __launch_bounds__(kRaysPerBlock * 32) composite_backward_kernel(const Args a) {
   const int lane = threadIdx.x & 31;
   const int ray = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (ray >= a.n_rays) return;  // uniform per warp
@@ -362,49 +364,43 @@ int run_length(int n_samples, int cap) {
   return k < cap ? k : cap;
 }
 
-int launch_check(const Args& a, int warps) {
-  if (warps < 1 || warps > kMaxWarps || a.n_samples < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
-}
+int blocks(const Args& a) { return (a.n_rays + kRaysPerBlock - 1) / kRaysPerBlock; }
 
 template <int K>
-int launch_forward(const Args& a, int warps, cudaStream_t stream) {
-  composite_kernel<K><<<(a.n_rays + warps - 1) / warps, warps * 32, 0, stream>>>(a);
+int launch_forward(const Args& a, cudaStream_t stream) {
+  composite_kernel<K><<<blocks(a), kRaysPerBlock * 32, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int K>
-int launch_backward(const Args& a, int warps, cudaStream_t stream) {
-  composite_backward_kernel<K><<<(a.n_rays + warps - 1) / warps, warps * 32, 0, stream>>>(a);
+int launch_backward(const Args& a, cudaStream_t stream) {
+  composite_backward_kernel<K><<<blocks(a), kRaysPerBlock * 32, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// warps: rays (warps) per block, 1..kMaxWarps
 extern "C" int composite_forward(const float* sigma, const float* z, const float* albedo,
                                  const float* sun, int sun_stride, const float* sky,
                                  int sky_stride, float* w_out, float* t_out,
                                  float* depth_out, float* rgb_out, float* pre_out,
-                                 int n_rays, int n_samples, int warps,
-                                 cudaStream_t stream) {
+                                 int n_rays, int n_samples, cudaStream_t stream) {
   Args a{};
   a.sigma = sigma, a.z = z, a.albedo = albedo, a.sun = sun, a.sky = sky;
   a.sun_stride = sun_stride, a.sky_stride = sky_stride;
   a.n_rays = n_rays, a.n_samples = n_samples;
   a.w = w_out, a.t = t_out, a.depth = depth_out, a.rgb = rgb_out, a.pre = pre_out;
   if (n_rays <= 0) return 0;
-  if (const int err = launch_check(a, warps)) return err;
+  if (n_samples < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (run_length(n_samples, kMaxRunForward)) {
-    case 1: return launch_forward<1>(a, warps, stream);
-    case 2: return launch_forward<2>(a, warps, stream);
-    case 3: return launch_forward<3>(a, warps, stream);
-    case 4: return launch_forward<4>(a, warps, stream);
-    case 5: return launch_forward<5>(a, warps, stream);
-    case 6: return launch_forward<6>(a, warps, stream);
-    case 7: return launch_forward<7>(a, warps, stream);
-    default: return launch_forward<8>(a, warps, stream);
+    case 1: return launch_forward<1>(a, stream);
+    case 2: return launch_forward<2>(a, stream);
+    case 3: return launch_forward<3>(a, stream);
+    case 4: return launch_forward<4>(a, stream);
+    case 5: return launch_forward<5>(a, stream);
+    case 6: return launch_forward<6>(a, stream);
+    case 7: return launch_forward<7>(a, stream);
+    default: return launch_forward<8>(a, stream);
   }
 }
 
@@ -414,7 +410,7 @@ extern "C" int composite_backward(const float* sigma, const float* z, const floa
                                   const float* g_w, const float* g_t, const float* g_depth,
                                   const float* g_rgb, float* g_sigma, float* g_albedo,
                                   float* g_sun, float* g_sky, int n_rays, int n_samples,
-                                  int warps, cudaStream_t stream) {
+                                  cudaStream_t stream) {
   Args a{};
   a.sigma = sigma, a.z = z, a.albedo = albedo, a.sun = sun, a.sky = sky;
   a.sun_stride = sun_stride, a.sky_stride = sky_stride;
@@ -422,7 +418,7 @@ extern "C" int composite_backward(const float* sigma, const float* z, const floa
   a.t_in = t, a.pre_in = pre, a.g_w = g_w, a.g_t = g_t, a.g_depth = g_depth, a.g_rgb = g_rgb;
   a.g_sigma = g_sigma, a.g_albedo = g_albedo, a.g_sun = g_sun, a.g_sky = g_sky;
   if (n_rays <= 0) return 0;
-  if (const int err = launch_check(a, warps)) return err;
-  return run_length(n_samples, kMaxRunBackward) == 1 ? launch_backward<1>(a, warps, stream)
-                                                     : launch_backward<2>(a, warps, stream);
+  if (n_samples < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return run_length(n_samples, kMaxRunBackward) == 1 ? launch_backward<1>(a, stream)
+                                                     : launch_backward<2>(a, stream);
 }

@@ -441,7 +441,7 @@ def _packed_for_call(field: Field, spec, kdt) -> dict:
         key = (id(field), spec, kdt, _param_key(params))
         hit = _SHARED_PACKS.get(key)
         if hit is None:
-            hit = _SHARED_PACKS[key] = _pack_fn(field.cfg)(field, spec, kdt)
+            hit = _SHARED_PACKS[key] = trunk.PackedWeights(_pack_fn(field.cfg)(field, spec, kdt))
         return hit
     return field.packed(kdt, spec)
 

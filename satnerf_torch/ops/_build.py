@@ -34,10 +34,9 @@ _SIGNATURES = {
     "field_bwd": {"heads_bwd_row": [_vp, _vp], "heads_bwd_reduce": [_vp, _vp]},
     "trunk_fwd": {"trunk_fwd_forward": [_vp, _vp], "trunk_fwd_interleaved": [_vp, _vp]},
     "trunk_bwd": {"trunk_bwd_row": [_vp, _vp], "trunk_bwd_reduce": [_vp, _vp]},
-    "composite": {"composite_forward": [_vp] * 4 + [_i, _vp, _i] + [_vp] * 5
-                                       + [_i, _i, _i, _vp],
+    "composite": {"composite_forward": [_vp] * 4 + [_i, _vp, _i] + [_vp] * 5 + [_i, _i, _vp],
                   "composite_backward": [_vp] * 4 + [_i, _vp, _i] + [_vp] * 10
-                                        + [_i, _i, _i, _vp]},
+                                        + [_i, _i, _vp]},
     "sine_check": {"sine_eval": [_vp, _vp, _i, _i, _i, _vp]},
 }
 

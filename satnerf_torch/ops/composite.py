@@ -32,10 +32,6 @@ LAUNCHES = 0  # forward kernel launches made by composite (CUDA tensors only)
 BWD_LAUNCHES = 0  # backward kernel launches made by Composite (CUDA only)
 PLAIN_CALLS = 0  # composite_reference calls
 MAX_SAMPLES = 1024  # the kernels walk a ray in segments of lane runs, up to this
-# rays (one warp each) per block of both kernels: on an H100 4 came within
-# 0.5% of the best of 1, 2, 4 and 8 at every main-path shape (chip_smoke.py,
-# phase composite_device_times, which sweeps it)
-WARPS_PER_BLOCK = 4
 _F32 = torch.float32
 _FNS = None  # (library, forward, backward) of csrc/composite.cu, looked up once
 # the current stream's handle as an int, without a Stream object per call
@@ -113,7 +109,7 @@ def _forward_cuda(sigmas, z_vals, albedo, sun, sky, resid: bool = False):
         check_launch(lib, fwd(
             sigmas.data_ptr(), z_vals.data_ptr(), albedo.data_ptr(), sun.data_ptr(), sun_rs,
             sky.data_ptr(), sky_rs, p, p + 4 * n, p + 8 * n, p + 8 * n + 4 * b,
-            p + 8 * n + 16 * b if resid else None, b, s, WARPS_PER_BLOCK, _stream(dev),
+            p + 8 * n + 16 * b if resid else None, b, s, _stream(dev),
         ), "composite")
         LAUNCHES += 1
     return weights, transparency, depth, rgb, pre
@@ -153,7 +149,7 @@ def composite_backward(inputs, transparency, rgb_pre, g_w, g_t, g_depth, g_rgb):
         check_launch(lib, bwd(
             sigmas.data_ptr(), z_vals.data_ptr(), albedo.data_ptr(), sun.data_ptr(), sun_rs,
             sky.data_ptr(), sky_rs, *(None if t is None else t.data_ptr() for t in ptrs),
-            p, p + 4 * n, p + 16 * n, p + 20 * n, b, s, WARPS_PER_BLOCK, _stream(dev),
+            p, p + 4 * n, p + 16 * n, p + 20 * n, b, s, _stream(dev),
         ), "composite_backward")
         BWD_LAUNCHES += 1
     return g_sigmas, g_albedo, g_sun, g_sky

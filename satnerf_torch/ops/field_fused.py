@@ -791,8 +791,8 @@ class FusedField(torch.autograd.Function):
     derivatives exist: a double backward raises."""
 
     @staticmethod
-    def forward(ctx, spec, keys, x, aux, *weights):
-        packed = dict(zip(keys, weights))
+    def forward(ctx, spec, keys, packed, x, aux, *weights):
+        # packed: the dict that owns the weights and their preparation
         out, shared, acts = _forward(spec, x, aux, packed, resid=True)
         ctx.spec, ctx.keys = spec, keys
         ctx.save_for_backward(x, aux, shared, acts, *weights)
@@ -804,15 +804,15 @@ class FusedField(torch.autograd.Function):
         x, aux, shared, acts, *weights = ctx.saved_tensors
         spec, keys = ctx.spec, ctx.keys
         packed = dict(zip(keys, weights))
-        need_x, need_aux = ctx.needs_input_grad[2], ctx.needs_input_grad[3]
+        need_x, need_aux = ctx.needs_input_grad[3], ctx.needs_input_grad[4]
         g_shared, g_aux, grads = heads_backward(spec, shared, aux, g_out.contiguous(),
                                                 packed, need_aux)
         gx, *g_trunk = trunk.trunk_backward(spec, x, packed, acts, g_shared,
                                             need_gx=need_x)
         grads.update(zip(TRUNK_KEYS, g_trunk))
-        need_w = ctx.needs_input_grad[4:]
-        return (None, None, gx if need_x else None, g_aux if need_aux else None,
-                *(grads.get(k) if need else None for k, need in zip(keys, need_w)))
+        need_w = ctx.needs_input_grad[5:]
+        return (None, None, None, gx if need_x else None, g_aux if need_aux else None,
+                *(grads[k] if need else None for k, need in zip(keys, need_w)))
 
 
 def fused_field(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor,
@@ -826,11 +826,8 @@ def fused_field(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor,
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_field: unsupported device {x.device}")
-    # every packed tensor, not only this variant's: the K1 weight preparation
-    # (tc_cached) then sees one dict for both head variants
-    keys = TRUNK_KEYS + tuple(k for k, v in packed.items()
-                              if k not in TRUNK_KEYS and isinstance(v, torch.Tensor))
+    keys = TRUNK_KEYS + spec.head_keys()
     weights = [packed[k] for k in keys]
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, aux, *weights)):
-        return FusedField.apply(spec, keys, x, aux, *weights)
+        return FusedField.apply(spec, keys, packed, x, aux, *weights)
     return _forward(spec, x, aux, packed, resid=False)[0]

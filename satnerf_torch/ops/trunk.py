@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-from collections import OrderedDict
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -186,49 +185,27 @@ def tc_trunk_weights(packed: dict) -> dict:
 
 
 class PackedWeights(dict):
-    """A packed dict that ``models.field.Field.packed`` made. Immutable by
-    contract (a changed parameter gives a new dict), so it keeps its own
-    tensor-core preparations (:func:`tc_cached`), which die with it."""
+    """A packed dict of ``models.field.Field.packed`` or
+    ``models.field.shared_packing``. Immutable by contract (a changed
+    parameter gives a new dict), so it keeps its own tensor-core
+    preparations (:func:`tc_cached`), which die with it."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         self.prepared: dict = {}
 
 
-TC_CACHE_ENTRIES = 4  # packed dicts whose preparations the LRU keeps
-_TC_CACHE: OrderedDict = OrderedDict()
-
-
 def tc_cached(kind: str, packed: dict, make) -> dict:
-    """``make()`` (the ``kind`` preparation of ``packed``'s tensors), reused
-    while those tensors are unchanged.
-
-    A :class:`PackedWeights` keeps its preparations itself. Any other packed
-    dict is keyed by its tensors' identity (storage pointer, dtype, shape)
-    and version in a small LRU, one entry per packed dict, so the coarse and
-    fine fields of a hierarchical render each hit their own; an entry pins
-    its tensors' storage, so no other tensor can take the address. Inference
-    tensors keep no version, so an in-place change to one could not be seen:
-    they are prepared anew on every call unless :class:`PackedWeights` holds
-    them."""
-    if isinstance(packed, PackedWeights):
-        hit = packed.prepared.get(kind)
-        if hit is None:
-            hit = packed.prepared[kind] = make()
-        return hit
-    srcs = [t.detach() for _, t in sorted(packed.items()) if isinstance(t, torch.Tensor)]
-    if any(t.is_inference() for t in srcs):
+    """``make()`` (the ``kind`` preparation of ``packed``'s tensors): kept in
+    ``packed`` when it is a :class:`PackedWeights`, made anew on every call
+    for any other dict (which may be changed in place, inference tensors
+    included, where no version counter would show it)."""
+    if not isinstance(packed, PackedWeights):
         return make()
-    key = (kind, tuple((t.data_ptr(), t.dtype, tuple(t.shape), t._version) for t in srcs))
-    hit = _TC_CACHE.get(key)
-    if hit is not None:
-        _TC_CACHE.move_to_end(key)
-        return hit[1]
-    out = make()
-    _TC_CACHE[key] = (srcs, out)
-    while len(_TC_CACHE) > TC_CACHE_ENTRIES:
-        _TC_CACHE.popitem(last=False)
-    return out
+    hit = packed.prepared.get(kind)
+    if hit is None:
+        hit = packed.prepared[kind] = make()
+    return hit
 
 
 # -----------------------------------------------------------------------
@@ -335,8 +312,8 @@ class FusedTrunk(torch.autograd.Function):
     versions of both. Only first derivatives exist."""
 
     @staticmethod
-    def forward(ctx, spec, x, *weights):
-        packed = dict(zip(TRUNK_KEYS, weights))
+    def forward(ctx, spec, packed, x, *weights):
+        # packed: the dict that owns the weights and their preparation
         out, acts = _forward(spec, x, packed, emit_acts=spec.trunk_bwd == "stored")
         ctx.spec = spec
         ctx.save_for_backward(x, acts, *weights)
@@ -346,11 +323,11 @@ class FusedTrunk(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         x, acts, *weights = ctx.saved_tensors
-        need_x = ctx.needs_input_grad[1]
+        need_x = ctx.needs_input_grad[2]
         gx, *g_trunk = trunk_backward(ctx.spec, x, dict(zip(TRUNK_KEYS, weights)), acts,
                                       g.contiguous(), need_gx=need_x)
-        return (None, gx if need_x else None,
-                *(gw if need else None for gw, need in zip(g_trunk, ctx.needs_input_grad[2:])))
+        return (None, None, gx if need_x else None,
+                *(gw if need else None for gw, need in zip(g_trunk, ctx.needs_input_grad[3:])))
 
 
 def fused_trunk(spec, x: torch.Tensor, packed: dict) -> torch.Tensor:
@@ -366,7 +343,7 @@ def fused_trunk(spec, x: torch.Tensor, packed: dict) -> torch.Tensor:
         raise ValueError(f"fused_trunk: unsupported device {x.device}")
     weights = [packed[k] for k in TRUNK_KEYS]
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *weights)):
-        return FusedTrunk.apply(spec, x, *weights)
+        return FusedTrunk.apply(spec, packed, x, *weights)
     return _forward(spec, x, packed, emit_acts=False)[0]
 
 

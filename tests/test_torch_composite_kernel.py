@@ -35,9 +35,22 @@ MAX_RUN = 8  # csrc/composite.cu kMaxRunForward
 MAX_RUN_BWD = 2  # csrc/composite.cu kMaxRunBackward
 BARS = {"weights": 1e-6, "transparency": 1e-6, "depth": 1e-5, "rgb": 1e-5}
 GRAD_BARS = {"sigmas": 1e-6, "albedo": 1e-5, "sun": 1e-6, "sky": 1e-6}
-# the issue's four shapes: training batches, a ragged ray, one sample; and
-# (4, 300): a ray longer than one 256-sample segment, so the carries run
-SHAPES = [(77, 64), (33, 192), (5, 37), (3, 1), (4, 300)]
+# training batches, a ragged ray, one sample; and rays longer than one
+# 256-sample segment of the forward, so its carries run: (4, 300) and (4, 1024),
+# MAX_SAMPLES
+SHAPES = [(77, 64), (33, 192), (5, 37), (3, 1), (4, 300), (4, 1024)]
+
+
+def _bars(bars: dict, s: int) -> dict:
+    """The bars of 64 samples; past one 256-sample segment, scaled by S/64.
+
+    T is an f32 product of S rounded factors, so its distance from the exact
+    value grows with S, for the JAX kernel as for this one. Against the f64
+    plain version on the dense data of ``_data`` (its near-transparent ray
+    included) the emulation reached 1.4e-6 in T at (4, 300) and 6.1e-6 at
+    (4, 1024); composite_pallas 1.0e-6 and 3.1e-6. Long rays are therefore
+    held, both of them, against the f64 plain version at these bars."""
+    return bars if s <= 32 * MAX_RUN else {k: v * s / 64 for k, v in bars.items()}
 
 
 def run_length(s: int, cap: int = MAX_RUN) -> int:
@@ -182,10 +195,6 @@ def emulate_composite_backward(sigma, z, albedo, sun, sky, t, pre, g_w, g_t, g_d
 def _data(b, s, seed):
     rng = np.random.default_rng(seed)
     sigmas = rng.uniform(-1, 5, (b, s)).astype(np.float32)  # some negative
-    if s > 32 * MAX_RUN:
-        # past one segment: density at a few samples only, so T is a product
-        # of few rounded factors and the bars of 64 samples still hold
-        sigmas = np.where(rng.uniform(size=(b, s)) < 0.03, sigmas, -1.0).astype(np.float32)
     sigmas[:1] = -np.abs(sigmas[:1])  # a ray with no density
     if s > 1 and b > 2:
         # a thin ray whose last sample is faint: exp(-1e10 sigma) ~ 1e-13,
@@ -209,28 +218,47 @@ def _rel(a, b):
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-30))
 
 
-def _f64_plain(data, cots=None):
+def _f64_plain(data, cots=None, exact=False):
     """The port's plain version in float64 (outputs, or with ``cots`` the
-    gradients of sigmas, albedo, sun, sky): the reference at S = 1, where the
-    JAX package's compositing returns (B, 0) weights (its last delta is shaped
-    from an empty slice) and its Pallas kernel does not trace."""
+    gradients of sigmas, albedo, sun, sky), rounded to float32 unless
+    ``exact``: the reference at S = 1, where the JAX package's compositing
+    returns (B, 0) weights (its last delta is shaped from an empty slice) and
+    its Pallas kernel does not trace, and the exact value for long rays."""
     leaves = [torch.from_numpy(a).double().requires_grad_(i != 1) for i, a in enumerate(data)]
     outs = tcomp.composite_reference(*leaves)
     if cots is None:
-        return [o.detach().float().numpy() for o in outs]
-    torch.autograd.backward(outs, [torch.from_numpy(c).double() for c in cots])
-    return [leaves[i].grad.float().numpy() for i in (0, 2, 3, 4)]
+        res = [o.detach() for o in outs]
+    else:
+        torch.autograd.backward(outs, [torch.from_numpy(c).double() for c in cots])
+        res = [leaves[i].grad for i in (0, 2, 3, 4)]
+    return [r.numpy() if exact else r.float().numpy() for r in res]
+
+
+def _f64_err(a, ref) -> float:
+    a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return float(np.max(np.abs(a.astype(np.float64) - ref))) if a.size else 0.0
 
 
 @pytest.mark.parametrize("b,s", SHAPES)
-def test_emulated_forward_matches_jax_pallas_kernel(b, s):
+def test_emulated_forward_matches_jax_pallas_kernel(b, s, record_property):
     data = _data(b, s, seed=b + s)
+    got = emulate_composite(*map(torch.from_numpy, data))
+    if s > 32 * MAX_RUN:  # both kernels against the exact value (see _bars)
+        jax_out = composite_pallas(*map(jnp.asarray, data), block_b=8, interpret=True)
+        exact = _f64_plain(data, exact=True)
+        bars = _bars(BARS, s)
+        errs = {n: (_f64_err(g, r), _f64_err(j, r))
+                for n, g, j, r in zip(BARS, got, jax_out, exact)}
+        record_property("err_vs_f64_this_and_jax", errs)
+        for name, (mine, theirs) in errs.items():
+            assert mine <= bars[name] and theirs <= bars[name], (name, mine, theirs)
+        assert torch.equal(torch.clamp(got[4], 0.0, 1.0), got[3])
+        return
     if s > 1:
         ref = composite_pallas(*map(jnp.asarray, data), block_b=8, interpret=True)
     else:
         assert jc.convert_sigmas(*map(jnp.asarray, data[:2]))[0].shape == (b, 0)
         ref = _f64_plain(data)
-    got = emulate_composite(*map(torch.from_numpy, data))
     for name, r, g in zip(BARS, ref, got):
         assert tuple(g.shape) == r.shape, name
         assert max_err(g, np.asarray(r)) <= BARS[name], name
@@ -239,7 +267,7 @@ def test_emulated_forward_matches_jax_pallas_kernel(b, s):
 
 
 @pytest.mark.parametrize("b,s", SHAPES)
-def test_emulated_backward_matches_jax_vjp(b, s):
+def test_emulated_backward_matches_jax_vjp(b, s, record_property):
     data = _data(b, s, seed=2 * b + s)
     cots = _cotangents(b, s, seed=b)
     sigmas, z, albedo, sun, sky = map(jnp.asarray, data)
@@ -261,27 +289,38 @@ def test_emulated_backward_matches_jax_vjp(b, s):
     tin = [torch.from_numpy(a) for a in data]
     _, t, _, _, pre = emulate_composite(*tin)
     got = emulate_composite_backward(*tin, t, pre, *map(torch.from_numpy, cots))
+    bars = _bars(GRAD_BARS, s)
+    if s > 32 * MAX_RUN:  # both against the exact gradients (see _bars)
+        exact = _f64_plain(data, cots, exact=True)
+        errs = {n: (_rel(g.numpy(), e), _rel(r, e))
+                for n, g, r, e in zip(GRAD_BARS, got, ref, exact)}
+        record_property("rel_err_vs_f64_this_and_jax", errs)
+        for name, (mine, theirs) in errs.items():
+            assert mine <= bars[name] and theirs <= bars[name], (name, mine, theirs)
+        ref = exact
     for name, g, r in zip(GRAD_BARS, got, ref):
         assert g.shape == r.shape, name
-        assert _rel(g.numpy(), r) <= GRAD_BARS[name], name
+        assert _rel(g.numpy(), r) <= bars[name], name
     assert torch.all(got[0][0] == 0.0)  # no density: no gradient to sigma
     if s > 1 and b > 2:  # the faint last sample keeps its gradient
         np.testing.assert_allclose(got[0][2, -1].item(), ref[0][2, -1], rtol=1e-5)
         assert ref[0][2, -1] != 0.0
 
 
-@pytest.mark.parametrize("b,s", [(77, 64), (4, 300)])
+@pytest.mark.parametrize("b,s", [(77, 64), (4, 300), (4, 1024)])
 def test_emulation_matches_the_plain_version(b, s):
     """The emulated kernels against the port's plain version and autograd
-    through it, the comparison the card makes (chip_smoke.py)."""
+    through it, the comparison the card makes (chip_smoke.py), at the bars
+    of ``_bars``."""
     data = [torch.from_numpy(a) for a in _data(b, s, seed=7)]
     cots = [torch.from_numpy(c) for c in _cotangents(b, s, seed=8)]
     w, t, depth, rgb, pre = emulate_composite(*data)
     leaves = [x.clone().requires_grad_(i != 1) for i, x in enumerate(data)]
     ref = tcomp.composite_reference(*leaves)
+    bars, grad_bars = _bars(BARS, s), _bars(GRAD_BARS, s)
     for name, g, r in zip(BARS, (w, t, depth, rgb), ref):
-        assert float((g - r.detach()).abs().max()) <= BARS[name], name
+        assert float((g - r.detach()).abs().max()) <= bars[name], name
     torch.autograd.backward(ref, cots)
     got = emulate_composite_backward(*data, t, pre, *cots)
     for name, g, leaf in zip(GRAD_BARS, got, [leaves[i] for i in (0, 2, 3, 4)]):
-        assert float((g - leaf.grad).abs().max()) <= GRAD_BARS[name], name
+        assert float((g - leaf.grad).abs().max()) <= grad_bars[name], name

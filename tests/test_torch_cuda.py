@@ -63,7 +63,9 @@ def test_cuda_field_kernel_matches_plain(cuda_device, dtype, heads_on, full_feat
     assert err < tol
 
 
-COMPOSITE_SHAPES = [(1, 1), (1001, 64), (77, 37), (1024, 192), (33, 33)]
+# with rays past the forward's 256-sample segment, so its carries run on the card
+COMPOSITE_SHAPES = [(1, 1), (1001, 64), (77, 37), (1024, 192), (33, 33), (129, 300),
+                    (64, 1024)]
 
 
 def _composite_inputs(cuda_device, b, s, seed):

@@ -266,41 +266,39 @@ def test_projection_feed_order_inverts_the_permutation():
 
 
 def test_prepared_weights_are_cached_until_the_packed_ones_change():
-    """One cache entry per packed dict, keyed by its tensors' identity and
-    version; inference tensors (no version) are reused only from the
-    immutable dicts of ``Field.packed``."""
+    """The dicts of ``Field.packed`` keep their preparation until a changed
+    parameter gives a new dict; any other dict, which may be changed in
+    place (inference tensors keep no version to show it), is prepared on
+    every call."""
     _, _, _, module = field_pair(**dict(FLAGSHIP, layers=2, skips=()))
-    packed = dict(module.packed(torch.float32))
     calls = []
 
-    def make(p=packed):
-        calls.append(1)
-        return trunk.tc_trunk_weights(p)
+    def maker(p):
+        def make():
+            calls.append(1)
+            return trunk.tc_trunk_weights(p)
+        return make
 
-    a = trunk.tc_cached("test", packed, make)
-    assert trunk.tc_cached("test", packed, make) is a and len(calls) == 1
-    packed["b"] = packed["b"].clone()
-    trunk.tc_cached("test", packed, make)
+    own = module.packed(torch.float32)
+    assert isinstance(own, trunk.PackedWeights) and module.packed(torch.float32) is own
+    a = trunk.tc_cached("test", own, maker(own))
+    assert trunk.tc_cached("test", own, maker(own)) is a and len(calls) == 1
     with torch.no_grad():
-        packed["b"].add_(1.0)  # in place: a new version
-    trunk.tc_cached("test", packed, make)
-    assert len(calls) == 3
-    other = {k: v.clone() for k, v in packed.items()}  # a second dict: its own entry
-    trunk.tc_cached("test", other, make)
-    assert trunk.tc_cached("test", packed, make) is not None and len(calls) == 4
-    trunk.tc_cached("test", other, make)
+        module.fc_net[0].weight.add_(1.0)  # a changed parameter: a new dict
+    new = module.packed(torch.float32)
+    assert new is not own
+    b = trunk.tc_cached("test", new, maker(new))
+    assert len(calls) == 2 and not torch.equal(b["w0"], a["w0"])
+    plain = dict(new)
+    trunk.tc_cached("test", plain, maker(plain))
+    trunk.tc_cached("test", plain, maker(plain))
     assert len(calls) == 4
-    with torch.inference_mode():  # inference tensors keep no version counter
-        inf = {k: v.clone() for k, v in packed.items()}
-        trunk.tc_cached("test", inf, make)
-        trunk.tc_cached("test", inf, make)
-        assert len(calls) == 6
-        own = module.packed(torch.float32)
-        assert isinstance(own, trunk.PackedWeights)
-        b = trunk.tc_cached("test", own, make)
-        assert trunk.tc_cached("test", own, make) is b and len(calls) == 7
-    for key in [k for k in trunk._TC_CACHE if k[0] == "test"]:
-        del trunk._TC_CACHE[key]
+    with torch.inference_mode():
+        inf = {k: v.clone() for k, v in new.items()}
+        first = trunk.tc_cached("test", inf, maker(inf))
+        inf["w0"].mul_(0.5)  # in place, no version counter
+        again = trunk.tc_cached("test", inf, maker(inf))
+    assert len(calls) == 6 and torch.equal(again["w0"], first["w0"] * 0.5)
 
 
 def test_shared_packing_packs_each_field_once_per_block():
