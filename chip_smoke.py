@@ -64,7 +64,21 @@ JSON line per phase:
    the CPU, and one 128x128 request through the fine field with the
    ``_coarse`` outputs held against the CPU;
 13. CUDA-event times of K3 and its plain version at the training shapes,
-   and of K6 against K3 at the interleave prototype's shape.
+   and of K6 against K3 at the interleave prototype's shape;
+14. ``train_scene``: the training CLI end to end on a generated scene (4 + 1
+   views, 96x96, 300 tie points): ``run.training.start_training`` on the
+   flagship TOML as it is, 144 steps (the depth drop at step 36, the beta
+   gate at epoch 2), validation with PSNR, SSIM and the DSM MAE every epoch,
+   checkpoints; the launches of K1, K2, K4, K5 and K5's backward by the
+   step and validation schedule and no plain version, one K1 weight
+   preparation per step and per validation, finite loss terms, the loss
+   falling after the beta gate and the train PSNR rising, the run layout,
+   the native host library loaded; the same run stopped by
+   ``request_stop`` at step 72 and resumed by ``run.resume_training``
+   (params bitwise equal to the uninterrupted run's); the ``best``
+   checkpoint served by ``RenderService.from_checkpoint`` against that
+   validation's render; the loop's host-clock ms per step, seconds per
+   validation, DSM/MAE and checkpoint save/restore, and peak memory.
 
 K1's and K3's bounds are given three ways: f32 products as 3xTF32 on the
 tensor cores (bound_ms in f32), on the f32 FMA units, and bf16 on the
@@ -155,6 +169,14 @@ PER_STEP_HIER = {"field_fused": 24, "heads_bwd": 12, "trunk_fwd": 0, "trunk_bwd"
 TRUNK_TIME_POINTS = (65_536, 131_072)  # K3 per depth render / per main render
 SERVE_COPIES = 8  # port_times: K1 at 8 x 131,072 = 1,048,576 points, the serve chunk
 K6_POINTS, K6_C_IN = 1_048_576, 63  # tools/interleave_trunk_proto.py:82, :30
+# train_scene: the synthetic scene at generate_scene's defaults (4 + 1 views,
+# 96 x 96, 300 tie points) trained for 4 epochs of 36 steps: the depth drop at
+# step 36 and the beta gate at epoch 2 fall inside the run
+SCENE = {"n_train": 4, "n_test": 1, "img_size": 96, "n_tie_points": 300}
+SCENE_STEPS = 144
+SCENE_STOP = 72  # run B stops here and resumes
+SCENE_PIPELINE = PIPELINE_TOML
+TOL_SCENE_SERVE = 1e-5  # served best vs the validation render of the same view
 SERVE_H = SERVE_W = 128
 N_REQUESTS = 3
 CHUNK = 16_384
@@ -1472,6 +1494,188 @@ def child_times(tree: str, save: str) -> int:
     return 0
 
 
+def scene_expected_launches(trainer, steps: int, ds_drop: int) -> dict:
+    """Launches of a train_scene run: per step K1/K2/K4 3 and K5/K5-bwd 2
+    until the depth drop, 2 and 1 after it; per validation chunk one K1 and
+    one K5."""
+    from satnerf_torch.train.loop import val_chunk_rays
+
+    rgb_test = trainer.pipeline.datasets["rgb_test"]
+    chunk = val_chunk_rays(trainer.cfg.pipeline)
+    per_image = [-(-len(item["rays"]) // chunk) for item in rgb_test.data]
+    chunks = sum(sum(per_image[:1] if v["sanity"] else per_image) for v in trainer.val_history)
+    d, nd = min(ds_drop, steps), steps - min(ds_drop, steps)
+    return {"field_fused": 3 * d + 2 * nd + chunks, "heads_bwd": 3 * d + 2 * nd,
+            "trunk_fwd": 0, "trunk_bwd": 3 * d + 2 * nd,
+            "composite": 2 * d + nd + chunks, "composite_bwd": 2 * d + nd,
+            "trunk_fwd_interleaved": 0}
+
+
+def train_scene_phase(dev) -> dict:
+    """The port's training CLI end to end on the card: a generated scene,
+    ``start_training`` on the flagship TOML as it is (run A), the same run
+    stopped at SCENE_STOP by ``request_stop`` from a step callback and
+    continued by the resume entry point (run B, bitwise equal to A), and
+    A's best checkpoint served by ``RenderService.from_checkpoint``."""
+    import glob
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from satnerf_torch.configs import load_configs, write_toml
+    from satnerf_torch.datasets.synthetic import generate_scene
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.ops import native, trunk
+    from satnerf_torch.run.resume_training import prepare_resume
+    from satnerf_torch.run.training import prepare_trainer, start_training
+    from satnerf_torch.serve.service import RenderService
+    from satnerf_torch.train.checkpoint import export_params
+    from satnerf_torch.train.loop import val_chunk_rays
+
+    t_phase = time.monotonic()
+    work = tempfile.mkdtemp(prefix="train_scene_")
+    try:
+        t0 = time.monotonic()
+        generate_scene(os.path.join(work, "datasets", "SYN"), **SCENE)
+        scene_s = time.monotonic() - t0
+        run_fp = os.path.join(work, "run.toml")
+        write_toml(run_fp, {
+            "max_train_steps": SCENE_STEPS, "save_every_n_epochs": 1,
+            "check_val_every_n_epoch": 1, "num_sanity_val_steps": 1, "seed": 0,
+            "dataset_name": "SYN", "datasets_dp": os.path.join(work, "datasets"),
+            "cache_dp": os.path.join(work, "cache"),
+            "workspace_dp": os.path.join(work, "training")})
+
+        # ---- run A: start_training, uninterrupted ----
+        reset_counters()
+        preps0 = trunk.TC_PREPARATIONS
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        pipeline, state_a, trainer_a = start_training(run_fp, SCENE_PIPELINE, device=dev,
+                                                      log_every=1)
+        run_a_s = time.monotonic() - t0
+        got, plain_calls = read_counters()
+        preps = trunk.TC_PREPARATIONS - preps0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        run_dp = pipeline.cfg.run.run_dp
+        ds_drop = pipeline.ds_drop_step
+        spe = len(pipeline.datasets["rgb"]) // pipeline.cfg.pipeline.batch_size
+        check(state_a.step == SCENE_STEPS, f"run A ended at step {state_a.step}")
+        check(ds_drop == SCENE_STEPS // 4 and spe == SCENE_STEPS // 4,
+              f"depth drop {ds_drop}, steps per epoch {spe}")
+        want = scene_expected_launches(trainer_a, SCENE_STEPS, ds_drop)
+        check(got == want, f"train_scene launches {got}, expected {want}")
+        check(not any(plain_calls.values()), f"train_scene: a plain version ran: {plain_calls}")
+        n_val = len(trainer_a.val_history)
+        check(preps == SCENE_STEPS + n_val,
+              f"K1 weight preparations {preps}: expected one per step and per "
+              f"validation ({SCENE_STEPS} + {n_val})")
+        hist = trainer_a.history
+        check(len(hist) == SCENE_STEPS, f"{len(hist)} logged steps")
+        bad = [h["step"] for h in hist if not all(math.isfinite(v) for v in h.values())]
+        check(not bad, f"non-finite loss terms at steps {bad[:5]}")
+        # the beta gate changes the rgb loss from the plain MSE to the
+        # uncertainty-weighted one, so the loss falls within one objective:
+        # the 12 steps after the gate against the last 12; the train PSNR of
+        # the first 12 steps against the last 12 spans the whole run
+        beta_on = 2 * spe
+        first = sum(h["loss"] for h in hist[beta_on:beta_on + 12]) / 12
+        last = sum(h["loss"] for h in hist[-12:]) / 12
+        check(last < first, f"loss did not fall: 12 steps after the beta gate {first}, "
+                            f"last 12 {last}")
+        psnr_first = sum(h["psnr"] for h in hist[:12]) / 12
+        psnr_last = sum(h["psnr"] for h in hist[-12:]) / 12
+        check(psnr_last > psnr_first, f"train PSNR did not rise: {psnr_first} -> {psnr_last}")
+        check(hist[ds_drop - 1].get("depth_loss_activated") == 1.0
+              and "depth_loss_activated" not in hist[ds_drop], "depth drop switch")
+        check(hist[beta_on - 1]["beta_loss_activated"] == 0.0
+              and hist[beta_on]["beta_loss_activated"] == 1.0, "beta gate at epoch 2")
+        for rel in ("configs/run.toml", "configs/pipeline.toml", "ckpoints/last.ckpt",
+                    "ckpoints/best.ckpt"):
+            check(os.path.isfile(os.path.join(run_dp, rel)), f"missing {rel}")
+        epochs = sorted(glob.glob(os.path.join(run_dp, "ckpoints", "epoch_*.ckpt")))
+        check(len(epochs) == SCENE_STEPS // spe, f"epoch checkpoints {epochs}")
+        dsms = glob.glob(os.path.join(run_dp, "visualization", "train", "dsm", "*.tif"))
+        check(len(dsms) > 0, "no DSM under visualization/train/dsm")
+        val = trainer_a.val_history[-1]
+        val_keys = ["train/psnr", "train/mae"] + [k for k in val if k.startswith("train/ssim_")]
+        check(all(k in val and math.isfinite(val[k]) for k in val_keys),
+              f"last validation {val}")
+        check(all(val[k] <= 1.0 for k in val if "/ssim_" in k), f"SSIM above 1: {val}")
+        check(native.get_lib() is not None, "the native host library did not load")
+
+        # ---- run B: stopped by request_stop at SCENE_STOP, then resumed ----
+        cfgs = load_configs(run_fp, SCENE_PIPELINE)
+        cfgs.create_run_dp()
+        trainer_b = prepare_trainer(cfgs, dev, log_every=1)
+        state_b = trainer_b.fit(step_callbacks={
+            SCENE_STOP: lambda state, step: trainer_b.request_stop()})
+        check(state_b.step == SCENE_STOP, f"run B stopped at {state_b.step}")
+        trainer_c = prepare_resume(cfgs.run.run_dp, dev, log_every=1)
+        state_c = trainer_c.fit()
+        check(state_c.step == SCENE_STEPS, f"run B resumed to {state_c.step}")
+        pa, pc = export_params(state_a.params), export_params(state_c.params)
+        check(set(pa) == set(pc), "run A and B params differ in keys")
+        resume_diff = max(float((pa[k] - pc[k]).abs().max()) for k in pa)
+        resume_bitwise = all(torch.equal(pa[k], pc[k]) for k in pa)
+        check(resume_diff <= 1e-6, f"resumed run differs from run A by {resume_diff}")
+        resume_losses_equal = ([h["loss"] for h in hist[SCENE_STOP:]]
+                               == [h["loss"] for h in trainer_c.history])
+
+        # ---- serve A's best and hold it to that validation's render ----
+        rgb_test = pipeline.datasets["rgb_test"]
+        item = rgb_test.image_item(len(rgb_test.data) - 1)
+        svc = RenderService.from_checkpoint(
+            os.path.join(run_dp, "ckpoints", "best.ckpt"), SCENE_PIPELINE,
+            n_classes=pipeline.n_classes, chunk=val_chunk_rays(pipeline.cfg.pipeline),
+            device=dev)
+        t0 = time.monotonic()
+        served = svc.render_rays(item["rays"], item["extras"], item["h"], item["w"])
+        serve_ms = (time.monotonic() - t0) * 1e3
+        ref = trainer_a.best_val_renders[item["name"]]
+        serve_err = {
+            "rgb": float(np.abs(served["rgb"].reshape(-1, 3)
+                                - np.clip(ref["rgb"], 0, 1)).max()),
+            "depth": float(np.abs(served["depth"].reshape(-1) - ref["depth"]).max()),
+        }
+        for k, e in serve_err.items():
+            check(e <= TOL_SCENE_SERVE, f"served best vs validation render {k} err {e}")
+        prof_a = trainer_a.profiler
+        saves = trainer_a.ckpt.seconds["save"]
+
+        def mean_s(prof, name):
+            return prof.totals[name] / prof.counts[name]
+
+        line = {
+            "phase": "train_scene", "scene": SCENE, "steps": SCENE_STEPS,
+            "steps_per_epoch": spe, "depth_drop_step": ds_drop, "beta_gate_step": beta_on,
+            "depth_batch": trainer_a.pipeline.datasets["depth"].combined["rays"].shape[0],
+            "launches": got, "expected_launches": want, "plain_calls": plain_calls,
+            "preparations": preps, "validations": n_val,
+            "loss_after_beta_gate12_mean": first, "loss_last12_mean": last,
+            "loss_first12_mean": sum(h["loss"] for h in hist[:12]) / 12,
+            "psnr_first12_mean": psnr_first, "psnr_last12_mean": psnr_last,
+            "last_validation": val, "native_lib": True,
+            "loop_ms_per_step_host": trainer_a.ms_per_step,
+            "validate_s": mean_s(prof_a, "validate"), "dsm_mae_s": mean_s(prof_a, "dsm_mae"),
+            "checkpoint_save_s": sum(saves) / len(saves), "checkpoint_saves": len(saves),
+            "checkpoint_restore_s": trainer_c.ckpt.seconds["restore"],
+            "peak_memory_gb": peak_gb, "scene_s": scene_s, "run_a_s": run_a_s,
+            "resume_max_abs_diff": resume_diff, "resume_bitwise": resume_bitwise,
+            "resume_losses_equal": resume_losses_equal,
+            "serve_ms": serve_ms, "serve_vs_validation_max_abs_err": serve_err,
+            "tol": {"resume": 1e-6, "serve": TOL_SCENE_SERVE},
+            "seconds": time.monotonic() - t_phase,
+        }
+        emit(line)
+        return line
+    finally:
+        disable_tf32()  # the run's matmul_precision "high" allowed TF32
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if "--tree" in argv:
@@ -1807,9 +2011,13 @@ def main() -> int:
     # ---- 13. K3 and K6 times -----------------------------------------------------------
     trunk_t = trunk_times_phase(dev, field_b, spec_b, lambda n: field_inputs(n, 3)[0])
 
+    # ---- 14. the training CLI on a generated scene, resume, serving its best --------
+    scene = train_scene_phase(dev)
+
     def by_path(kernel):
         return {"train": train["launches"][kernel], "train_beta_s": beta_s["launches"][kernel],
-                "train_hier": hier["launches"][kernel], "serve_beta_s":
+                "train_hier": hier["launches"][kernel],
+                "train_scene": scene["launches"][kernel], "serve_beta_s":
                 serve_b["launches"][kernel], "serve_hier": serve_h["launches"][kernel]}
 
     f32 = times["float32"]

@@ -4,12 +4,19 @@
 * ``extras`` (N, 4)  float32: sun_direction[0:3], ts[3:4]
 
 The accessors work on numpy arrays and torch tensors alike. RPC ray
-construction (``build_rays_from_rpc``) is not ported yet.
+construction (``build_rays_from_rpc``) runs on the host in float64 numpy, as
+in the reference: localize every pixel on the max-altitude plane (near
+points) and the min-altitude plane (far points), convert both to the scene
+frame, set origin = near point, direction = (far - near) / |far - near|,
+near = 0, far = |far - near|; the packed result is float32.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from satnerf_torch.geo.coordinate_systems import BaseCoordinateSystem
+from satnerf_torch.geo.rpc import RPCModel
 
 RAY_DIM = 8
 EXTRAS_DIM = 4
@@ -41,6 +48,14 @@ def ray_component(rays, name: str):
     return rays[..., start:end]
 
 
+def set_ray_component(rays, name: str, value):
+    """Functional update of a ray component (returns a new array/tensor)."""
+    start, end = _lookup(_RAY_SLICES, name)
+    out = rays.copy() if isinstance(rays, np.ndarray) else rays.clone()
+    out[..., start:end] = value
+    return out
+
+
 def extras_component(extras, name: str):
     """Named column access into the extras tensor."""
     start, end = _lookup(_EXTRAS_SLICES, name)
@@ -63,3 +78,36 @@ def construct_sun_dir(
         dtype=np.float64,
     )
     return np.tile(sun_d, (n_rays, 1)).astype(np.float32)
+
+
+def build_rays_from_rpc(
+    camera: RPCModel,
+    coordinate_system: BaseCoordinateSystem,
+    rows: np.ndarray,
+    cols: np.ndarray,
+    min_alt: float,
+    max_alt: float,
+) -> np.ndarray:
+    """Construct packed (N, 8) rays through the given pixels."""
+    rows = np.asarray(rows, dtype=np.float64).ravel()
+    cols = np.asarray(cols, dtype=np.float64).ravel()
+    min_alts = np.full(cols.shape, float(min_alt))
+    max_alts = np.full(cols.shape, float(max_alt))
+
+    # points of maximum altitude are closest to the camera
+    lons, lats = camera.localization(cols, rows, max_alts)
+    x, y, z = coordinate_system.from_latlon(lats, lons, max_alts)
+    xyz_near = np.stack([x, y, z], axis=1)
+
+    lons, lats = camera.localization(cols, rows, min_alts)
+    x, y, z = coordinate_system.from_latlon(lats, lons, min_alts)
+    xyz_far = np.stack([x, y, z], axis=1)
+
+    d = xyz_far - xyz_near
+    norms = np.linalg.norm(d, axis=1, keepdims=True)
+    rays_d = d / norms
+
+    rays = np.concatenate(
+        [xyz_near, rays_d, np.zeros_like(norms), norms], axis=1
+    )
+    return rays.astype(np.float32)

@@ -1,1 +1,2 @@
-"""Training: loss terms, LR schedules, train state and the train step."""
+"""Training: loss terms, LR schedules, train state, the train step, the
+on-device ray store and samplers, checkpoints and the training loop."""

@@ -1,7 +1,8 @@
 """Each CUDA kernel of satnerf_torch (K1 with its residuals, K2, K3 and its
 interleaved variant K6, K4, K5 and its backward) against its plain PyTorch
-version, on the card, and one tensor-core layer of the forward against the
-3xTF32 emulation of ops/_bwd.py. Marked
+version, on the card, one tensor-core layer of the forward against the
+3xTF32 emulation of ops/_bwd.py, and the training loop on the card (its
+launches, and a bitwise resume). Marked
 ``cuda``: without a GPU every test here skips.
 
 The file imports neither JAX nor the JAX package, so it runs on a machine
@@ -539,3 +540,66 @@ def test_cuda_forward_kernels_ragged(cuda_device, n, dtype):
     assert all(torch.equal(a, b) for a, b in zip(*k3))
     assert float((k3[0][0].float() - ref.float()).abs().max()) < tol
     assert _rel(k3[0][1], ref_acts) < resid_tol
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_runs_the_kernels_and_resumes_bitwise(cuda_device, tmp_path):
+    """The training loop at 4x512 on the card for a handful of steps: every
+    step and validation chunk launches K1, K2, K4 and K5 (and K5's backward),
+    no plain version runs, and a run stopped at step 4 and resumed ends
+    bitwise equal to the uninterrupted one."""
+    import numpy as np
+
+    from satnerf_torch.configs import MainConfig, RSSemanticConfig, RunConfig
+    from satnerf_torch.datasets.synthetic import generate_scene
+    from satnerf_torch.ops import composite as comp
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+    from satnerf_torch.pipelines import load_pipeline
+    from satnerf_torch.train.checkpoint import export_params
+    from satnerf_torch.train.loop import Trainer
+
+    generate_scene(str(tmp_path / "datasets" / "SYN"), n_train=2, n_test=1, img_size=40,
+                   n_tie_points=80)
+
+    def trainer(**run):
+        cfg = MainConfig(
+            RunConfig(dataset_name="SYN", datasets_dp=str(tmp_path / "datasets"),
+                      cache_dp=str(tmp_path / "cache"),
+                      workspace_dp=str(tmp_path / "training"), max_train_steps=8, seed=0,
+                      **run),
+            RSSemanticConfig(fc_layers=4, fc_units=512, fc_skips=[2], n_samples=32,
+                             batch_size=256, first_beta_epoch=0, use_car_reg_loss=True))
+        pipeline = load_pipeline(cfg)
+        pipeline.prepare_run()
+        pipeline.load_datasets()
+        return Trainer(pipeline, log_every=1, device=cuda_device)
+
+    counters = [(ff, "LAUNCHES"), (ff, "HEADS_BWD_LAUNCHES"), (trunk, "LAUNCHES"),
+                (comp, "LAUNCHES"), (comp, "BWD_LAUNCHES"), (ff, "PLAIN_CALLS"),
+                (trunk, "PLAIN_CALLS"), (trunk, "FWD_PLAIN_CALLS"), (comp, "PLAIN_CALLS")]
+    torch.cuda.synchronize()
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    full = trainer()
+    state = full.fit()
+    got = {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": getattr(mod, name)
+           for mod, name in counters}
+    assert state.step == 8
+    drop = full.pipeline.ds_drop_step  # 2
+    assert got["field_fused.HEADS_BWD_LAUNCHES"] == got["trunk.LAUNCHES"] == 3 * drop + 2 * (
+        8 - drop)
+    assert got["composite.BWD_LAUNCHES"] == 2 * drop + (8 - drop)
+    assert got["field_fused.LAUNCHES"] > got["trunk.LAUNCHES"]  # + validation chunks
+    assert got["composite.LAUNCHES"] > got["composite.BWD_LAUNCHES"]
+    assert not any(v for k, v in got.items() if "PLAIN" in k), got
+    assert all(np.isfinite(v) for h in full.history for v in h.values())
+
+    first = trainer()
+    first.fit(validate_every_epoch=False,
+              step_callbacks={4: lambda s, i: first.request_stop()})
+    first.cfg.run.resume_from_ckpoint = True
+    again = Trainer(first.pipeline, log_every=1, device=cuda_device)
+    resumed = again.fit(validate_every_epoch=False)
+    pa, pb = export_params(state.params), export_params(resumed.params)
+    assert all(torch.equal(pa[k], pb[k]) for k in pa)
