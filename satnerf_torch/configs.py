@@ -48,18 +48,14 @@ def load_pipeline_toml(fp: str) -> dict:
         return tomllib.load(f)
 
 
-def resolve_trunk_impl(impl: str, device, widths=None) -> str:
-    """On the card every engine name resolves to the kernels (``"pallas"``)
-    for the widths they are built for (``widths``: (feat, feat_last), None
-    for those): there the layer-by-layer path would be the kernels' plain
-    version. Other widths on the card keep the layer-by-layer path. Off the
-    card ``"auto"`` is the layer-by-layer path and ``"xla"``/``"pallas"``
-    stay as given. The reference's rule for ``"auto"`` encodes TPU
-    measurements."""
-    from satnerf_torch.ops.field_fused import KERNEL_WIDTHS
-
+def resolve_trunk_impl(impl: str, device) -> str:
+    """On the card every engine name resolves to the kernels (``"pallas"``):
+    there the layer-by-layer path would be the kernels' plain version, and a
+    width the kernels are not built for raises at their launch. Off the card
+    ``"auto"`` is the layer-by-layer path and ``"xla"``/``"pallas"`` stay as
+    given. The reference's rule for ``"auto"`` encodes TPU measurements."""
     if torch.device(device).type == "cuda":
-        return "pallas" if widths is None or tuple(widths) in KERNEL_WIDTHS else "xla"
+        return "pallas"
     return "xla" if impl == "auto" else impl
 
 
@@ -68,17 +64,14 @@ def render_config_from_pipeline(p: dict, n_classes: int = 5,
     """Pipeline-config dict (a parsed TOML) -> RenderConfig."""
     variant = _VARIANTS[p.get("pipeline", "nerf")]
     sin_impl = p.get("sin_impl", "poly")
-    feat = p.get("fc_units", 512)
     fcfg = FieldConfig(
         variant=variant,
         layers=p.get("fc_layers", 8),
-        feat=feat,
+        feat=p.get("fc_units", 512),
         skips=tuple(p.get("fc_skips", [4])),
         siren=p.get("activation_function", "siren") == "siren",
         sin_impl="poly" if sin_impl == "auto" else sin_impl,
-        trunk_impl=resolve_trunk_impl(
-            p.get("trunk_impl", "xla"), device,
-            (feat, feat if p.get("fc_use_full_features", False) else feat // 2)),
+        trunk_impl=resolve_trunk_impl(p.get("trunk_impl", "xla"), device),
         # "auto" stays "recompute" until the card measures the trade (the
         # reference's rule, step.py:313-335, is a TPU measurement)
         trunk_bwd="recompute" if p.get("trunk_bwd", "recompute") == "auto"
@@ -219,9 +212,8 @@ class RunConfig(_Config):
 
     # device / precision
     data_parallel: int = 1  # > 1 is not ported yet (raises)
-    # > 1: steps run in blocks of this many between host boundaries, with
-    # the reference's block clipping (logging, epoch ends, the depth drop,
-    # callbacks); the trajectory does not depend on it
+    # the reference's scan blocks; accepted so the same TOMLs load, no effect
+    # (each step is its own call in the port)
     steps_per_dispatch: int = 1
     matmul_precision: str = "high"  # "highest" | "high" | "default"
     device_req_free: bool = True  # accepted so the same TOMLs load; no effect

@@ -27,10 +27,11 @@ fused field (``ops/field_fused.py``, K1) for the configs it covers, else the
 trunk-only kernel (``ops/trunk.py``, K3) followed by the layer-by-layer
 heads (the ablation heads ``use_tj_instead_of_beta`` and
 ``use_separate_beta_for_s``). The kernels run on the card, their plain
-versions on the CPU. All paths are differentiable: under grad mode the
-kernels' inputs are packed with differentiable ops, so their kernel
-backwards (K2 + K4, or K4) deliver gradients to the ``nn.Linear``
-parameters.
+versions on the CPU. The layer-by-layer trunk is the kernels' plain version
+too, and counts its calls in ``PLAIN_CALLS`` on every device. All paths are
+differentiable: under grad mode the kernels' inputs are packed with
+differentiable ops, so their kernel backwards (K2 + K4, or K4) deliver
+gradients to the ``nn.Linear`` parameters.
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ from satnerf_torch.ops import trunk
 from satnerf_torch.ops.fastmath import SINE_ENGINES
 
 VARIANTS = ("nerf", "snerf", "satnerf", "rs_semantic")
+
+PLAIN_CALLS = 0  # layer-by-layer trunk calls (the plain version of K1/K3's trunk)
 
 
 @dataclass(frozen=True)
@@ -322,6 +325,7 @@ def field_forward(
         (N,1), sky (M,3), beta (M,1), beta_s (M,1), semantic (M,C) by
         variant, where M = n_full or N.
     """
+    global PLAIN_CALLS
     dt = compute_dtype
     enc_x = positional_encoding(xyz, cfg.mapping_pos_n_freq) if cfg.mapping else xyz
     if dt is not None:
@@ -341,6 +345,7 @@ def field_forward(
         # points together; the heads run layer by layer below
         shared = _fused_trunk_forward(field, cfg, enc_x, dt)
     else:
+        PLAIN_CALLS += 1
         h = enc_x
         for i in range(cfg.layers):
             if i in cfg.skips:

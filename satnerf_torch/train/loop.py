@@ -4,8 +4,8 @@ Structure per run:
 * the combined ray store moves to the device once; each step gathers its
   batch by permutation indices (``train/data.py``);
 * each step's stratified jitter comes from one device ``torch.Generator``
-  reseeded from (seed, step) (``step_seed``), so resume, blocks of
-  ``steps_per_dispatch`` steps and step callbacks all give one stream;
+  reseeded from (seed, step) (``step_seed``), so resume and step callbacks
+  give one stream;
 * metrics are fetched every ``log_every`` steps;
 * validation per epoch renders the full test images in fixed-shape chunks
   with solar correction off, computes PSNR/SSIM, builds DSMs for the first
@@ -15,8 +15,11 @@ Structure per run:
   depth render.
 
 Left out of the port: multi-process runs and data parallelism
-(``data_parallel > 1`` raises) and the visualizers (``viz/`` is not
-ported; ``Pipeline.visualizers()`` returns none).
+(``data_parallel > 1`` raises), the visualizers (``viz/`` is not ported;
+``Pipeline.visualizers()`` returns none), and blocks of
+``steps_per_dispatch`` steps: the reference compiles a block into one
+device program, while here each step is its own Python call either way, so
+the key is read and has no effect.
 """
 
 from __future__ import annotations
@@ -130,8 +133,7 @@ class Trainer:
         """Run the training loop.
 
         ``step_callbacks`` maps global step numbers to ``fn(state, step)``
-        hooks, called exactly when the step counter reaches that step (a
-        block of ``steps_per_dispatch`` steps is clipped to land on it).
+        hooks, called exactly when the step counter reaches that step.
         Callback wall time is excluded from the reported training rate.
         """
         cfg = self.cfg
@@ -197,7 +199,6 @@ class Trainer:
 
         step_d = build_train_step(scfg_d) if has_depth else None
         step_nd = build_train_step(scfg_nd)
-        spd = max(int(getattr(cfg.run, "steps_per_dispatch", 1)), 1)
         gen = torch.Generator(device=dev)
 
         # sanity validation (one image)
@@ -214,7 +215,6 @@ class Trainer:
         last_log_step = start_step
         last_metrics: dict | None = None
         t_last = time.perf_counter()
-        cb_steps = sorted(s for s in (step_callbacks or {}) if s > start_step)
 
         def close_interval() -> float:
             """Charge the steps since the last boundary to the train clock
@@ -234,30 +234,17 @@ class Trainer:
         try:
             while step_i < max_steps and not self._stop_requested:
                 use_depth = has_depth and step_i < ds_drop
-                next_cb = next((s for s in cb_steps if s > step_i), max_steps)
-                # the largest block that crosses no step-accurate boundary
-                block = min(
-                    max_steps - step_i,
-                    ((step_i // self.log_every) + 1) * self.log_every - step_i,
-                    ((step_i // steps_per_epoch) + 1) * steps_per_epoch - step_i,
-                    (ds_drop - step_i) if use_depth else max_steps,
-                    next_cb - step_i,
-                    spd,
-                )
-                if block != spd:
-                    block = 1
                 fn = step_d if use_depth else step_nd
-                self.trace.step(step_i, block)
+                self.trace.step(step_i)
                 with self.profiler.phase("train_step"):
-                    for j in range(block):
-                        idx = torch.from_numpy(sampler.next_batch()).to(dev)
-                        batch = gather_batch(store, idx)
-                        if use_depth:
-                            didx = torch.from_numpy(depth_sampler.next_batch()).to(dev)
-                            batch.update(gather_batch(depth_store, didx, prefix="depth_"))
-                        gen.manual_seed(step_seed(cfg.run.seed, step_i + j))
-                        state, last_metrics = fn(state, batch, gen)
-                step_i += block
+                    idx = torch.from_numpy(sampler.next_batch()).to(dev)
+                    batch = gather_batch(store, idx)
+                    if use_depth:
+                        didx = torch.from_numpy(depth_sampler.next_batch()).to(dev)
+                        batch.update(gather_batch(depth_store, didx, prefix="depth_"))
+                    gen.manual_seed(step_seed(cfg.run.seed, step_i))
+                    state, last_metrics = fn(state, batch, gen)
+                step_i += 1
 
                 if step_i % self.log_every == 0 or step_i >= max_steps:
                     names = list(last_metrics)

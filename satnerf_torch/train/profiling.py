@@ -60,18 +60,16 @@ class TraceCapture:
         self._done = False
         self._covered_first: int | None = None
         self._covered_last: int | None = None
-        self._blocks: set[int] = set()
 
-    def step(self, step: int, block: int = 1) -> None:
-        """Called once per block covering steps [step, step+block); the
-        window is aligned to blocks, and the covered step range and block
-        sizes are written to trace_window.json."""
+    def step(self, step: int) -> None:
+        """Called before each step; the covered step range is written to
+        trace_window.json."""
         if self.dir is None or self._done:
             return
         if self._prof is not None and step >= self.stop:
             self.close()
             return
-        if self._prof is None and step + block > self.start and step < self.stop:
+        if self._prof is None and self.start <= step < self.stop:
             import torch
 
             acts = [torch.profiler.ProfilerActivity.CPU]
@@ -81,22 +79,14 @@ class TraceCapture:
             self._prof.__enter__()
             self._covered_first = step
         if self._prof is not None:
-            self._covered_last = step + block - 1
-            self._blocks.add(block)
+            self._covered_last = step
 
     def _write_window(self) -> None:
         import json
 
         with open(os.path.join(self.dir, "trace_window.json"), "w") as f:
-            json.dump(
-                {
-                    "first_step": self._covered_first,
-                    "last_step": self._covered_last,
-                    "steps_per_dispatch": max(self._blocks or {1}),
-                    "block_sizes": sorted(self._blocks),
-                },
-                f,
-            )
+            json.dump({"first_step": self._covered_first,
+                       "last_step": self._covered_last}, f)
 
     def close(self) -> None:
         if self._prof is not None:

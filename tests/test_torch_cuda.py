@@ -552,6 +552,7 @@ def test_cuda_trainer_runs_the_kernels_and_resumes_bitwise(cuda_device, tmp_path
 
     from satnerf_torch.configs import MainConfig, RSSemanticConfig, RunConfig
     from satnerf_torch.datasets.synthetic import generate_scene
+    from satnerf_torch.models import field as fld
     from satnerf_torch.ops import composite as comp
     from satnerf_torch.ops import field_fused as ff
     from satnerf_torch.ops import trunk
@@ -577,7 +578,8 @@ def test_cuda_trainer_runs_the_kernels_and_resumes_bitwise(cuda_device, tmp_path
 
     counters = [(ff, "LAUNCHES"), (ff, "HEADS_BWD_LAUNCHES"), (trunk, "LAUNCHES"),
                 (comp, "LAUNCHES"), (comp, "BWD_LAUNCHES"), (ff, "PLAIN_CALLS"),
-                (trunk, "PLAIN_CALLS"), (trunk, "FWD_PLAIN_CALLS"), (comp, "PLAIN_CALLS")]
+                (trunk, "PLAIN_CALLS"), (trunk, "FWD_PLAIN_CALLS"), (comp, "PLAIN_CALLS"),
+                (fld, "PLAIN_CALLS")]
     torch.cuda.synchronize()
     for mod, name in counters:
         setattr(mod, name, 0)
@@ -603,3 +605,34 @@ def test_cuda_trainer_runs_the_kernels_and_resumes_bitwise(cuda_device, tmp_path
     resumed = again.fit(validate_every_epoch=False)
     pa, pb = export_params(state.params), export_params(resumed.params)
     assert all(torch.equal(pa[k], pb[k]) for k in pa)
+
+
+@pytest.mark.cuda
+def test_cuda_unbuilt_width_raises(cuda_device):
+    """A pipeline TOML at a width the field kernel is not built for (256
+    wide) resolves to the kernels on the card and raises at their launch,
+    rather than running the layer-by-layer field."""
+    import os
+
+    from satnerf_torch.configs import load_render_config
+    from satnerf_torch.models import field as fld
+    from satnerf_torch.render.renderer import render_rays
+    from satnerf_torch.train.state import init_params
+
+    toml = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "configs", "pipelines", "rs_semantic.toml")
+    rcfg = load_render_config(toml, device=cuda_device, fc_units=256)
+    assert rcfg.field.trunk_impl == "pallas" and rcfg.field.feat == 256
+    params = init_params(torch.Generator().manual_seed(0), rcfg.field, t_vocab=4,
+                         device=cuda_device)
+    n = 64
+    g = torch.Generator().manual_seed(4)
+    o = torch.cat([torch.rand(n, 2, generator=g) * 1.6 - 0.8, torch.ones(n, 1)], 1)
+    d = torch.tensor([0.0, 0.0, -1.0]).expand(n, 3)
+    rays = torch.cat([o, d, torch.zeros(n, 1), torch.full((n, 1), 2.0)], 1).to(cuda_device)
+    sun = torch.nn.functional.normalize(torch.tensor([0.2, -0.1, 0.8]), dim=0)
+    extras = torch.cat([sun.expand(n, 3), torch.full((n, 1), 3.0)], 1).to(cuda_device)
+    before = fld.PLAIN_CALLS
+    with pytest.raises(ValueError, match="built for"):
+        render_rays(params, rcfg, rays, extras)
+    assert fld.PLAIN_CALLS == before

@@ -270,15 +270,14 @@ def test_step_config_of_a_pipeline_is_the_toml_mapping(tmp_path):
 
 
 def test_trunk_impl_resolves_to_the_kernels_on_the_card():
-    """On a CUDA device every engine name runs the kernels where they are
-    built (the flagship TOML names none, which the reference reads as
-    "xla"), other widths the layer-by-layer path; on the CPU it stays."""
+    """On a CUDA device every engine name runs the kernels, at any width
+    (the flagship TOML names none, which the reference reads as "xla"; a
+    width the kernels are not built for raises at their launch); on the CPU
+    it stays."""
     for impl in ("xla", "pallas", "auto"):
         assert tconfigs.resolve_trunk_impl(impl, "cuda") == "pallas"
-        assert tconfigs.resolve_trunk_impl(impl, "cuda", (512, 512)) == "pallas"
-        assert tconfigs.resolve_trunk_impl(impl, "cuda", (256, 128)) == "xla"
     p64 = {"pipeline": "rs_semantic", "fc_units": 64}
-    assert tconfigs.render_config_from_pipeline(p64, device="cuda").field.trunk_impl == "xla"
+    assert tconfigs.render_config_from_pipeline(p64, device="cuda").field.trunk_impl == "pallas"
     assert tconfigs.resolve_trunk_impl("xla", "cpu") == "xla"
     assert tconfigs.resolve_trunk_impl("auto", "cpu") == "xla"
     assert tconfigs.resolve_trunk_impl("pallas", "cpu") == "pallas"
@@ -286,6 +285,33 @@ def test_trunk_impl_resolves_to_the_kernels_on_the_card():
                                                  "rs_semantic.toml"))
     assert "trunk_impl" not in p
     assert tconfigs.render_config_from_pipeline(p, device="cuda").field.trunk_impl == "pallas"
+
+
+@pytest.mark.parametrize("impl,plain_trunk", [("xla", 1), ("pallas", 0)])
+def test_layer_by_layer_trunk_counts_as_a_plain_call(impl, plain_trunk):
+    """The field's layer-by-layer trunk counts each call in
+    ``models.field.PLAIN_CALLS``; the kernels' path (their plain version on
+    the CPU) counts in the kernel module instead."""
+    from satnerf_torch.models import field as fld
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.train.state import init_params
+
+    p = {"pipeline": "rs_semantic", "fc_layers": 2, "fc_units": 256, "fc_skips": [],
+         "trunk_impl": impl}
+    cfg = tconfigs.render_config_from_pipeline(p, device="cpu").field
+    params = init_params(torch.Generator().manual_seed(0), cfg, t_vocab=3, device="cpu")
+    rng = np.random.default_rng(0)
+    n = 16
+    xyz = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(np.float32))
+    sun = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)), dim=-1)
+    t_emb = torch.from_numpy(rng.normal(size=(n, cfg.t_embedding_tau)).astype(np.float32))
+    before, ff_before = fld.PLAIN_CALLS, ff.PLAIN_CALLS
+    with torch.no_grad():
+        out = fld.field_forward(params["field"], cfg, xyz, sun_d=sun, t_emb=t_emb)
+    assert torch.isfinite(out["rgb"]).all()
+    assert fld.PLAIN_CALLS - before == plain_trunk
+    assert ff.PLAIN_CALLS - ff_before == 1 - plain_trunk
 
 
 def test_matmul_precision_maps_to_torch():

@@ -219,10 +219,13 @@ def test_resume_equals_the_uninterrupted_run_bitwise(workspace, uninterrupted):
 
 def test_steps_per_dispatch_and_callbacks_leave_the_trajectory_unchanged(workspace,
                                                                          uninterrupted):
+    """``steps_per_dispatch`` loads and has no effect (each step is its own
+    call); step callbacks fire at their exact steps."""
     state, trainer = uninterrupted
     seen = []
     blocks = _trainer(workspace, log_every=4, num_sanity_val_steps=0, max_train_steps=12,
                       steps_per_dispatch=4)
+    assert blocks.cfg.run.steps_per_dispatch == 4
     got = blocks.fit(validate_every_epoch=False,
                      step_callbacks={5: lambda s, i: seen.append((i, s.step)),
                                      7: lambda s, i: seen.append((i, s.step)),
@@ -230,7 +233,7 @@ def test_steps_per_dispatch_and_callbacks_leave_the_trajectory_unchanged(workspa
     assert seen == [(5, 5), (7, 7)]
     assert _same_params(got, state) == 0.0
     assert [h["loss"] for h in blocks.history] == [h["loss"] for h in trainer.history]
-    assert blocks.profiler.counts["train_step"] < 12  # steps did run in blocks
+    assert blocks.profiler.counts["train_step"] == 12
 
 
 def test_sigterm_checkpoints_and_the_run_resumes(workspace, uninterrupted):
@@ -336,7 +339,6 @@ def test_trace_capture_writes_a_chrome_trace_of_its_window(tmp_path, monkeypatch
         torch.ones(8).sum()
     trace.close()
     with open(tmp_path / "trace_window.json") as f:
-        assert json.load(f) == {"first_step": 2, "last_step": 3, "steps_per_dispatch": 1,
-                                "block_sizes": [1]}
+        assert json.load(f) == {"first_step": 2, "last_step": 3}
     with open(tmp_path / "trace.json") as f:
         assert json.load(f)["traceEvents"]
