@@ -78,7 +78,22 @@ JSON line per phase:
    (params bitwise equal to the uninterrupted run's); the ``best``
    checkpoint served by ``RenderService.from_checkpoint`` against that
    validation's render; the loop's host-clock ms per step, seconds per
-   validation, DSM/MAE and checkpoint save/restore, and peak memory.
+   validation, DSM/MAE and checkpoint save/restore, and peak memory;
+15. ``eval_scene``: the eval battery (``eval.eval.eval_all``) on run A,
+   inline over the train and test splits: K1 and K5 once per chunk of every
+   image, one K1 weight preparation, no plain version; every results.json
+   value finite (SSIM at most 1, accuracy and mIoU in [0, 1]); the test
+   split's PSNR and MAE those of the validation that saved ``best``; one
+   PLY point per ray; the test split again through fresh worker processes,
+   one image each, with the same results.json text; seconds per image in
+   the render, PSNR/SSIM with the DSM/MAE, the semantic metrics and the
+   point clouds;
+16. ``serve_view``: run A served by view name over HTTP (``load_service``,
+   ``serve_in_thread``): each view's PNG decodes to the served rgb, the f16
+   arrays within 1e-3, a relit request, the 400 and 404 routes, the first
+   1,024 rays against the CPU plain path, a ``fast_sine`` service through
+   K1 on poly5 against the plain poly5 version; host ms per request by view
+   (``build_view_rays``, the render, PNG and HTTP) and rays/s.
 
 K1's and K3's bounds are given three ways: f32 products as 3xTF32 on the
 tensor cores (bound_ms in f32), on the f32 FMA units, and bf16 on the
@@ -1514,15 +1529,16 @@ def scene_expected_launches(trainer, steps: int, ds_drop: int) -> dict:
             "trunk_fwd_interleaved": 0}
 
 
-def train_scene_phase(dev) -> dict:
-    """The port's training CLI end to end on the card: a generated scene,
-    ``start_training`` on the flagship TOML as it is (run A), the same run
-    stopped at SCENE_STOP by ``request_stop`` from a step callback and
-    continued by the resume entry point (run B, bitwise equal to A), and
-    A's best checkpoint served by ``RenderService.from_checkpoint``."""
+def train_scene_phase(dev, work: str) -> dict:
+    """The port's training CLI end to end on the card: a generated scene
+    under ``work``, ``start_training`` on the flagship TOML as it is (run
+    A), the same run stopped at SCENE_STOP by ``request_stop`` from a step
+    callback and continued by the resume entry point (run B, bitwise equal
+    to A), and A's best checkpoint served by
+    ``RenderService.from_checkpoint``. Returns the phase's line with run A's
+    directory (``run_dp``) and trainer (``trainer``) beside it, for the
+    eval_scene and serve_view phases."""
     import glob
-    import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -1538,7 +1554,6 @@ def train_scene_phase(dev) -> dict:
     from satnerf_torch.train.loop import val_chunk_rays
 
     t_phase = time.monotonic()
-    work = tempfile.mkdtemp(prefix="train_scene_")
     try:
         t0 = time.monotonic()
         generate_scene(os.path.join(work, "datasets", "SYN"), **SCENE)
@@ -1675,10 +1690,294 @@ def train_scene_phase(dev) -> dict:
             "seconds": time.monotonic() - t_phase,
         }
         emit(line)
-        return line
+        return {**line, "run_dp": run_dp, "trainer": trainer_a}
     finally:
         disable_tf32()  # the run's matmul_precision "high" allowed TF32
-        shutil.rmtree(work, ignore_errors=True)
+
+
+def _results_values(node, path=""):
+    """(path, leaf) of every value of a results.json tree."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _results_values(v, f"{path}/{k}")
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            yield from _results_values(v, f"{path}[{i}]")
+    else:
+        yield path, node
+
+
+def eval_scene_phase(dev, scene: dict, work: str) -> dict:
+    """The eval battery on train_scene's run A: ``eval_all`` inline over the
+    train and test splits (K1 and K5 once per chunk of every image, one K1
+    weight preparation, no plain call), its results.json values finite and
+    in range, the test split's PSNR and MAE those of the validation that
+    saved ``best``, one PLY point per ray, and the test split again through
+    fresh worker processes (``isolate="subprocess"``, one image each) with
+    the same results.json, string for string."""
+    import numpy as np
+
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.eval.eval import eval_all
+    from satnerf_torch.eval.extract_pointcloud import read_ply
+    from satnerf_torch.ops import trunk
+
+    t_phase = time.monotonic()
+    run_dp, trainer = scene["run_dp"], scene["trainer"]
+    name = os.path.basename(run_dp)
+    datasets = {"train": trainer.pipeline.datasets["rgb"],
+                "test": trainer.pipeline.datasets["rgb_test"]}
+    out = os.path.join(work, "eval_inline")
+    try:
+        reset_counters()
+        preps0 = trunk.TC_PREPARATIONS
+        t0 = time.monotonic()
+        eval_all(run_dp, out, splits=("train", "test"), isolate="inline", device=dev)
+        inline_s = time.monotonic() - t0
+        got, plain_calls = read_counters()
+        preps = trunk.TC_PREPARATIONS - preps0
+    finally:
+        disable_tf32()  # load_run applied the run's matmul_precision "high"
+    chunks = sum(-(-len(item["rays"]) // CHUNK) for ds in datasets.values() for item in ds.data)
+    want = {k: 0 for k in got}
+    want["field_fused"] = want["composite"] = chunks
+    check(got == want, f"eval_scene launches {got}, expected {want}")
+    check(not any(plain_calls.values()), f"eval_scene: a plain version ran: {plain_calls}")
+    check(preps == 1, f"eval_scene: {preps} K1 weight preparations for one load")
+
+    results = {}
+    for split in ("train", "test"):
+        for kind in ("eval", "eval_semantic"):
+            with open(os.path.join(out, name, kind, split, "results.json")) as f:
+                results[f"{kind}/{split}"] = json.load(f)
+    for key, tree in results.items():
+        for path, v in _results_values(tree):
+            if v is None:
+                check("/per_class_iou/" in path, f"{key}{path} is null")
+                continue
+            x = float(v)
+            check(math.isfinite(x), f"{key}{path} = {v}")
+            low = path.lower()
+            if "ssim" in low:
+                check(x <= 1.0, f"{key}{path} SSIM {v} above 1")
+            if "accuracy" in low or "miou" in low or "per_class_iou" in low:
+                check(0.0 <= x <= 1.0, f"{key}{path} = {v} outside [0, 1]")
+
+    # the test image of the best checkpoint against the validation that
+    # saved it (maybe_save_best keeps the first minimum of train/mae)
+    best = min((v for v in trainer.val_history if "train/mae" in v),
+               key=lambda v: v["train/mae"])
+    test_name = datasets["test"].data[1]["name"]
+    entry = results["eval/test"][test_name]
+    best_line = {"psnr": entry["psnr"], "mae": entry["mae"]["mean"],
+                 "validation_psnr": f"{best['test/psnr_0']:.2f}",
+                 "validation_mae": f"{best['test/mae']:.3f}", "epoch": best["epoch"]}
+    check(best_line["psnr"] == best_line["validation_psnr"]
+          and best_line["mae"] == best_line["validation_mae"],
+          f"test split against the best validation: {best_line}")
+
+    partials, clouds = {}, {}
+    for split, ds in datasets.items():
+        for item in ds.data:
+            with open(os.path.join(out, name, "partial", split, item["name"] + ".json")) as f:
+                partial = json.load(f)
+            partials[f"{split}/{item['name']}"] = partial["seconds"]
+            rec = read_ply(os.path.join(out, name, "pointclouds", split,
+                                        f"{item['name']}_epoch_{partial['step']}.ply"))
+            clouds[f"{split}/{item['name']}"] = int(rec.shape[0])
+            check(rec.shape[0] == len(item["rays"]),
+                  f"{split}/{item['name']}: {rec.shape[0]} points for {len(item['rays'])} rays")
+
+    # the test split again, one fresh worker process per image
+    sub = os.path.join(work, "eval_subprocess")
+    t0 = time.monotonic()
+    eval_all(run_dp, sub, splits=("test",), isolate="subprocess", batch_images=1,
+             stall_timeout_s=600.0, device=dev)
+    subprocess_s = time.monotonic() - t0
+    for kind in ("eval", "eval_semantic"):
+        texts = []
+        for root in (out, sub):
+            with open(os.path.join(root, name, kind, "test", "results.json")) as f:
+                texts.append(f.read())
+        check(texts[0] == texts[1], f"{kind}: subprocess results.json differs from inline")
+
+    parts = ("render", "psnr_ssim_dsm_mae", "semantic", "clouds")
+    evaluated = [v for v in partials.values() if "psnr_ssim_dsm_mae" in v]
+    line = {
+        "phase": "eval_scene", "images": len(partials), "chunk": CHUNK,
+        "launches": got, "expected_launches": want, "plain_calls": plain_calls,
+        "preparations": preps, "best_vs_validation": best_line,
+        "means": {k: results[k].get("PSNR (Mean)") or results[k].get("mIoU (Mean)")
+                  for k in results},
+        "test_results": {k: entry[k] for k in ("psnr", "ssim", "mae")},
+        "semantic_test": {k: results["eval_semantic/test"][k]
+                          for k in ("Semantic Accuracy (Mean)", "mIoU (Mean)")},
+        "ply_points": clouds,
+        "seconds_per_image": {k: sum(v[k] for v in evaluated) / len(evaluated) for k in parts},
+        "seconds_by_image": partials,
+        "inline_s": inline_s, "subprocess_test_split_s": subprocess_s,
+        "subprocess_results_identical": True,
+        "seconds": time.monotonic() - t_phase,
+    }
+    emit(line)
+    return line
+
+
+def _http(url: str, body: dict | None = None):
+    """(status, content type, body bytes) of a GET (``body`` None) or a
+    JSON POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, resp.headers.get("Content-Type"), resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.headers.get("Content-Type"), err.read()
+
+
+def serve_view_phase(dev, scene: dict) -> dict:
+    """train_scene's run A served by view name over HTTP: ``load_service``
+    and ``serve_in_thread``; each view's PNG decodes to the served rgb
+    exactly, the f16 arrays round-trip within 1e-3, a relit request changes
+    the rgb, the error routes answer 400 and 404, the first 1,024 rays of a
+    view agree with the CPU plain path, and a ``fast_sine`` service runs K1
+    on poly5 and agrees with the plain poly5 version. Host ms per request by
+    view, split into ``build_view_rays`` and the render."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from satnerf_torch.eval.render_view import build_view_rays
+    from satnerf_torch.io.png import decode_png
+    from satnerf_torch.models.field import Field
+    from satnerf_torch.ops import trunk
+    from satnerf_torch.render.renderer import render_image_chunked
+    from satnerf_torch.serve.http_server import serve_in_thread
+    from satnerf_torch.serve.service import RenderService, load_service
+
+    t_phase = time.monotonic()
+    run_dp = scene["run_dp"]
+    reset_counters()
+    preps0 = trunk.TC_PREPARATIONS
+    t0 = time.monotonic()
+    svc = load_service(run_dp, device=dev)  # renders the first view to warm up
+    load_s = time.monotonic() - t0
+    server, port = serve_in_thread(svc)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        names = svc.view_names()
+        per_view, served = {}, {}
+        for name in names:
+            s0 = svc.stats()
+            t0 = time.monotonic()
+            status, ctype, body = _http(url + "/render", {"view": name})
+            request_ms = (time.monotonic() - t0) * 1e3
+            render_ms = (svc.stats()["render_seconds"] - s0["render_seconds"]) * 1e3
+            check(status == 200 and ctype == "image/png", f"/render {name}: {status} {ctype}")
+            served[name] = svc.render(name)
+            want = (served[name]["rgb"] * 255).astype(np.uint8)
+            check(np.array_equal(decode_png(body), want), f"{name}: PNG differs from the render")
+            meta = svc.resolve_meta(name)
+            t0 = time.monotonic()
+            rays, _, w, h, _, _ = build_view_rays(svc.dataset, meta)
+            build_ms = (time.monotonic() - t0) * 1e3
+            per_view[name] = {"request_ms": request_ms, "build_view_rays_ms": build_ms,
+                              "render_ms": render_ms,
+                              "png_and_http_ms": request_ms - build_ms - render_ms,
+                              "rays": int(rays.shape[0]),
+                              "rays_per_s": rays.shape[0] / (request_ms / 1e3)}
+        n0 = names[0]
+        status, ctype, body = _http(url + "/render", {"view": n0, "output": "arrays"})
+        check(status == 200 and ctype == "application/json", f"arrays: {status}")
+        arr = json.loads(body)
+        rgb16 = np.frombuffer(base64.b64decode(arr["rgb_f16_b64"]), np.float16)
+        depth16 = np.frombuffer(base64.b64decode(arr["depth_f16_b64"]), np.float16)
+        ref = served[n0]
+        arrays_err = {
+            "rgb": float(np.abs(rgb16.reshape(ref["rgb"].shape) - ref["rgb"]).max()),
+            "depth_rel": float(np.abs(depth16.reshape(ref["depth"].shape) - ref["depth"]).max()
+                               / max(1.0, float(np.abs(ref["depth"]).max()))),
+        }
+        check(max(arrays_err.values()) <= 1e-3, f"f16 arrays {arrays_err}")
+        status, _, body = _http(url + "/render", {"view": n0, "output": "arrays",
+                                                  "sun_elevation": 45.0})
+        relit = np.frombuffer(base64.b64decode(json.loads(body)["rgb_f16_b64"]), np.float16)
+        relit_diff = float(np.abs(relit.astype(np.float32) - rgb16.astype(np.float32)).mean())
+        check(status == 200 and relit_diff > 1e-4, f"relit request: {status}, {relit_diff}")
+        codes = {"escape": _http(url + "/render", {"view": "../x"})[0],
+                 "inline_dict": _http(url + "/render", {"view": {"width": 4, "height": 4}})[0],
+                 "unknown_view": _http(url + "/render", {"view": "NO_SUCH_VIEW"})[0],
+                 "unknown_route": _http(url + "/nope")[0]}
+        check(codes == {"escape": 400, "inline_dict": 400, "unknown_view": 400,
+                        "unknown_route": 404}, f"error codes {codes}")
+        status, _, body = _http(url + "/stats")
+        stats = json.loads(body)
+        # the warm-up, a request and a direct render per view, two array requests
+        renders = 1 + 2 * len(names) + 2
+        check(status == 200 and stats["requests"] == renders, f"/stats {stats}")
+    finally:
+        server.shutdown()
+        server.server_close()
+    got, plain_calls = read_counters()
+    preps = trunk.TC_PREPARATIONS - preps0
+    # every view is one chunk: K1 and K5 once per render
+    check(got["field_fused"] == renders and got["composite"] == renders,
+          f"serve_view launches {got} for {renders} renders")
+    check(not any(plain_calls.values()), f"serve_view: a plain version ran: {plain_calls}")
+    check(preps == 1, f"serve_view: {preps} K1 weight preparations")
+
+    def against_cpu(service, name):
+        """The first 1,024 rays of ``name`` on the CPU plain path."""
+        rays, extras, *_ = build_view_rays(service.dataset, service.resolve_meta(name))
+        params = {}
+        for key, v in service.params.items():
+            if isinstance(v, Field):
+                cpu = Field(service.rcfg.field)
+                cpu.load_state_dict({k: t.cpu() for k, t in v.state_dict().items()})
+                params[key] = cpu
+            else:
+                params[key] = v.cpu()
+        ref = render_image_chunked(params, service.rcfg, rays[:1024], extras[:1024],
+                                   chunk=1024, device="cpu")
+        got = service.render(name)
+        return {"rgb": float(np.abs(got["rgb"].reshape(-1, 3)[:1024]
+                                    - np.clip(ref["rgb"], 0, 1)).max()),
+                "depth": float(np.abs(got["depth"].reshape(-1)[:1024] - ref["depth"]).max())}
+
+    cpu_err = against_cpu(svc, n0)
+    for k, tol in TOL_SERVE_CPU.items():
+        check(cpu_err[k] <= tol, f"serve_view vs CPU {k} err {cpu_err[k]}")
+
+    reset_counters()
+    fast = RenderService.from_run(run_dp, fast_sine=True, device=dev)
+    check(fast.rcfg.field.sin_impl == "poly5", "fast_sine service is not on poly5")
+    fast.render(n0)
+    fast_got, fast_plain = read_counters()
+    check(fast_got["field_fused"] == 1 and not any(fast_plain.values()),
+          f"fast_sine render: launches {fast_got}, plain {fast_plain}")
+    fast_err = against_cpu(fast, n0)
+    for k, tol in TOL_SERVE_CPU.items():
+        check(fast_err[k] <= tol, f"fast_sine vs CPU poly5 {k} err {fast_err[k]}")
+
+    ms = [v["request_ms"] for v in per_view.values()]
+    line = {
+        "phase": "serve_view", "views": names, "rays_per_view": per_view[n0]["rays"],
+        "chunk": svc.chunk, "launches": got, "plain_calls": plain_calls, "preparations": preps,
+        "renders": renders, "per_view": per_view, "request_ms_mean": sum(ms) / len(ms),
+        "rays_per_s": sum(v["rays"] for v in per_view.values()) / (sum(ms) / 1e3),
+        "load_service_s": load_s, "stats": stats, "arrays_max_err": arrays_err,
+        "relit_mean_abs_rgb_change": relit_diff, "error_codes": codes,
+        "cpu_plain_max_abs_err_1024_rays": cpu_err,
+        "fast_sine": {"launches": fast_got, "cpu_poly5_max_abs_err_1024_rays": fast_err},
+        "tol": {"cpu": TOL_SERVE_CPU, "arrays": 1e-3},
+        "seconds": time.monotonic() - t_phase,
+    }
+    emit(line)
+    return line
 
 
 def main() -> int:
@@ -2016,14 +2315,26 @@ def main() -> int:
     # ---- 13. K3 and K6 times -----------------------------------------------------------
     trunk_t = trunk_times_phase(dev, field_b, spec_b, lambda n: field_inputs(n, 3)[0])
 
-    # ---- 14. the training CLI on a generated scene, resume, serving its best --------
-    scene = train_scene_phase(dev)
+    # ---- 14-16. the training CLI on a generated scene, resume, serving its best;
+    # the eval battery on that run; the run served by view name over HTTP -----------
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="train_scene_")
+    try:
+        scene = train_scene_phase(dev, work)
+        eval_scene = eval_scene_phase(dev, scene, work)
+        serve_view = serve_view_phase(dev, scene)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     def by_path(kernel):
         return {"train": train["launches"][kernel], "train_beta_s": beta_s["launches"][kernel],
                 "train_hier": hier["launches"][kernel],
                 "train_scene": scene["launches"][kernel], "serve_beta_s":
-                serve_b["launches"][kernel], "serve_hier": serve_h["launches"][kernel]}
+                serve_b["launches"][kernel], "serve_hier": serve_h["launches"][kernel],
+                "eval_scene": eval_scene["launches"][kernel],
+                "serve_view": serve_view["launches"][kernel]}
 
     f32 = times["float32"]
     k1t = train_t["field_fused"]

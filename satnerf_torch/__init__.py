@@ -3,7 +3,7 @@
 The JAX package ``satnerf_tpu`` is the reference; this package mirrors its
 module names (``core/``, ``models/``, ``render/``, ``serve/``, ``train/``,
 ``ops/``, ``geo/``, ``io/``, ``datasets/``, ``eval/``, ``pipelines/``,
-``run/``) so the counterpart of each module is easy to find. It imports ``torch`` and
+``run/``, ``viz/``) so the counterpart of each module is easy to find. It imports ``torch`` and
 numpy only, never JAX or ``satnerf_tpu``.
 
 Plain tensor code is PyTorch. Every Pallas kernel of the reference on the

@@ -1,2 +1,3 @@
-"""Evaluation: image metrics, DSM construction and the NCC-registered
-altitude MAE (the rest of the eval battery is not ported yet)."""
+"""Evaluation: image metrics, the DSM altitude MAE, semantic metrics, point
+clouds, novel views, and the battery that runs them all over a trained run
+(``python -m satnerf_torch.eval.eval <run_dp>``)."""

@@ -1,5 +1,5 @@
 """IO: self-contained GeoTIFF read/write (rasterio replacement), image
-loading, root.json manifests, JSON helpers."""
+loading, root.json manifests, JSON helpers, PNG (``io/png.py``)."""
 
 from satnerf_torch.io.tiff import GeoProfile, read_geotiff, write_geotiff  # noqa: F401
 from satnerf_torch.io.image import (  # noqa: F401

@@ -9,6 +9,8 @@
 - :func:`load_lightning_ckpt`: a reference Lightning checkpoint (the format
   ``satnerf_tpu.models.import_torch.save_lightning_ckpt`` writes: keys
   ``model_<key>.<param>``) -> state dicts and embedding tables.
+- :func:`resident_params`: those -> ``Field`` modules on a device, packed
+  for the kernels, as the render service and the eval loader keep them.
 
 The port keeps its own copy of the key map.
 """
@@ -85,7 +87,13 @@ def load_lightning_ckpt(ckpt_fp: str) -> dict:
     Returns {"field": state dict, "fine": state dict (if present),
     "t": (vocab, tau) table, "t_s": table (if present)}, all on the CPU.
     """
-    raw = torch.load(ckpt_fp, map_location="cpu", weights_only=True)
+    return lightning_params(torch.load(ckpt_fp, map_location="cpu", weights_only=True),
+                            ckpt_fp)
+
+
+def lightning_params(raw: dict, origin: str = "checkpoint") -> dict:
+    """The params of a loaded checkpoint (a Lightning ``state_dict``, or a
+    dict holding one), as :func:`load_lightning_ckpt` returns them."""
     state = raw.get("state_dict", raw)
     groups: dict[str, dict] = {}
     for key, value in state.items():
@@ -94,11 +102,43 @@ def load_lightning_ckpt(ckpt_fp: str) -> dict:
         model_key, rest = key[len("model_"):].split(".", 1)
         groups.setdefault(model_key, {})[rest] = value.to(torch.float32)
     if "coarse" not in groups:
-        raise KeyError(f"{ckpt_fp}: no model_coarse.* entries")
+        raise KeyError(f"{origin}: no model_coarse.* entries")
     out = {"field": groups["coarse"]}
     if "fine" in groups:
         out["fine"] = groups["fine"]
     for key in ("t", "t_s"):
         if key in groups:
             out[key] = groups[key]["weight"]
+    return out
+
+
+def resident_params(params: dict, rcfg, device) -> dict:
+    """Params for rendering on ``device``: {"field": ``Field`` module or its
+    state dict, "fine": optional, "t": table, "t_s": optional} -> ``Field``
+    modules in eval mode and f32 tables there, each field packed once for
+    the kernel its render config runs (K1, or K3's trunk), so every render
+    reuses one preparation."""
+    from satnerf_torch.models.field import (
+        Field,
+        fused_field_spec,
+        use_fused_field,
+        use_fused_trunk,
+    )
+
+    fcfg = rcfg.field
+    out = {}
+    for key in ("field", "fine"):
+        field = params.get(key)
+        if field is None:
+            continue
+        if not isinstance(field, Field):
+            state = field
+            field = Field(fcfg)
+            field.load_state_dict(state)
+        out[key] = field = field.to(device).eval()
+        if use_fused_field(fcfg) or use_fused_trunk(fcfg):
+            field.packed(rcfg.dtype, fused_field_spec(fcfg))
+    for key in ("t", "t_s"):
+        if params.get(key) is not None:
+            out[key] = torch.as_tensor(params[key]).to(device, torch.float32)
     return out

@@ -1,8 +1,9 @@
 """Each CUDA kernel of satnerf_torch (K1 with its residuals, K2, K3 and its
 interleaved variant K6, K4, K5 and its backward) against its plain PyTorch
 version, on the card, one tensor-core layer of the forward against the
-3xTF32 emulation of ops/_bwd.py, and the training loop on the card (its
-launches, and a bitwise resume). Marked
+3xTF32 emulation of ops/_bwd.py, the training loop on the card (its
+launches, and a bitwise resume), and the eval battery and an HTTP render of
+a trained run (their launches, and agreement with the CPU). Marked
 ``cuda``: without a GPU every test here skips.
 
 The file imports neither JAX nor the JAX package, so it runs on a machine
@@ -636,3 +637,133 @@ def test_cuda_unbuilt_width_raises(cuda_device):
     with pytest.raises(ValueError, match="built for"):
         render_rays(params, rcfg, rays, extras)
     assert fld.PLAIN_CALLS == before
+
+
+@pytest.fixture
+def cuda_run(cuda_device, tmp_path):
+    """A 4x512 port run trained 8 steps on the card (its validation saves
+    ``best``)."""
+    from satnerf_torch.configs import MainConfig, RSSemanticConfig, RunConfig
+    from satnerf_torch.datasets.synthetic import generate_scene
+    from satnerf_torch.pipelines import load_pipeline
+    from satnerf_torch.train.loop import Trainer
+
+    generate_scene(str(tmp_path / "datasets" / "SYN"), n_train=2, n_test=1, img_size=40,
+                   n_tie_points=80)
+    cfg = MainConfig(
+        RunConfig(dataset_name="SYN", datasets_dp=str(tmp_path / "datasets"),
+                  cache_dp=str(tmp_path / "cache"), workspace_dp=str(tmp_path / "training"),
+                  max_train_steps=8, num_sanity_val_steps=0, seed=0),
+        RSSemanticConfig(fc_layers=4, fc_units=512, fc_skips=[2], n_samples=32,
+                         batch_size=256, first_beta_epoch=0))
+    pipeline = load_pipeline(cfg)
+    pipeline.prepare_run()
+    pipeline.load_datasets()
+    Trainer(pipeline, log_every=8, device=cuda_device).fit()
+    return cfg.run.run_dp
+
+
+def _reset_counts():
+    from satnerf_torch.models import field as fld
+    from satnerf_torch.ops import composite as comp
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    counters = {"k1": (ff, "LAUNCHES"), "k5": (comp, "LAUNCHES"), "k3": (trunk, "FWD_LAUNCHES"),
+                "plain_field": (ff, "PLAIN_CALLS"), "plain_trunk": (fld, "PLAIN_CALLS"),
+                "plain_k3": (trunk, "FWD_PLAIN_CALLS"), "plain_k5": (comp, "PLAIN_CALLS")}
+    torch.cuda.synchronize()
+    for mod, name in counters.values():
+        setattr(mod, name, 0)
+    return lambda: {k: getattr(mod, name) for k, (mod, name) in counters.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_eval_battery_runs_the_kernels_and_matches_the_cpu(cuda_device, cuda_run,
+                                                                tmp_path):
+    """``eval_all`` on the card: K1 and K5 once per chunk of every image, no
+    plain version, and every results.json value within one unit of its last
+    printed digit of the same battery on the CPU."""
+    import json
+    import os
+
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.eval.eval import eval_all
+
+    counts = _reset_counts()
+    try:
+        eval_all(cuda_run, str(tmp_path / "card"), isolate="inline", chunk=1024,
+                 device=cuda_device)
+    finally:
+        disable_tf32()
+    got = counts()
+    # train split 2 images, test split 2 (the prepended train view): 1,600
+    # rays each, 2 chunks of 1,024
+    assert got["k1"] == got["k5"] == 4 * 2 and got["k3"] == 0, got
+    assert not any(v for k, v in got.items() if k.startswith("plain")), got
+    eval_all(cuda_run, str(tmp_path / "cpu"), isolate="inline", chunk=1024, device="cpu")
+    name = os.path.basename(cuda_run)
+    for split in ("train", "test"):
+        for kind in ("eval", "eval_semantic"):
+            card, cpu = (json.load(open(os.path.join(str(tmp_path / d), name, kind, split,
+                                                     "results.json")))
+                         for d in ("card", "cpu"))
+            _within_printed_digits(card, cpu, f"{kind}/{split}")
+
+
+def _within_printed_digits(card, cpu, path: str):
+    """Every value of two results.json trees within one unit of its last
+    printed digit: PSNR 0.01, SSIM, MAE and the confusion matrices 1e-3,
+    the semantic scores 1e-4."""
+    if isinstance(cpu, dict):
+        assert set(card) == set(cpu), path
+        for k in cpu:
+            _within_printed_digits(card[k], cpu[k], f"{path}/{k}")
+    elif isinstance(cpu, list):
+        assert len(card) == len(cpu), path
+        for i, (a, b) in enumerate(zip(card, cpu)):
+            _within_printed_digits(a, b, f"{path}[{i}]")
+    elif cpu is None:
+        assert card is None, path
+    else:
+        low = path.lower()
+        bar = 0.01 if "psnr" in low else (
+            1e-3 if any(k in low for k in ("ssim", "mae", "confusion")) else 1e-4)
+        assert abs(float(card) - float(cpu)) <= bar * 1.000001, (path, card, cpu)
+
+
+@pytest.mark.cuda
+def test_cuda_http_render_runs_the_kernels_and_matches_the_cpu(cuda_device, cuda_run):
+    """``POST /render`` on the card: one K1 and one K5 launch per 1,024-ray
+    chunk, no plain version, the PNG equal to the served rgb, which agrees
+    with the CPU service within the serve bar (1e-4)."""
+    import json
+    import urllib.request
+
+    import numpy as np
+
+    from satnerf_torch.io.png import decode_png
+    from satnerf_torch.serve.http_server import serve_in_thread
+    from satnerf_torch.serve.service import RenderService
+
+    svc = RenderService.from_run(cuda_run, chunk=1024, device=cuda_device)
+    name = svc.view_names()[0]
+    counts = _reset_counts()
+    server, port = serve_in_thread(svc)
+    try:
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/render",
+                                     data=json.dumps({"view": name}).encode())
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            assert resp.status == 200
+            png = decode_png(resp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+    got = counts()
+    assert got["k1"] == got["k5"] == 2 and got["k3"] == 0, got  # 1,600 rays
+    assert not any(v for k, v in got.items() if k.startswith("plain")), got
+    served = svc.render(name)
+    np.testing.assert_array_equal(png, (served["rgb"] * 255).astype(np.uint8))
+    ref = RenderService.from_run(cuda_run, chunk=1024, device="cpu").render(name)
+    assert float(np.abs(served["rgb"] - ref["rgb"]).max()) <= 1e-4
+    assert float(np.abs(served["depth"] - ref["depth"]).max()) <= 1e-4

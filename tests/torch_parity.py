@@ -194,3 +194,36 @@ def emulated_bwd_kernels():
         yield
     finally:
         _bwd.row_op, _bwd.reduce_op = saved
+
+
+TINY_PIPE = dict(n_samples=8, fc_layers=2, fc_units=64, fc_skips=[1], batch_size=256,
+                 render_chunk_size=4096, first_beta_epoch=1, depth_enabled=True)
+
+
+def train_tiny_run(base, steps: int = 24):
+    """A tiny port run trained on the CPU through the port's training CLI,
+    as the README's recipe does: a 40 x 40 generated scene (2 train views +
+    1 test view), the flagship TOML with a 2 x 64 field and 8 samples, depth
+    on, validation every epoch (12 steps). -> (pipeline, trainer)."""
+    import os
+
+    from satnerf_torch.configs import write_toml
+    from satnerf_torch.datasets.synthetic import generate_scene
+    from satnerf_torch.run import training
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    generate_scene(str(base / "datasets" / "SYN"), n_train=2, n_test=1, img_size=40,
+                   n_tie_points=80)
+    toml = open(os.path.join(repo, "configs", "pipelines", "rs_semantic.toml")).read()
+    body = [ln for ln in toml.splitlines() if ln.split("=")[0].strip() not in TINY_PIPE]
+    body += [f"{k} = {str(v).lower() if isinstance(v, bool) else v}"
+             for k, v in TINY_PIPE.items()]
+    (base / "pipeline.toml").write_text("\n".join(body) + "\n")
+    write_toml(str(base / "run.toml"), dict(
+        dataset_name="SYN", datasets_dp=str(base / "datasets"), cache_dp=str(base / "cache"),
+        workspace_dp=str(base / "training"), max_train_steps=steps, num_sanity_val_steps=0,
+        seed=0))
+    pipeline, _, trainer = training.start_training(str(base / "run.toml"),
+                                                   str(base / "pipeline.toml"), device="cpu",
+                                                   log_every=50)
+    return pipeline, trainer
