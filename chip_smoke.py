@@ -68,8 +68,8 @@ JSON line per phase:
 14. ``train_scene``: the training CLI end to end on a generated scene (4 + 1
    views, 96x96, 300 tie points): ``run.training.start_training`` on the
    flagship TOML as it is, 144 steps (the depth drop at step 36, the beta
-   gate at epoch 2), validation with PSNR, SSIM and the DSM MAE every epoch,
-   checkpoints; the launches of K1, K2, K4, K5 and K5's backward by the
+   gate at epoch 2), validation with PSNR, SSIM, the DSM MAE and the
+   visualizers every epoch (each TIF of each image counted), checkpoints; the launches of K1, K2, K4, K5 and K5's backward by the
    step and validation schedule and no plain version, one K1 weight
    preparation per step and per validation, finite loss terms, the batch's
    plain rgb MSE falling and the train PSNR rising, the run layout,
@@ -93,7 +93,21 @@ JSON line per phase:
    arrays within 1e-3, a relit request, the 400 and 404 routes, the first
    1,024 rays against the CPU plain path, a ``fast_sine`` service through
    K1 on poly5 against the plain poly5 version; host ms per request by view
-   (``build_view_rays``, the render, PNG and HTTP) and rays/s.
+   (``build_view_rays``, the render, PNG and HTTP) and rays/s;
+17. ``viz_scene``: ``run_visualizer`` over run A's test and train splits:
+   every visualizer's TIF for every image, the rgb TIF equal to the render,
+   K1 and K5 once per chunk, no plain version; seconds per image in the
+   render and in the visualizers;
+18. ``train_dp``: the flagship TOML on the scene for one epoch (36 steps,
+   one validation) over two gloo ranks on the one card (NCCL refuses two
+   ranks on one device), each a ``--dp-rank`` process started with
+   torchrun's environment, in one process, and as the one rank of an nccl
+   group: losses within rtol 2e-5 of one process at every step and
+   parameters within 1e-6, each rank's launches by the schedule, no plain
+   version; ms per step per rank and the collectives' share (two ranks
+   share the card: a price, not a speed-up);
+19. ``sweep``: ``run.automated_training.launch`` of a two-experiment TOML,
+   8 steps each: both runs leave ``last.ckpt`` and a validation.
 
 K1's and K3's bounds are given three ways: f32 products as 3xTF32 on the
 tensor cores (bound_ms in f32), on the f32 FMA units, and bf16 on the
@@ -195,6 +209,12 @@ TOL_SCENE_SERVE = 1e-5  # served best vs the validation render of the same view
 SERVE_H = SERVE_W = 128
 N_REQUESTS = 3
 CHUNK = 16_384
+# train_dp: one epoch of the scene (36 steps, the depth drop at its end) and
+# its validation, over two gloo ranks on the one card against one process, at
+# the JAX package's bars for its sharded step (tests/test_parallel.py)
+DP_STEPS = 36
+TOL_DP_LOSS, TOL_DP_PARAM = 2e-5, 1e-6
+SWEEP_STEPS = 8  # each of the sweep's two runs, then its one validation
 
 
 def op_bounds(flops: float, dname: str) -> dict:
@@ -1624,6 +1644,17 @@ def train_scene_phase(dev, work: str) -> dict:
               f"last validation {val}")
         check(all(val[k] <= 1.0 for k in val if "/ssim_" in k), f"SSIM above 1: {val}")
         check(native.get_lib() is not None, "the native host library did not load")
+        # the visualizers of every validation but the sanity one: each TIF of
+        # each image (run_all swallows a failing visualizer, so count them)
+        rgb_test = pipeline.datasets["rgb_test"]
+        tif_viz = [v for v in pipeline.visualizers() if v.save_as_tif]
+        viz_epochs = [v["epoch"] for v in trainer_a.val_history if not v["sanity"]]
+        missing = [v.tif_path(run_dp, item["split"], item["name"], e)
+                   for e in viz_epochs for item in map(rgb_test.image_item,
+                                                       range(len(rgb_test.data)))
+                   for v in tif_viz
+                   if not os.path.isfile(v.tif_path(run_dp, item["split"], item["name"], e))]
+        check(len(tif_viz) == 11 and not missing, f"visualizer TIFs missing: {missing[:5]}")
 
         # ---- run B: stopped by request_stop at SCENE_STOP, then resumed ----
         cfgs = load_configs(run_fp, SCENE_PIPELINE)
@@ -1680,6 +1711,9 @@ def train_scene_phase(dev, work: str) -> dict:
             "last_validation": val, "native_lib": True,
             "loop_ms_per_step_host": trainer_a.ms_per_step,
             "validate_s": mean_s(prof_a, "validate"), "dsm_mae_s": mean_s(prof_a, "dsm_mae"),
+            "visualize_s_per_validation": prof_a.totals["visualize"] / len(viz_epochs),
+            "visualize_s_per_image": mean_s(prof_a, "visualize"),
+            "visualizer_tifs": len(tif_viz) * len(viz_epochs) * len(rgb_test.data),
             "checkpoint_save_s": sum(saves) / len(saves), "checkpoint_saves": len(saves),
             "checkpoint_restore_s": trainer_c.ckpt.seconds["restore"],
             "peak_memory_gb": peak_gb, "scene_s": scene_s, "run_a_s": run_a_s,
@@ -1980,10 +2014,333 @@ def serve_view_phase(dev, scene: dict) -> dict:
     return line
 
 
+def viz_scene_phase(dev, scene: dict, work: str) -> dict:
+    """``run_visualizer`` over train_scene's run A, its test and train
+    splits: every visualizer's TIF for every image, the rgb TIF equal to the
+    render of that image, K1 and K5 once per chunk of every image and no
+    plain call; seconds per image in the render and in the visualizers
+    (numpy and TIF writes)."""
+    import numpy as np
+
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.eval.loader import load_run
+    from satnerf_torch.io.tiff import read_geotiff
+    from satnerf_torch.render.renderer import render_image_chunked
+    from satnerf_torch.viz import run_visualizer
+
+    t_phase = time.monotonic()
+    run_dp, trainer = scene["run_dp"], scene["trainer"]
+    out = os.path.join(work, "viz_scene")
+    datasets = {"test": trainer.pipeline.datasets["rgb_test"],
+                "train": trainer.pipeline.datasets["rgb"]}
+    try:
+        reset_counters()
+        t0 = time.monotonic()
+        records = {split: run_visualizer(run_dp, out, split=split, chunk=CHUNK, device=dev)
+                   for split in datasets}
+        viz_s = time.monotonic() - t0
+        got, plain_calls = read_counters()
+        pipeline, params, rcfg, step = load_run(run_dp, device=dev)
+    finally:
+        disable_tf32()  # load_run applied the run's matmul_precision "high"
+    chunks = sum(-(-len(item["rays"]) // CHUNK) for ds in datasets.values() for item in ds.data)
+    want = {k: 0 for k in got}
+    want["field_fused"] = want["composite"] = chunks
+    check(got == want, f"viz_scene launches {got}, expected {want}")
+    check(not any(plain_calls.values()), f"viz_scene: a plain version ran: {plain_calls}")
+
+    tif_viz = [v for v in pipeline.visualizers() if v.save_as_tif]
+    files, missing = 0, []
+    for ds in datasets.values():
+        for i in range(len(ds.data)):
+            item = ds.image_item(i)
+            for v in tif_viz:
+                fp = v.tif_path(out, item["split"], item["name"], step)
+                files += 1
+                if not os.path.isfile(fp):
+                    missing.append(os.path.relpath(fp, out))
+    check(len(tif_viz) == 11 and not missing, f"viz_scene: missing TIFs {missing[:5]}")
+    # the rgb TIF of the test view against that view's render
+    item = datasets["test"].image_item(1)
+    rgb_viz = [v for v in tif_viz if v._name() == "rgb"][0]
+    tif, _ = read_geotiff(rgb_viz.tif_path(out, "test", item["name"], step))
+    ref = render_image_chunked(params, rcfg, item["rays"], item["extras"], chunk=CHUNK,
+                               device=dev)["rgb"]
+    rgb_err = float(np.abs(tif - np.moveaxis(ref.reshape(item["h"], item["w"], 3), -1, 0)).max())
+    check(rgb_err == 0.0, f"viz_scene: rgb TIF differs from the render by {rgb_err}")
+    per_image = [r for recs in records.values() for r in recs]
+    line = {
+        "phase": "viz_scene", "images": len(per_image), "chunk": CHUNK, "step": step,
+        "launches": got, "expected_launches": want, "plain_calls": plain_calls,
+        "visualizers": len(pipeline.visualizers()), "tif_visualizers": len(tif_viz),
+        "tif_files_checked": files, "rgb_tif_max_abs_err": rgb_err,
+        "render_s_per_image": sum(r["render_s"] for r in per_image) / len(per_image),
+        "visualizers_s_per_image": sum(r["viz_s"] for r in per_image) / len(per_image),
+        "by_image": per_image, "run_visualizer_s": viz_s,
+        "seconds": time.monotonic() - t_phase,
+    }
+    emit(line)
+    return line
+
+
+def _scene_run_toml(work: str, name: str, **run) -> str:
+    """A run TOML on train_scene's scene and dataset cache."""
+    from satnerf_torch.configs import write_toml
+
+    fp = os.path.join(work, name)
+    write_toml(fp, dict({
+        "max_train_steps": DP_STEPS, "save_every_n_epochs": -1, "check_val_every_n_epoch": 1,
+        "num_sanity_val_steps": 0, "seed": 0, "dataset_name": "SYN",
+        "datasets_dp": os.path.join(work, "datasets"), "cache_dp": os.path.join(work, "cache"),
+        "workspace_dp": os.path.join(work, name.replace(".toml", ""))}, **run))
+    return fp
+
+
+def dp_rank_main(run_fp: str, pipe_fp: str, out_fp: str, device: str) -> int:
+    """One rank of train_dp (``--dp-rank RUN_TOML PIPELINE_TOML OUT_JSON
+    DEVICE``, started with torchrun's environment): ``start_training`` joins
+    the gloo group and trains on DEVICE; the rank writes its launches,
+    losses, ms per step, collective seconds and validation to OUT_JSON."""
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.run.training import start_training
+
+    disable_tf32()
+    t0 = time.monotonic()
+    pipeline, state, trainer = start_training(run_fp, pipe_fp, device=device,
+                                              log_every=1, dist_backend="gloo")
+    run_s = time.monotonic() - t0
+    got, plain_calls = read_counters()
+    layout = trainer.layout
+    with open(out_fp, "w") as f:
+        json.dump({
+            "rank": layout.rank, "world": layout.world, "device": str(trainer.device),
+            "launches": got, "plain_calls": plain_calls,
+            "expected_launches": scene_expected_launches(trainer, DP_STEPS,
+                                                         pipeline.ds_drop_step),
+            "losses": [h["loss"] for h in trainer.history],
+            "ms_per_step": trainer.ms_per_step, "steps_timed": trainer.steps_timed,
+            "collective_s": dict(layout.seconds), "collective_calls": dict(layout.calls),
+            "validation": trainer.val_history[-1], "run_dp": pipeline.cfg.run.run_dp,
+            "validate_s": trainer.profiler.totals["validate"], "run_s": run_s,
+        }, f)
+    return 0
+
+
+def _nccl_world_of_one(run_fp: str, dev):
+    """``start_training`` as the one rank of an nccl group (torchrun's
+    environment set in this process for the call)."""
+    from satnerf_torch.parallel.multihost import free_port
+    from satnerf_torch.run.training import start_training
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return start_training(run_fp, SCENE_PIPELINE, device=dev, log_every=1,
+                              dist_backend="nccl")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def train_dp_phase(dev, work: str) -> dict:
+    """Data parallelism on the card: the flagship TOML on train_scene's
+    scene for DP_STEPS steps and one validation, (1) over two ranks on the
+    one card (gloo: NCCL refuses two ranks on one device), each a process
+    started with torchrun's environment, (2) in one process, (3) as the one
+    rank of an nccl group. The ranks' and the nccl run's losses within rtol
+    2e-5 of the one process at every step, their parameters within 1e-6,
+    each rank's launches the schedule's (its rows of every step, its rows
+    of every validation chunk) and no plain call; ms per step per rank and
+    the collectives' share."""
+    import torch
+
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.parallel.multihost import free_port
+    from satnerf_torch.run.training import start_training
+    from satnerf_torch.train.checkpoint import export_params
+
+    t_phase = time.monotonic()
+    run2 = _scene_run_toml(work, "train_dp2.toml", data_parallel=2)
+    outs = [os.path.join(work, f"dp_rank{r}.json") for r in range(2)]
+    port = str(free_port())
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--dp-rank", run2,
+         SCENE_PIPELINE, outs[r], str(dev)],
+        cwd=REPO, env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                           MASTER_ADDR="localhost", MASTER_PORT=port),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=400)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.monotonic() - t0
+    check([p.returncode for p in procs] == [0, 0],
+          f"train_dp ranks exited {[p.returncode for p in procs]}: "
+          + " | ".join(log[-2000:] for log in logs))
+    ranks = []
+    for fp in outs:
+        with open(fp) as f:
+            ranks.append(json.load(f))
+
+    try:
+        reset_counters()
+        t0 = time.monotonic()
+        _, state1, trainer1 = start_training(_scene_run_toml(work, "train_dp1.toml"),
+                                             SCENE_PIPELINE, device=dev, log_every=1)
+        one_s = time.monotonic() - t0
+        one_launches, one_plain = read_counters()
+        reset_counters()
+        t0 = time.monotonic()
+        _, state_n, trainer_n = _nccl_world_of_one(_scene_run_toml(work, "train_dp_nccl.toml"),
+                                                   dev)
+        nccl_s = time.monotonic() - t0
+        nccl_launches, nccl_plain = read_counters()
+    finally:
+        disable_tf32()  # the runs' matmul_precision "high" allowed TF32
+    check(not any(one_plain.values()) and not any(nccl_plain.values()),
+          f"train_dp: a plain version ran: {one_plain} {nccl_plain}")
+    check(one_launches == scene_expected_launches(trainer1, DP_STEPS,
+                                                  trainer1.pipeline.ds_drop_step),
+          f"train_dp one-process launches {one_launches}")
+    check(nccl_launches == one_launches, f"nccl rank launches {nccl_launches}")
+    want_losses = [h["loss"] for h in trainer1.history]
+    check(len(want_losses) == DP_STEPS, f"{len(want_losses)} logged steps")
+
+    def loss_rel(losses):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+
+    want = export_params(state1.params)
+    last = torch.load(os.path.join(ranks[0]["run_dp"], "ckpoints", "last.ckpt"),
+                      map_location="cpu", weights_only=True)
+    dp_param = max(float((last["state_dict"][k] - v).abs().max()) for k, v in want.items())
+    nccl_params = export_params(state_n.params)
+    nccl_param = max(float((nccl_params[k] - v).abs().max()) for k, v in want.items())
+    rank_loss = [loss_rel(r["losses"]) for r in ranks]
+    nccl_loss = loss_rel([h["loss"] for h in trainer_n.history])
+    for r in ranks:
+        check(r["world"] == 2 and r["device"] == "cuda:0", f"rank {r['rank']} on {r['device']}")
+        check(r["launches"] == r["expected_launches"],
+              f"rank {r['rank']} launches {r['launches']}, expected {r['expected_launches']}")
+        check(not any(r["plain_calls"].values()), f"rank {r['rank']}: plain {r['plain_calls']}")
+        check(len(r["losses"]) == DP_STEPS, f"rank {r['rank']}: {len(r['losses'])} steps")
+    check(ranks[0]["losses"] == ranks[1]["losses"], "the ranks' losses differ")
+    check(max(rank_loss) <= TOL_DP_LOSS and nccl_loss <= TOL_DP_LOSS,
+          f"loss against one process: ranks {rank_loss}, nccl {nccl_loss}")
+    check(dp_param <= TOL_DP_PARAM and nccl_param <= TOL_DP_PARAM,
+          f"params against one process: ranks {dp_param}, nccl {nccl_param}")
+    val1 = trainer1.val_history[-1]
+    val_err = {k: abs(ranks[0]["validation"][k] - v) for k, v in val1.items()
+               if isinstance(v, float)}
+    check(all(math.isfinite(v) for v in val1.values() if isinstance(v, float))
+          and "train/mae" in ranks[0]["validation"], f"validations {val1} {ranks[0]}")
+
+    def per_step_ms(r):
+        return {k: 1e3 * v / DP_STEPS for k, v in r["collective_s"].items()}
+
+    line = {
+        "phase": "train_dp", "steps": DP_STEPS, "ranks": 2, "backend": "gloo",
+        "why_gloo": "two ranks share the one card, and NCCL refuses two ranks on one device",
+        "launches_per_rank": [r["launches"] for r in ranks],
+        "expected_launches_per_rank": ranks[0]["expected_launches"],
+        "launches_one_process": one_launches, "launches_nccl_world_of_one": nccl_launches,
+        "plain_calls": [r["plain_calls"] for r in ranks],
+        "loss_max_rel_err": {"rank0": rank_loss[0], "rank1": rank_loss[1], "nccl": nccl_loss},
+        "params_max_abs_err": {"ranks": dp_param, "nccl": nccl_param},
+        "tol": {"loss_rel": TOL_DP_LOSS, "params_abs": TOL_DP_PARAM},
+        "validation_abs_diff": val_err,
+        "ms_per_step": {"rank0": ranks[0]["ms_per_step"], "rank1": ranks[1]["ms_per_step"],
+                        "one_process": trainer1.ms_per_step, "nccl": trainer_n.ms_per_step},
+        "collective_ms_per_step": {"rank0": per_step_ms(ranks[0]),
+                                   "rank1": per_step_ms(ranks[1]),
+                                   "nccl_host_issue": {k: 1e3 * v / DP_STEPS for k, v in
+                                                       trainer_n.layout.seconds.items()}},
+        "collective_share_of_step": {
+            f"rank{r['rank']}": (per_step_ms(r).get("grads", 0.0)
+                                 + per_step_ms(r).get("gather", 0.0)) / r["ms_per_step"]
+            for r in ranks},
+        "collective_calls": ranks[0]["collective_calls"],
+        "grad_floats": int(sum(p.numel() for p in want.values())),
+        "validate_s": {"rank0": ranks[0]["validate_s"],
+                       "one_process": trainer1.profiler.totals["validate"]},
+        "ranks_wall_s": ranks_s, "rank_run_s": [r["run_s"] for r in ranks],
+        "one_process_s": one_s, "nccl_s": nccl_s,
+        "not_scaling": "two ranks share one card's SMs: this shows the path and the "
+                       "collectives' cost, not a speed-up",
+        "seconds": time.monotonic() - t_phase,
+    }
+    emit(line)
+    return line
+
+
+def sweep_phase(dev, work: str) -> dict:
+    """``run.automated_training.launch`` of a two-experiment TOML on the
+    flagship pipeline (sc_lambda 0 and the TOML's 0.05), SWEEP_STEPS steps
+    each, in this process: both runs leave ``last.ckpt``, a validation
+    (DSM and visualizer TIFs) and no plain call."""
+    import glob
+    import shutil
+
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.run.automated_training import launch
+
+    t_phase = time.monotonic()
+    cfg_dp = os.path.join(work, "sweep_cfgs")
+    os.makedirs(cfg_dp)
+    shutil.copy(SCENE_PIPELINE, os.path.join(cfg_dp, "rs_semantic.toml"))
+    run_fp = _scene_run_toml(work, "sweep.toml", max_train_steps=SWEEP_STEPS)
+    shutil.move(run_fp, os.path.join(cfg_dp, "run.toml"))
+    exp_fp = os.path.join(cfg_dp, "experiment.toml")
+    with open(exp_fp, "w") as f:
+        f.write('run_cfg = "run.toml"\nexperiment_category = "smoke"\n'
+                '[[experiments]]\npipeline_name = "rs_semantic.toml"\nid = "a"\n'
+                "[experiments.pipeline]\nsc_lambda = 0.0\n"
+                '[[experiments]]\npipeline_name = "rs_semantic.toml"\nid = "b"\n')
+    try:
+        reset_counters()
+        t0 = time.monotonic()
+        script = launch(exp_fp, os.path.join(work, "sweep_out"), workers=2, device=dev)
+        launch_s = time.monotonic() - t0
+        got, plain_calls = read_counters()
+    finally:
+        disable_tf32()
+    check(not any(plain_calls.values()), f"sweep: a plain version ran: {plain_calls}")
+    runs = sorted(glob.glob(os.path.join(work, "sweep", "_smoke", "experiment", "*")))
+    names = [os.path.basename(r) for r in runs]
+    check(len(runs) == 2 and any("_expa" in n for n in names)
+          and any("_expb" in n for n in names), f"sweep runs {names}")
+    for r in runs:
+        check(os.path.isfile(os.path.join(r, "ckpoints", "last.ckpt")), f"{r}: no last.ckpt")
+        check(glob.glob(os.path.join(r, "visualization", "train", "dsm", "*.tif"))
+              and glob.glob(os.path.join(r, "visualization", "test", "rgb", "*.tif")),
+              f"{r}: no validation")
+    with open(script) as f:
+        lines = [ln for ln in f.read().splitlines() if "CUDA_VISIBLE_DEVICES" in ln]
+    check(len(lines) == 2, f"launch script lines {lines}")
+    check(got["field_fused"] > 0 and got["composite"] > 0, f"sweep launches {got}")
+    line = {"phase": "sweep", "experiments": 2, "steps_each": SWEEP_STEPS,
+            "runs": [os.path.basename(r) for r in runs], "launches": got,
+            "plain_calls": plain_calls, "launch_script_lines": lines,
+            "launch_s": launch_s, "seconds": time.monotonic() - t_phase}
+    emit(line)
+    return line
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if "--tree" in argv:
         return child_times(argv[argv.index("--tree") + 1], argv[argv.index("--save") + 1])
+    if "--dp-rank" in argv:
+        i = argv.index("--dp-rank")
+        return dp_rank_main(*argv[i + 1 : i + 5])
     parent = argv[argv.index("--parent") + 1] if "--parent" in argv else None
     import torch
 
@@ -2315,8 +2672,9 @@ def main() -> int:
     # ---- 13. K3 and K6 times -----------------------------------------------------------
     trunk_t = trunk_times_phase(dev, field_b, spec_b, lambda n: field_inputs(n, 3)[0])
 
-    # ---- 14-16. the training CLI on a generated scene, resume, serving its best;
-    # the eval battery on that run; the run served by view name over HTTP -----------
+    # ---- 14-20. the training CLI on a generated scene, resume, serving its best;
+    # the eval battery on that run; the run served by view name over HTTP; its
+    # visualizers re-rendered; the scene over two data-parallel ranks; a sweep ----
     import shutil
     import tempfile
 
@@ -2325,6 +2683,9 @@ def main() -> int:
         scene = train_scene_phase(dev, work)
         eval_scene = eval_scene_phase(dev, scene, work)
         serve_view = serve_view_phase(dev, scene)
+        viz_scene = viz_scene_phase(dev, scene, work)
+        train_dp = train_dp_phase(dev, work)
+        sweep = sweep_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2334,7 +2695,12 @@ def main() -> int:
                 "train_scene": scene["launches"][kernel], "serve_beta_s":
                 serve_b["launches"][kernel], "serve_hier": serve_h["launches"][kernel],
                 "eval_scene": eval_scene["launches"][kernel],
-                "serve_view": serve_view["launches"][kernel]}
+                "serve_view": serve_view["launches"][kernel],
+                "viz_scene": viz_scene["launches"][kernel],
+                "train_dp_per_rank": [r[kernel] for r in train_dp["launches_per_rank"]],
+                "train_dp_one_process": train_dp["launches_one_process"][kernel],
+                "train_dp_nccl": train_dp["launches_nccl_world_of_one"][kernel],
+                "sweep": sweep["launches"][kernel]}
 
     f32 = times["float32"]
     k1t = train_t["field_fused"]

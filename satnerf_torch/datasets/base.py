@@ -128,8 +128,10 @@ class BaseDataset:
                 )
 
     # -- normalization -----------------------------------------------------
-    def initialize_normalization(self, combined_rays: np.ndarray | None = None):
-        """Compute or load cached normalization params.
+    def initialize_normalization(self, combined_rays: np.ndarray | None = None,
+                                 save: bool = True):
+        """Compute (and with ``save`` cache) or load the cached
+        normalization params.
 
         ref: framework/components/normalization.py:11-56 + baseline
         StandardNormalization caching.
@@ -139,7 +141,8 @@ class BaseDataset:
         )
         if combined_rays is not None:
             self.normalization = SceneNormalization.from_rays(combined_rays)
-            self.normalization.save_json(cache_fp)
+            if save:
+                self.normalization.save_json(cache_fp)
         else:
             assert os.path.isfile(cache_fp), (
                 "normalization cache missing; initialize from rays first"

@@ -50,7 +50,10 @@ class Pipeline:
             d["depth"] = DepthDataset(self.cfg, "depth", "train")
         return d
 
-    def load_datasets(self) -> None:
+    def load_datasets(self, write_cache: bool = True) -> None:
+        """Load and normalise the datasets; ``write_cache=False`` leaves the
+        dataset cache as it is (a data-parallel rank other than 0 reads the
+        cache rank 0 wrote)."""
         self.datasets = self._init_datasets()
         rgb, rgb_test = self.datasets["rgb"], self.datasets["rgb_test"]
         rgb.load()
@@ -59,8 +62,9 @@ class Pipeline:
             [rgb.combined["rays"], rgb_test.combined["rays"]], axis=0
         )
         for ds in (rgb, rgb_test):
-            ds.initialize_normalization(combined)
-            ds.save_to_cache()
+            ds.initialize_normalization(combined, save=write_cache)
+            if write_cache:
+                ds.save_to_cache()
             ds.normalize()
         if "depth" in self.datasets:
             depth = self.datasets["depth"]
@@ -83,8 +87,15 @@ class Pipeline:
 
     # -- visualizers ------------------------------------------------------------
     def visualizers(self) -> list:
-        """None yet: ``viz/`` is not ported (ROADMAP Queue 1)."""
-        return []
+        """The variant's visualizer set (``viz.default_visualizers``)."""
+        from satnerf_torch.viz import default_visualizers
+
+        return default_visualizers(
+            self.cfg,
+            semantic=self.VARIANT == "rs_semantic",
+            has_sun=self.VARIANT != "nerf",
+            has_beta=self.VARIANT in ("satnerf", "rs_semantic"),
+        )
 
     # -- step configs -----------------------------------------------------------
     def step_config(self, steps_per_epoch: int, with_depth: bool | None = None,

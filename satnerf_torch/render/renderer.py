@@ -38,6 +38,7 @@ from satnerf_torch.device import resolve_device
 from satnerf_torch.models.embeddings import embedding_lookup
 from satnerf_torch.models.field import FieldConfig, field_forward
 from satnerf_torch.ops.composite import composite
+from satnerf_torch.parallel.mesh import gather_flat
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -82,6 +83,7 @@ def render_rays(
     given_z_vals: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     u: torch.Tensor | None = None,
+    global_rows: tuple | None = None,
 ) -> dict:
     """Render a batch of rays.
 
@@ -97,6 +99,10 @@ def render_rays(
             given, then ``u``: the training path's random sampling.
         u: (B, n_importance) uniform draws of the hierarchical pass; None
             (and no generator) gives its deterministic ladder.
+        global_rows: (first row, rows) of a global batch whose rows
+            ``rays`` are: the generator draws for the whole global batch and
+            these rows take theirs, so a batch sharded over data-parallel
+            ranks gets the draws of the one-process batch.
     Returns:
         dict of per-ray outputs plus the per-sample tensors the losses read;
         with ``n_importance > 0`` the fine pass's, with the coarse pass's
@@ -106,12 +112,13 @@ def render_rays(
     S = rcfg.n_samples
     B = rays.shape[0]
     if generator is not None:
+        lo, n_draw = (0, B) if global_rows is None else global_rows
         if noise is None and given_z_vals is None:
-            noise = torch.rand((B, S), generator=generator, dtype=rays.dtype,
-                               device=rays.device)
+            noise = torch.rand((n_draw, S), generator=generator, dtype=rays.dtype,
+                               device=rays.device)[lo : lo + B]
         if u is None and rcfg.n_importance > 0:
-            u = torch.rand((B, rcfg.n_importance), generator=generator,
-                           dtype=rays.dtype, device=rays.device)
+            u = torch.rand((n_draw, rcfg.n_importance), generator=generator,
+                           dtype=rays.dtype, device=rays.device)[lo : lo + B]
     xyz, z_vals = sample_rays(
         rays, S, noise=noise, perturb=rcfg.perturb if noise is not None else 0.0,
         given_z_vals=given_z_vals,
@@ -288,6 +295,34 @@ def _to_params_device(params: dict, device: torch.device) -> dict:
     return {k: (v.to(device) if v is not None else None) for k, v in params.items()}
 
 
+def _padded_chunk(rays: torch.Tensor, extras: torch.Tensor, i: int, chunk: int):
+    """Rows [i, i + chunk), the last chunk padded to ``chunk`` rows by
+    repeating its last row, as the reference does -> (rays, extras, rows kept)."""
+    r, e = rays[i : i + chunk], extras[i : i + chunk]
+    pad = chunk - r.shape[0]
+    if pad:
+        r = torch.cat([r, r[-1:].expand(pad, -1)], dim=0)
+        e = torch.cat([e, e[-1:].expand(pad, -1)], dim=0)
+    return r, e, chunk - pad
+
+
+def _render_chunk(params: dict, rcfg: RenderConfig, rays, extras) -> dict:
+    """One deterministic render; the hierarchical pass's coarse result is
+    kept as "<k>_coarse" per-ray outputs, its per-sample tensors dropped."""
+    res = render_rays(params, rcfg, rays, extras)
+    coarse = res.pop("coarse", None)
+    if coarse is not None:
+        for k in ("rgb", "depth", "semantic_logits", "semantic_label"):
+            if k in coarse:
+                res[f"{k}_coarse"] = coarse[k]
+    return res
+
+
+def _host_inputs(rays, extras):
+    return (torch.as_tensor(np.asarray(rays, np.float32)),
+            torch.as_tensor(np.asarray(extras, np.float32)))
+
+
 @torch.inference_mode()
 def render_image_chunked(
     params: dict,
@@ -304,24 +339,41 @@ def render_image_chunked(
     """
     dev = resolve_device(device)
     params = _to_params_device(params, dev)
-    rays = torch.as_tensor(np.asarray(rays, np.float32))
-    extras = torch.as_tensor(np.asarray(extras, np.float32))
-    n = rays.shape[0]
+    rays, extras = _host_inputs(rays, extras)
     outs: list[dict] = []
-    for i in range(0, n, chunk):
-        r, e = rays[i : i + chunk], extras[i : i + chunk]
-        pad = chunk - r.shape[0]
-        if pad:
-            r = torch.cat([r, r[-1:].expand(pad, -1)], dim=0)
-            e = torch.cat([e, e[-1:].expand(pad, -1)], dim=0)
-        res = render_rays(params, rcfg, r.to(dev), e.to(dev))
-        # the hierarchical pass nests the coarse result: keep its per-ray
-        # outputs as "<k>_coarse" and drop its per-sample tensors
-        coarse = res.pop("coarse", None)
-        if coarse is not None:
-            for k in ("rgb", "depth", "semantic_logits", "semantic_label"):
-                if k in coarse:
-                    res[f"{k}_coarse"] = coarse[k]
-        keep = chunk - pad
+    for i in range(0, rays.shape[0], chunk):
+        r, e, keep = _padded_chunk(rays, extras, i, chunk)
+        res = _render_chunk(params, rcfg, r.to(dev), e.to(dev))
         outs.append({k: v[:keep].cpu().numpy() for k, v in res.items()})
+    return {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}
+
+
+@torch.inference_mode()
+def render_image_sharded(
+    params: dict,
+    rcfg: RenderConfig,
+    rays,
+    extras,
+    layout,
+    chunk: int = 8192,
+    device=None,
+) -> dict:
+    """``render_image_chunked`` over the data-parallel ranks: each chunk's
+    rows are split over the ranks (``layout.rows``), rendered, and gathered
+    on every rank by one all-reduce per chunk (``parallel.mesh``). Every
+    rank returns the whole image; the chunks are the single-process ones.
+    """
+    dev = resolve_device(device)
+    params = _to_params_device(params, dev)
+    rays, extras = _host_inputs(rays, extras)
+    chunk = max(chunk, layout.world)
+    rows = layout.rows(chunk)
+    outs: list[dict] = []
+    for i in range(0, rays.shape[0], chunk):
+        r, e, keep = _padded_chunk(rays, extras, i, chunk)
+        res = _render_chunk(params, rcfg, r[rows].to(dev), e[rows].to(dev))
+        keys = list(res)
+        full = gather_flat(layout, [res[k] for k in keys],
+                            [(rows.start, chunk)] * len(keys), "render")
+        outs.append({k: v[:keep].cpu().numpy() for k, v in zip(keys, full)})
     return {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}

@@ -84,9 +84,13 @@ def load_params_(params: dict, nested: dict) -> None:
 
 class CheckpointManager:
     def __init__(self, run_dp: str, save_every_n_epochs: int = -1,
-                 steps_per_epoch: int = 1) -> None:
+                 steps_per_epoch: int = 1, write: bool = True) -> None:
+        """``write=False`` (data-parallel ranks but rank 0) keeps the policy
+        (the best MAE) and writes no file."""
         self.ckpt_dp = os.path.abspath(os.path.join(run_dp, "ckpoints"))
-        os.makedirs(self.ckpt_dp, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(self.ckpt_dp, exist_ok=True)
         self.save_every_n_epochs = save_every_n_epochs
         self.steps_per_epoch = max(int(steps_per_epoch), 1)
         self.best_mae = float("inf")
@@ -97,6 +101,8 @@ class CheckpointManager:
 
     # -- save ----------------------------------------------------------------
     def _save(self, name: str, state: TrainState, params_only: bool = False) -> None:
+        if not self.write:
+            return
         t0 = time.monotonic()
         step = int(state.step)
         payload = {"state_dict": export_params(state.params), "step": step,

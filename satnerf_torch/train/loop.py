@@ -11,15 +11,26 @@ Structure per run:
   with solar correction off, computes PSNR/SSIM, builds DSMs for the first
   two images and logs the NCC-registered altitude MAE; the best train/mae
   drives checkpointing;
+* validation also runs the pipeline's visualizers on each image (TIFs under
+  ``visualization/<split>/<name>/``, TensorBoard panels when tensorboardX
+  imports); the sanity validation runs none;
 * at the depth-supervision drop the loop switches to a step without the
   depth render.
 
-Left out of the port: multi-process runs and data parallelism
-(``data_parallel > 1`` raises), the visualizers (``viz/`` is not ported;
-``Pipeline.visualizers()`` returns none), and blocks of
-``steps_per_dispatch`` steps: the reference compiles a block into one
-device program, while here each step is its own Python call either way, so
-the key is read and has no effect.
+Data parallelism (``RunConfig.data_parallel = N``, or any running
+``torch.distributed`` group): N ranks, one process each, split the
+configured global batch (which must divide by N) and compute the global
+loss (``train/step.py``); the depth batch is clamped to the tie points and
+aligned down to a multiple of N. Rank 0's parameters are broadcast at
+start. Rank 0 alone writes the run directory (TensorBoard, the profiler
+report and trace, validation TIFs, DSMs and visualizers, checkpoints) while
+the others wait at a barrier; validation renders split each chunk over the
+ranks; the best-MAE decision is rank 0's; a stop request (SIGTERM, SIGINT,
+``request_stop``) on any rank stops every rank before the same step.
+
+Left out of the port: blocks of ``steps_per_dispatch`` steps: the reference
+compiles a block into one device program, while here each step is its own
+Python call either way, so the key is read and has no effect.
 """
 
 from __future__ import annotations
@@ -31,12 +42,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from satnerf_torch.device import resolve_device
 from satnerf_torch.eval import metrics as image_metrics
 from satnerf_torch.eval.dsm import compute_dsm_and_mae
 from satnerf_torch.logger import logger
-from satnerf_torch.render.renderer import render_image_chunked
+from satnerf_torch.parallel.mesh import make_mesh, replicated
+from satnerf_torch.render.renderer import render_image_chunked, render_image_sharded
 from satnerf_torch.train.checkpoint import CheckpointManager, load_warm_start_params
 from satnerf_torch.train.data import (
     DEPTH_KEYS,
@@ -48,6 +61,7 @@ from satnerf_torch.train.data import (
 from satnerf_torch.train.profiling import PhaseProfiler, TraceCapture
 from satnerf_torch.train.state import create_train_state, init_params
 from satnerf_torch.train.step import build_train_step
+from satnerf_torch.viz.visualize import run_all
 
 
 def val_chunk_rays(pipeline_cfg) -> int:
@@ -72,6 +86,19 @@ def val_chunk_rays(pipeline_cfg) -> int:
     return max(floor, min(int(pipeline_cfg.render_chunk_size) // pts, cap))
 
 
+def load_datasets(pipeline, layout=None) -> None:
+    """Load the pipeline's datasets; under data parallelism rank 0 first
+    (it writes the dataset cache), then the others, which only read it."""
+    if layout is None:
+        pipeline.load_datasets()
+        return
+    if layout.lead:
+        pipeline.load_datasets()
+    layout.barrier()
+    if not layout.lead:
+        pipeline.load_datasets(write_cache=False)
+
+
 def step_seed(seed: int, step: int) -> int:
     """The per-step generator seed: a fixed mix of (seed, step)."""
     s = np.random.SeedSequence([int(seed) & 0xFFFFFFFF, int(step)])
@@ -90,6 +117,7 @@ class Trainer:
         self.profiler = PhaseProfiler()
         self.trace = TraceCapture()
         self.ckpt: CheckpointManager | None = None
+        self.layout = None  # the data-parallel rank layout, set by fit
         # host-clock training time and steps, validation and checkpoints excluded
         self.train_seconds = 0.0
         self.steps_timed = 0
@@ -138,15 +166,23 @@ class Trainer:
         """
         cfg = self.cfg
         pipeline = self.pipeline
+        batch_size = cfg.pipeline.batch_size
+        n_dp = int(cfg.run.data_parallel)
+        if n_dp > 1 and batch_size % n_dp:
+            raise ValueError(f"batch_size {batch_size} must divide over {n_dp} devices")
+        layout = None
+        if n_dp > 1 or dist.is_initialized():
+            layout = make_mesh(n_dp, self.device)
+            self.device = layout.device
+        self.layout = layout
+        lead = layout is None or layout.lead
         dev = self.device
-        if cfg.run.data_parallel > 1:
-            raise NotImplementedError(
-                "data_parallel > 1: data parallelism is not ported yet "
-                "(ROADMAP Queue 1 item 13)")
+        run_dp = cfg.run.run_dp or self._prepare_run(layout)
         if not pipeline.loaded:
-            pipeline.load_datasets()
-        run_dp = cfg.run.run_dp or pipeline.prepare_run()
-        if self.writer is None:
+            load_datasets(pipeline, layout)
+        if not lead:
+            self.trace.dir = None  # one trace, rank 0's
+        if self.writer is None and lead:
             try:
                 from tensorboardX import SummaryWriter
 
@@ -156,7 +192,6 @@ class Trainer:
 
         max_steps = max_steps or cfg.run.max_train_steps
         rgb = pipeline.datasets["rgb"]
-        batch_size = cfg.pipeline.batch_size
         subsample = (cfg.pipeline.epoch_subsampling
                      if cfg.pipeline.epoch_subsampling_activated else None)
         sampler = EpochSampler(len(rgb), batch_size, shuffle=cfg.run.shuffle_dataset,
@@ -180,25 +215,34 @@ class Trainer:
                                    cfg.pipeline.lr_scheduler, steps_per_epoch, num_epochs)
 
         ckpt = self.ckpt = CheckpointManager(run_dp, cfg.run.save_every_n_epochs,
-                                             steps_per_epoch)
+                                             steps_per_epoch, write=lead)
         if cfg.run.resume_from_ckpoint:
+            # every rank reads the same file onto its own device
             state = ckpt.restore(state, path=cfg.run.ckpoint_fp or None)
         elif cfg.run.warm_start_fp:
             # params only: the fresh optimizer and step 0 give a full schedule
             load_warm_start_params(state.params, cfg.run.warm_start_fp)
+        if layout is not None:
+            replicated(state.params, layout)
 
         store = device_store(rgb.combined, TRAIN_KEYS, device=dev)
         depth_store = depth_sampler = None
         if has_depth:
             dcomb = pipeline.datasets["depth"].combined
             depth_store = device_store(dcomb, DEPTH_KEYS, device=dev)
-            # the tie-point set can be smaller than a ray batch
+            # the tie-point set can be smaller than a ray batch; under data
+            # parallelism the depth batch is aligned down to the ranks
             n_depth = int(dcomb["rays"].shape[0])
-            depth_sampler = EpochSampler(n_depth, min(batch_size, n_depth),
-                                         seed=cfg.run.seed + 1)
+            depth_batch = min(batch_size, n_depth)
+            if layout is not None:
+                depth_batch = max(depth_batch - depth_batch % layout.world, layout.world)
+                if depth_batch > n_depth:
+                    raise ValueError(f"{n_depth} tie points cannot shard over "
+                                     f"{layout.world} devices")
+            depth_sampler = EpochSampler(n_depth, depth_batch, seed=cfg.run.seed + 1)
 
-        step_d = build_train_step(scfg_d) if has_depth else None
-        step_nd = build_train_step(scfg_nd)
+        step_d = build_train_step(scfg_d, layout) if has_depth else None
+        step_nd = build_train_step(scfg_nd, layout)
         gen = torch.Generator(device=dev)
 
         # sanity validation (one image)
@@ -232,7 +276,11 @@ class Trainer:
 
         prev_handlers = self._install_signal_handlers()
         try:
-            while step_i < max_steps and not self._stop_requested:
+            while step_i < max_steps:
+                if layout is not None:  # every rank stops before the same step
+                    self._stop_requested = layout.any(self._stop_requested)
+                if self._stop_requested:
+                    break
                 use_depth = has_depth and step_i < ds_drop
                 fn = step_d if use_depth else step_nd
                 self.trace.step(step_i)
@@ -277,9 +325,13 @@ class Trainer:
                         self.best_val_renders = self.last_val_renders
                     ckpt.maybe_save_epoch(state, new_epoch)
                     ckpt.save_last(state)
+                    if layout is not None:
+                        layout.barrier()  # rank 0 has written the checkpoints
                     t_last = time.perf_counter()  # don't charge val/ckpt to the rate
 
             ckpt.save_last(state)
+            if layout is not None:
+                layout.barrier()
         finally:
             self._restore_signal_handlers(prev_handlers)
         if self.writer is not None:
@@ -287,11 +339,22 @@ class Trainer:
         if self._stop_requested:
             logger.warning("Run", "stop requested (signal or API); checkpointed to last")
         self.trace.close()
-        self.profiler.dump(os.path.join(run_dp, "profiler"))
+        if lead:
+            self.profiler.dump(os.path.join(run_dp, "profiler"))
         assert state.step == step_i, (state.step, step_i)
         logger.info("Run", f"finished at step {state.step} "
                            f"({state.step - start_step} steps this session)")
         return state
+
+    def _prepare_run(self, layout) -> str:
+        """Create the run directory (rank 0) and share its path."""
+        if layout is None:
+            return self.pipeline.prepare_run()
+        run = self.cfg.run
+        if layout.lead:
+            self.pipeline.prepare_run()
+        run.run_name, run.run_dp = layout.broadcast_object((run.run_name, run.run_dp))
+        return run.run_dp
 
     @property
     def ms_per_step(self) -> float:
@@ -321,9 +384,12 @@ class Trainer:
         pass, which renders one image)."""
         pipeline = self.pipeline
         cfg = self.cfg
+        layout = self.layout
+        lead = layout is None or layout.lead
         # no validation consumer reads solar-correction outputs
         rcfg = dataclasses.replace(scfg.render, solar_correction=False)
         rgb_test = pipeline.datasets["rgb_test"]
+        visualizers = pipeline.visualizers() if (not sanity and lead) else []
         out: dict = {}
         psnrs: dict = {"train": [], "test": []}
         chunk = val_chunk_rays(cfg.pipeline)
@@ -332,8 +398,13 @@ class Trainer:
         for i in range(n_images):
             item = rgb_test.image_item(i)
             split = item["split"]
-            res = render_image_chunked(state.params, rcfg, item["rays"], item["extras"],
-                                       chunk=chunk, device=self.device)
+            if layout is None:
+                res = render_image_chunked(state.params, rcfg, item["rays"], item["extras"],
+                                           chunk=chunk, device=self.device)
+            else:
+                res = render_image_sharded(state.params, rcfg, item["rays"],
+                                           item["extras"], layout, chunk=chunk,
+                                           device=self.device)
             renders[item["name"]] = {"rgb": res["rgb"], "depth": res["depth"]}
             h, w = item["h"], item["w"]
             gt = item["rgbs"].reshape(h, w, 3)
@@ -342,13 +413,18 @@ class Trainer:
             ssim = float(image_metrics.ssim(pred, gt))
             psnrs[split].append(psnr)
             sample_idx = i - 1 if split == "test" else i
+            if visualizers:
+                with self.profiler.phase("visualize"):
+                    run_all(visualizers, rgb_test, item, res, writer=self.writer,
+                            sample_idx=sample_idx, split=split, epoch=display_epoch,
+                            run_dp=cfg.run.run_dp)
             if self.writer is not None:
                 self.writer.add_scalar(f"{split}/ssim_{sample_idx}", ssim, display_epoch)
                 img_stack = np.concatenate([gt, pred], axis=1)
                 self.writer.add_image(f"val/{split}_{sample_idx}",
                                       np.moveaxis(img_stack, -1, 0), display_epoch)
 
-            if i <= 1 and not sanity:
+            if i <= 1 and not sanity and lead:
                 output_dp = os.path.join(cfg.run.run_dp, "visualization", split, "dsm")
                 try:
                     with self.profiler.phase("dsm_mae"):
@@ -363,6 +439,9 @@ class Trainer:
 
             out[f"{split}/psnr_{sample_idx}"] = psnr
             out[f"{split}/ssim_{sample_idx}"] = ssim
+        if layout is not None:  # the DSM MAE is rank 0's: its best-save decision
+            mae_keys = ("train/mae", "test/mae")
+            out.update(layout.broadcast_object({k: out[k] for k in mae_keys if k in out}))
         for split, vals in psnrs.items():
             if vals:
                 out[f"{split}/psnr"] = float(np.mean(vals))

@@ -18,6 +18,15 @@ As in the reference:
 Randomness (the stratified jitter) comes from an explicit
 ``torch.Generator``; ``None`` renders the deterministic ladder. The update
 runs in place on the parameters in ``state.params``.
+
+Data parallelism (``layout``, a ``parallel.mesh.DataParallel``): every rank
+holds the global batch and renders its rows of it, with its rows of the
+global batch's random draws; the per-ray quantities the losses read are
+gathered from every rank (``LOSS_KEYS``), so every loss term is the
+reduction over the global batch that one process computes (a masked mean
+divides the global masked sum by the global count). The gradients of each
+rank's rows are summed over the ranks by one all-reduce before the update.
+With ``grad_accum`` the micro-batches are those of the global batch.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from satnerf_torch.models.field import shared_packing
+from satnerf_torch.parallel.mesh import all_reduce_grads, gather_rows, shard_batch
 from satnerf_torch.render.renderer import RenderConfig, render_rays
 from satnerf_torch.train import losses
 from satnerf_torch.train.state import TrainState, trainable
@@ -69,12 +79,71 @@ def _f32(value, device) -> torch.Tensor:
     return torch.tensor(value, dtype=torch.float32, device=device)
 
 
+# what the losses and metrics read of a render (gathered under data parallelism)
+LOSS_KEYS = ("rgb", "depth", "weights", "beta", "beta_semantic", "semantic_logits",
+             "semantic_label", "weights_sc", "transparency_sc", "sun_sc")
+
+
+def _render_rows(params: dict, rcfg, rays, extras, generator, layout):
+    """Render a global batch, or under ``layout`` this rank's rows of it ->
+    (results, (first row, global rows) or None)."""
+    if layout is None:
+        return render_rays(params, rcfg, rays, extras, generator=generator), None
+    n = rays.shape[0]
+    mine = shard_batch({"rays": rays, "extras": extras}, layout)
+    span = (layout.rows(n).start, n)
+    res = render_rays(params, rcfg, mine["rays"], mine["extras"], generator=generator,
+                      global_rows=span)
+    return res, span
+
+
+def _loss_leaves(res: dict, prefix: str = ""):
+    """(path, tensor) of every LOSS_KEYS entry, the nested coarse pass's too."""
+    for k in LOSS_KEYS:
+        if k in res:
+            yield prefix + k, res[k]
+    if "coarse" in res:
+        yield from _loss_leaves(res["coarse"], prefix + "coarse/")
+
+
+def _gather_results(layout, passes: list) -> list:
+    """Every rank's rows of the loss leaves of each (results, span) pass, in
+    one collective -> the passes' global results (LOSS_KEYS only)."""
+    paths, tensors, spans = [], [], []
+    for i, (res, span) in enumerate(passes):
+        for path, t in _loss_leaves(res):
+            paths.append((i, path))
+            tensors.append(t)
+            spans.append(span)
+    out: list = [{} for _ in passes]
+    for (i, path), t in zip(paths, gather_rows(layout, tensors, spans)):
+        node = out[i]
+        *parents, key = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[key] = t
+    return out
+
+
 def compute_losses(scfg: StepConfig, params: dict, batch: dict, step: int,
-                   generator: torch.Generator | None = None):
-    """Render + every loss term for one batch -> (loss, loss_dict, results)."""
+                   generator: torch.Generator | None = None, layout=None):
+    """Render + every loss term for one batch -> (loss, loss_dict, results).
+
+    Under ``layout`` the batch is the global one, each rank renders its rows
+    and ``results`` holds the gathered global LOSS_KEYS."""
     dev = batch["rays"].device
-    results = render_rays(params, scfg.render, batch["rays"], batch["extras"],
-                          generator=generator)
+    results, span = _render_rows(params, scfg.render, batch["rays"], batch["extras"],
+                                 generator, layout)
+    if scfg.depth:
+        d_results, d_span = _render_rows(
+            params, replace(scfg.render, solar_correction=False), batch["depth_rays"],
+            batch["depth_extras"], generator, layout)
+    if layout is not None:
+        passes = [(results, span)] + ([(d_results, d_span)] if scfg.depth else [])
+        gathered = _gather_results(layout, passes)
+        results = gathered[0]
+        if scfg.depth:
+            d_results = gathered[1]
     epoch = int(step) // scfg.steps_per_epoch
     loss_dict: dict = {}
     sc_on = scfg.sc_lambda > 0 and scfg.render.solar_correction
@@ -119,9 +188,6 @@ def compute_losses(scfg: StepConfig, params: dict, batch: dict, step: int,
         loss_dict.update({prefix + k: v for k, v in rgb_dict.items()})
 
     if scfg.depth:
-        d_results = render_rays(params, replace(scfg.render, solar_correction=False),
-                                batch["depth_rays"], batch["depth_extras"],
-                                generator=generator)
         kp_w = 1.0 if scfg.ds_noweights else batch["depth_weights"].reshape(-1)
         depth_passes = [("", d_results)]
         if "coarse" in d_results:
@@ -187,8 +253,11 @@ def _micro_batches(batch: dict, k: int) -> list:
     return [{key: part(v, i) for key, v in batch.items()} for i in range(k)]
 
 
-def build_train_step(scfg: StepConfig):
-    """-> ``train_step(state, batch, generator=None) -> (state, metrics)``."""
+def build_train_step(scfg: StepConfig, layout=None):
+    """-> ``train_step(state, batch, generator=None) -> (state, metrics)``.
+
+    Under ``layout`` (data parallelism) ``batch`` is the global batch on
+    every rank, and the metrics are the global ones."""
 
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None = None):
@@ -200,7 +269,7 @@ def build_train_step(scfg: StepConfig):
         for mb in (_micro_batches(batch, k) if k > 1 else [batch]):
             with shared_packing():  # each field packed once per forward + backward
                 loss, loss_dict, _ = compute_losses(scfg, state.params, mb, state.step,
-                                                    generator)
+                                                    generator, layout)
                 loss.backward()
             loss = loss.detach()
             loss_dict = {key: v.detach() for key, v in loss_dict.items()}
@@ -209,6 +278,8 @@ def build_train_step(scfg: StepConfig):
             else:
                 loss_sum = loss_sum + loss
                 dict_sum = {key: dict_sum[key] + v for key, v in loss_dict.items()}
+        if layout is not None:
+            all_reduce_grads(state.params, layout)
         with torch.no_grad():
             for p in params:
                 if p.grad is None:  # as optax: an unused parameter gets a 0 grad

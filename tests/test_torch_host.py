@@ -266,7 +266,42 @@ def test_step_config_of_a_pipeline_is_the_toml_mapping(tmp_path):
                                              n_classes=1, device="cpu")
     assert got == want
     assert pipe.ds_drop_step == round(0.25 * 300000)
-    assert pipe.visualizers() == []
+    assert _viz_signature(pipe.visualizers()) == _viz_signature(
+        _jax_pipeline(pipe_fp, str(run_fp)).visualizers())
+
+
+def _viz_signature(visualizers) -> list:
+    """What makes two visualizer sets the same: each one's class, name,
+    colormap, outputs and factor, in order."""
+    return [(type(v).__name__, v._name(), v._colormap(), v.send_to_tensorboard,
+             v.save_as_tif, getattr(v, "factor_name", None),
+             getattr(v, "compare_non_corrupted", None)) for v in visualizers]
+
+
+def _jax_pipeline(pipe_fp: str, run_fp: str):
+    from satnerf_tpu.pipelines import load_pipeline as jload_pipeline
+
+    return jload_pipeline(jconfigs.load_configs(run_fp, pipe_fp))
+
+
+@pytest.mark.parametrize("variant", ["nerf", "snerf", "satnerf", "rs_semantic"])
+def test_visualizers_of_each_variant_are_the_jax_packages(tmp_path, variant):
+    """``Pipeline.visualizers()`` is ``default_visualizers`` for the
+    variant's field: the JAX package's set, one for one."""
+    from satnerf_torch.pipelines import load_pipeline
+    from satnerf_torch.viz import default_visualizers
+
+    pipe_fp = os.path.join(REPO, "configs", "pipelines", f"{variant}.toml")
+    run_fp = tmp_path / "run.toml"
+    run_fp.write_text("seed = 0\n")
+    pipe = load_pipeline(tconfigs.load_configs(str(run_fp), pipe_fp))
+    fcfg = tconfigs.step_config_from_pipeline(tconfigs.load_pipeline_toml(pipe_fp), 10,
+                                              n_classes=5, device="cpu").render.field
+    got = _viz_signature(pipe.visualizers())
+    assert got == _viz_signature(default_visualizers(
+        pipe.cfg, semantic=fcfg.has_semantic, has_sun=fcfg.has_sun, has_beta=fcfg.has_beta))
+    assert got == _viz_signature(_jax_pipeline(pipe_fp, str(run_fp)).visualizers())
+    assert len(got) == {"nerf": 5, "snerf": 9, "satnerf": 10, "rs_semantic": 16}[variant]
 
 
 def test_trunk_impl_resolves_to_the_kernels_on_the_card():

@@ -297,9 +297,26 @@ def test_warm_start_run_starts_from_the_checkpoint_params(workspace, cli_run):
 
 
 def test_data_parallel_is_not_ported_yet(workspace):
-    trainer = _trainer(workspace, data_parallel=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    """Data parallelism is ported (``tests/test_torch_parallel.py``); what
+    this test holds now: ``data_parallel=2`` with a batch that does not
+    divide over the ranks fails as in the JAX package, with its message,
+    before any process group is needed."""
+    from satnerf_tpu import configs as jconfigs
+    from satnerf_tpu.pipelines import load_pipeline as jload_pipeline
+    from satnerf_tpu.train.loop import Trainer as JTrainer
+
+    msg = "batch_size 255 must divide over 2 devices"
+    trainer = _trainer(workspace, data_parallel=2, pipe=dict(batch_size=255))
+    with pytest.raises(ValueError, match=msg):
         trainer.fit()
+    jcfg = jconfigs.MainConfig(
+        run=jconfigs.RunConfig(**_run_dict(workspace, data_parallel=2,
+                                           cache_dp=str(workspace / "jcache"))),
+        pipeline=jconfigs.RSSemanticConfig(**dict(PIPE, batch_size=255)))
+    jpipe = jload_pipeline(jcfg)
+    jpipe.prepare_run()
+    with pytest.raises(AssertionError, match=msg):
+        JTrainer(jpipe).fit()
 
 
 def test_val_chunk_counts_every_point_of_a_hierarchical_ray():
