@@ -107,7 +107,19 @@ JSON line per phase:
    version; ms per step per rank and the collectives' share (two ranks
    share the card: a price, not a speed-up);
 19. ``sweep``: ``run.automated_training.launch`` of a two-experiment TOML,
-   8 steps each: both runs leave ``last.ckpt`` and a validation.
+   8 steps each: both runs leave ``last.ckpt`` and a validation;
+20. ``prep_scene``: a DFC2019 Track-3 distribution of JAX_068 (14 views of
+   512x512 from ``generate_scene``, ``tests/torch_dfc_case.py``) made into a
+   training dataset by ``python -m satnerf_torch.data_prep.create_dataset``
+   (the adapter, cropping, the native bundle adjustment, meta extraction,
+   root.json, semantic masks on the cropped grid; host seconds per step, the
+   BA's tracks and reprojection under 1 px), a second run skipping every
+   step; 200 flagship steps on it through ``start_training`` (the sanity
+   validation and the run's last: PSNR, SSIM, the DSM MAE against the GT DSM
+   the adapter georegistered) with the launches of K1, K2, K4, K5 and K5's
+   backward by the schedule and no plain version, the plain rgb MSE
+   falling; the eval battery inline over the predefined test split (K1 and
+   K5 once per chunk; PSNR/SSIM, altitude MAE, semantic accuracy and mIoU).
 
 K1's and K3's bounds are given three ways: f32 products as 3xTF32 on the
 tensor cores (bound_ms in f32), on the f32 FMA units, and bf16 on the
@@ -215,6 +227,13 @@ CHUNK = 16_384
 DP_STEPS = 36
 TOL_DP_LOSS, TOL_DP_PARAM = 2e-5, 1e-6
 SWEEP_STEPS = 8  # each of the sweep's two runs, then its one validation
+# prep_scene: a DFC2019 Track-3 distribution of the JAX_068 AOI with the 14
+# views 000-013 (the predefined SatNeRF test views 002 and 012 among them) at
+# 512 x 512, made into a dataset by the port's CLI and trained on for 200
+# steps (the depth drop at 0.25 x 200 = 50; an epoch is ~3,000 steps, so the
+# validations are the sanity one and the run's last)
+PREP = {"n_views": 14, "img_size": 512, "n_tie_points": 300}
+PREP_STEPS = 200
 
 
 def op_bounds(flops: float, dname: str) -> dict:
@@ -1620,10 +1639,7 @@ def train_scene_phase(dev, work: str) -> dict:
         # loss is held on the plain rgb MSE of the batch (10^(-psnr/10)),
         # which means the same on both sides of the gate, and on the train PSNR
         beta_on = 2 * spe
-        mse_first = sum(10.0 ** (-h["psnr"] / 10.0) for h in hist[:12]) / 12
-        mse_last = sum(10.0 ** (-h["psnr"] / 10.0) for h in hist[-12:]) / 12
-        check(mse_last < mse_first, f"rgb MSE did not fall: first 12 steps {mse_first}, "
-                                    f"last 12 {mse_last}")
+        mse_first, mse_last = _rgb_mse_falls(hist, 12)
         psnr_first = sum(h["psnr"] for h in hist[:12]) / 12
         psnr_last = sum(h["psnr"] for h in hist[-12:]) / 12
         check(psnr_last > psnr_first, f"train PSNR did not rise: {psnr_first} -> {psnr_last}")
@@ -1741,6 +1757,43 @@ def _results_values(node, path=""):
         yield path, node
 
 
+def _check_results(key: str, tree) -> None:
+    """A results.json tree: every value finite, null only under
+    per_class_iou, SSIM at most 1, accuracy, mIoU and IoU in [0, 1]."""
+    for path, v in _results_values(tree):
+        if v is None:
+            check("/per_class_iou/" in path, f"{key}{path} is null")
+            continue
+        x = float(v)
+        check(math.isfinite(x), f"{key}{path} = {v}")
+        low = path.lower()
+        if "ssim" in low:
+            check(x <= 1.0, f"{key}{path} SSIM {v} above 1")
+        if "accuracy" in low or "miou" in low or "per_class_iou" in low:
+            check(0.0 <= x <= 1.0, f"{key}{path} = {v} outside [0, 1]")
+
+
+def _check_chunk_launches(phase: str, got: dict, plain_calls: dict, chunks: int) -> dict:
+    """The launches of images rendered in chunks (eval, visualizers): K1
+    and K5 once per chunk, nothing else, no plain version. Returns what was
+    expected."""
+    want = {k: 0 for k in got}
+    want["field_fused"] = want["composite"] = chunks
+    check(got == want, f"{phase} launches {got}, expected {want}")
+    check(not any(plain_calls.values()), f"{phase}: a plain version ran: {plain_calls}")
+    return want
+
+
+def _rgb_mse_falls(hist: list, n: int) -> tuple:
+    """The batch's plain rgb MSE (10^(-psnr/10)) over a run's first and last
+    ``n`` steps, which fails the phase unless it fell."""
+    mse_first = sum(10.0 ** (-h["psnr"] / 10.0) for h in hist[:n]) / n
+    mse_last = sum(10.0 ** (-h["psnr"] / 10.0) for h in hist[-n:]) / n
+    check(mse_last < mse_first, f"rgb MSE did not fall: first {n} steps {mse_first}, "
+                                f"last {n} {mse_last}")
+    return mse_first, mse_last
+
+
 def eval_scene_phase(dev, scene: dict, work: str) -> dict:
     """The eval battery on train_scene's run A: ``eval_all`` inline over the
     train and test splits (K1 and K5 once per chunk of every image, one K1
@@ -1773,10 +1826,7 @@ def eval_scene_phase(dev, scene: dict, work: str) -> dict:
     finally:
         disable_tf32()  # load_run applied the run's matmul_precision "high"
     chunks = sum(-(-len(item["rays"]) // CHUNK) for ds in datasets.values() for item in ds.data)
-    want = {k: 0 for k in got}
-    want["field_fused"] = want["composite"] = chunks
-    check(got == want, f"eval_scene launches {got}, expected {want}")
-    check(not any(plain_calls.values()), f"eval_scene: a plain version ran: {plain_calls}")
+    want = _check_chunk_launches("eval_scene", got, plain_calls, chunks)
     check(preps == 1, f"eval_scene: {preps} K1 weight preparations for one load")
 
     results = {}
@@ -1785,17 +1835,7 @@ def eval_scene_phase(dev, scene: dict, work: str) -> dict:
             with open(os.path.join(out, name, kind, split, "results.json")) as f:
                 results[f"{kind}/{split}"] = json.load(f)
     for key, tree in results.items():
-        for path, v in _results_values(tree):
-            if v is None:
-                check("/per_class_iou/" in path, f"{key}{path} is null")
-                continue
-            x = float(v)
-            check(math.isfinite(x), f"{key}{path} = {v}")
-            low = path.lower()
-            if "ssim" in low:
-                check(x <= 1.0, f"{key}{path} SSIM {v} above 1")
-            if "accuracy" in low or "miou" in low or "per_class_iou" in low:
-                check(0.0 <= x <= 1.0, f"{key}{path} = {v} outside [0, 1]")
+        _check_results(key, tree)
 
     # the test image of the best checkpoint against the validation that
     # saved it (maybe_save_best keeps the first minimum of train/mae)
@@ -2044,10 +2084,7 @@ def viz_scene_phase(dev, scene: dict, work: str) -> dict:
     finally:
         disable_tf32()  # load_run applied the run's matmul_precision "high"
     chunks = sum(-(-len(item["rays"]) // CHUNK) for ds in datasets.values() for item in ds.data)
-    want = {k: 0 for k in got}
-    want["field_fused"] = want["composite"] = chunks
-    check(got == want, f"viz_scene launches {got}, expected {want}")
-    check(not any(plain_calls.values()), f"viz_scene: a plain version ran: {plain_calls}")
+    want = _check_chunk_launches("viz_scene", got, plain_calls, chunks)
 
     tif_viz = [v for v in pipeline.visualizers() if v.save_as_tif]
     files, missing = 0, []
@@ -2330,6 +2367,211 @@ def sweep_phase(dev, work: str) -> dict:
             "runs": [os.path.basename(r) for r in runs], "launches": got,
             "plain_calls": plain_calls, "launch_script_lines": lines,
             "launch_s": launch_s, "seconds": time.monotonic() - t_phase}
+    emit(line)
+    return line
+
+
+def _create_dataset_cli(cfg_fp: str) -> dict:
+    """``python -m satnerf_torch.data_prep.create_dataset cfg_fp`` in a fresh
+    process -> {step file: (outcome, host seconds)} from its log."""
+    import re
+
+    out = subprocess.run([sys.executable, "-m", "satnerf_torch.data_prep.create_dataset",
+                          cfg_fp], cwd=REPO, capture_output=True, text=True, timeout=900)
+    check(out.returncode == 0, f"create_dataset {cfg_fp} exited {out.returncode}: "
+                               f"{out.stderr[-2000:]}")
+    return {m[0]: (m[1], float(m[2]))
+            for m in re.findall(r"step (\S+) (ran|skipped|disabled) in ([0-9.]+) s",
+                                out.stdout)}
+
+
+def prep_scene_phase(dev, work: str) -> dict:
+    """A DFC2019 Track-3 distribution (``tests/torch_dfc_case.py``: PREP's
+    14 views of the JAX_068 AOI from ``generate_scene``) made into a
+    training dataset by the port's CLI (the adapter, cropping, the native
+    BA, meta extraction, root.json, semantic masks cut on the cropped
+    grid), a second run skipping every step; ``start_training`` on the
+    flagship TOML as it is for PREP_STEPS steps with the sanity validation
+    and the one at the run's end (PSNR, SSIM, DSM MAE against the GT DSM the
+    adapter georegistered), its launches by the schedule and no plain
+    version; the eval battery inline over the predefined test split."""
+    import glob
+    import importlib.util
+
+    import torch
+
+    from satnerf_torch.configs import write_toml
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.eval.eval import eval_all
+    from satnerf_torch.io.json_io import read_json
+    from satnerf_torch.io.tiff import read_geotiff_profile
+    from satnerf_torch.ops import trunk
+    from satnerf_torch.pipelines.base import Pipeline
+    from satnerf_torch.run.training import start_training
+
+    # the distribution writer the CPU tests share (by path: the card
+    # machine's environment may hold another package named "tests")
+    spec = importlib.util.spec_from_file_location(
+        "torch_dfc_case", os.path.join(REPO, "tests", "torch_dfc_case.py"))
+    dfc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(dfc)
+
+    t_phase = time.monotonic()
+    t0 = time.monotonic()
+    dist = dfc.write_distribution(os.path.join(work, "raw"), **PREP)
+    distribution_s = time.monotonic() - t0
+    out_dp = os.path.join(work, "datasets", dfc.AOI)
+    crop_fp = dfc.write_config(os.path.join(work, "crop.toml"), dfc.general(dist, out_dp),
+                               dfc.PREP_STEPS[:2])
+    full_fp = dfc.write_config(os.path.join(work, "dataset.toml"),
+                               dfc.general(dist, out_dp, os.path.join(work, "masks")),
+                               dfc.PREP_STEPS)
+    # the masks are annotated on the cropped grid: a run up to the cropping
+    # step, the masks cut at each view's window, then the whole config
+    t0 = time.monotonic()
+    crop_steps = _create_dataset_cli(crop_fp)
+    windows = dfc.crop_masks(dist, out_dp, os.path.join(work, "masks"))
+    steps = _create_dataset_cli(full_fp)
+    prep_s = time.monotonic() - t0
+    check([s["file"] for s in dfc.PREP_STEPS[:2]] == list(crop_steps)
+          and all(o == "ran" for o, _ in crop_steps.values()), f"crop run {crop_steps}")
+    check(list(steps) == [s["file"] for s in dfc.PREP_STEPS]
+          and [o for o, _ in steps.values()] == ["skipped"] * 2 + ["ran"] * 4,
+          f"create_dataset steps {steps}")
+    t0 = time.monotonic()
+    again = _create_dataset_cli(full_fp)
+    again_s = time.monotonic() - t0
+    check(all(o == "skipped" for o, _ in again.values()) and len(again) == 6,
+          f"the lazy re-run ran a step: {again}")
+
+    root = read_json(os.path.join(out_dp, "root.json"))
+    predefined = ["JAX_068_002_RGB.json", "JAX_068_012_RGB.json"]
+    check(len(root["train_split"]) == 12 and root["test_split"] == predefined,
+          f"splits {root['train_split']} / {root['test_split']}")
+    check(root.get("points3d_fp") == "pts3d.npy" and root["img_dp"] == "images_cropped"
+          and root.get("semantic_cls_labels", {}).get("4") == "cars", f"root.json {root}")
+    gt = read_geotiff_profile(os.path.join(out_dp, root["dsm_tif_fp"]))
+    check(gt.transform is not None and gt.epsg == 32617, f"GT DSM profile {gt}")
+    n_kp = {}
+    for name in root["train_split"]:
+        meta = read_json(os.path.join(out_dp, "metas", name))
+        n_kp[name[:-5]] = len(meta.get("keypoints", {}).get("2d_coordinates", []))
+    check(all(n > 0 for n in n_kp.values()), f"train views without keypoints: {n_kp}")
+    ba = read_json(os.path.join(out_dp, "ba_native", "ba_stats.json"))
+    check(ba["mean_reproj_px"] < 1.0, f"BA mean reprojection {ba['mean_reproj_px']} px")
+    sizes = {n: [w, h] for n, (_, _, w, h) in windows.items()}
+
+    # ---- train on it ----
+    run_fp = os.path.join(work, "run.toml")
+    write_toml(run_fp, {
+        "max_train_steps": PREP_STEPS, "check_val_every_n_epoch": 1,
+        "num_sanity_val_steps": 1, "seed": 0, "dataset_name": dfc.AOI,
+        "datasets_dp": os.path.join(work, "datasets"), "cache_dp": os.path.join(work, "cache"),
+        "workspace_dp": os.path.join(work, "training")})
+    load_s = []
+    load = Pipeline.load_datasets
+
+    def timed_load(self, *args, **kwargs):
+        t = time.monotonic()
+        load(self, *args, **kwargs)
+        load_s.append(time.monotonic() - t)
+
+    try:
+        Pipeline.load_datasets = timed_load
+        reset_counters()
+        preps0 = trunk.TC_PREPARATIONS
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        pipeline, state, trainer = start_training(run_fp, PIPELINE_TOML, device=dev,
+                                                  log_every=1)
+        run_s = time.monotonic() - t0
+        got, plain_calls = read_counters()
+        preps = trunk.TC_PREPARATIONS - preps0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        Pipeline.load_datasets = load
+        disable_tf32()  # the run's matmul_precision "high" allowed TF32
+    run_dp = pipeline.cfg.run.run_dp
+    ds_drop = pipeline.ds_drop_step
+    check(state.step == PREP_STEPS, f"prep_scene run ended at step {state.step}")
+    check(len(load_s) == 1, f"datasets loaded {len(load_s)} times")
+    check(pipeline.datasets["depth"].combined["rays"].shape[0] > 0, "no depth rays")
+    want = scene_expected_launches(trainer, PREP_STEPS, ds_drop)
+    check(got == want, f"prep_scene launches {got}, expected {want}")
+    check(not any(plain_calls.values()), f"prep_scene: a plain version ran: {plain_calls}")
+    n_val = len(trainer.val_history)
+    check(n_val == 2 and trainer.val_history[0]["sanity"]
+          and not trainer.val_history[-1]["sanity"], f"validations {trainer.val_history}")
+    check(preps == PREP_STEPS + n_val, f"K1 weight preparations {preps}")
+    hist = trainer.history
+    bad = [h["step"] for h in hist if not all(math.isfinite(v) for v in h.values())]
+    check(len(hist) == PREP_STEPS and not bad, f"non-finite loss terms at steps {bad[:5]}")
+    mse_first, mse_last = _rgb_mse_falls(hist, 20)  # as train_scene holds it
+    val = trainer.val_history[-1]
+    val_keys = ["train/psnr", "train/mae", "test/psnr", "test/mae"] + [
+        k for k in val if "/ssim_" in k]
+    check(all(k in val and math.isfinite(val[k]) for k in val_keys), f"validation {val}")
+    check(all(val[k] <= 1.0 for k in val if "/ssim_" in k), f"SSIM above 1: {val}")
+    check(os.path.isfile(os.path.join(run_dp, "ckpoints", "best.ckpt")), "no best.ckpt")
+
+    # ---- the eval battery over the predefined test split ----
+    rgb_test = pipeline.datasets["rgb_test"]
+    check([item["name"] for item in rgb_test.data][1:] == [n[:-5] for n in predefined],
+          f"test split {[item['name'] for item in rgb_test.data]}")
+    out = os.path.join(work, "eval")
+    try:
+        reset_counters()
+        t0 = time.monotonic()
+        eval_all(run_dp, out, splits=("test",), isolate="inline", device=dev)
+        eval_s = time.monotonic() - t0
+        eval_got, eval_plain = read_counters()
+    finally:
+        disable_tf32()  # load_run applied the run's matmul_precision "high"
+    chunks = sum(-(-len(item["rays"]) // CHUNK) for item in rgb_test.data)
+    _check_chunk_launches("prep_scene eval", eval_got, eval_plain, chunks)
+    name = os.path.basename(run_dp)
+    results = {}
+    for kind in ("eval", "eval_semantic"):
+        with open(os.path.join(out, name, kind, "test", "results.json")) as f:
+            results[kind] = json.load(f)
+    for kind, tree in results.items():
+        _check_results(kind, tree)
+    parts = ("render", "psnr_ssim_dsm_mae", "semantic", "clouds")
+    partials = []  # the prepended train view is rendered, not scored
+    for fp in sorted(glob.glob(os.path.join(out, name, "partial", "test", "*.json"))):
+        with open(fp) as f:
+            partials.append(json.load(f)["seconds"])
+    check(len(partials) == len(rgb_test.data)
+          and all(any(k in p for p in partials) for k in parts),
+          f"eval partials {partials}")
+    prof = trainer.profiler
+    line = {
+        "phase": "prep_scene", "distribution": PREP, "steps": PREP_STEPS,
+        "cropped_sizes": sizes, "step_seconds_host": {k: s for k, (_, s) in steps.items()},
+        "crop_run_seconds_host": {k: s for k, (_, s) in crop_steps.items()},
+        "rerun_all_skipped": True, "rerun_s": again_s,
+        "rerun_step_seconds_host": {k: s for k, (_, s) in again.items()}, "prep_s": prep_s,
+        "distribution_s": distribution_s,
+        "ba": {k: ba[k] for k in ("n_tracks", "n_obs", "mean_reproj_px", "median_reproj_px")},
+        "keypoints_per_train_view": n_kp, "splits": [len(root["train_split"]),
+                                                     len(root["test_split"])],
+        "dataset_load_s": load_s[0],
+        "rays": {k: int(pipeline.datasets[k].combined["rays"].shape[0])
+                 for k in ("rgb", "rgb_test", "depth")},
+        "depth_drop_step": ds_drop, "launches": got, "expected_launches": want,
+        "plain_calls": plain_calls, "preparations": preps, "validations": n_val,
+        "rgb_mse_first20_mean": mse_first, "rgb_mse_last20_mean": mse_last,
+        "loop_ms_per_step_host": trainer.ms_per_step,
+        "validate_s": prof.totals["validate"] / prof.counts["validate"],
+        "last_validation": val, "peak_memory_gb": peak_gb, "run_s": run_s,
+        "eval_launches": eval_got, "eval_test_images": len(partials),
+        "eval_test": {k: results["eval"].get(k) for k in results["eval"] if "Mean" in k},
+        "eval_semantic_test": {k: results["eval_semantic"][k]
+                               for k in ("Semantic Accuracy (Mean)", "mIoU (Mean)")},
+        "eval_seconds_per_image": {k: sum(p[k] for p in partials if k in p)
+                                   / sum(k in p for p in partials) for k in parts},
+        "eval_s": eval_s, "seconds": time.monotonic() - t_phase,
+    }
     emit(line)
     return line
 
@@ -2674,7 +2916,9 @@ def main() -> int:
 
     # ---- 14-20. the training CLI on a generated scene, resume, serving its best;
     # the eval battery on that run; the run served by view name over HTTP; its
-    # visualizers re-rendered; the scene over two data-parallel ranks; a sweep ----
+    # visualizers re-rendered; the scene over two data-parallel ranks; a sweep;
+    # 21. a dataset built by the port from a DFC2019 distribution, trained on
+    # and evaluated ----
     import shutil
     import tempfile
 
@@ -2686,6 +2930,8 @@ def main() -> int:
         viz_scene = viz_scene_phase(dev, scene, work)
         train_dp = train_dp_phase(dev, work)
         sweep = sweep_phase(dev, work)
+        os.makedirs(os.path.join(work, "prep"))
+        prep = prep_scene_phase(dev, os.path.join(work, "prep"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2700,7 +2946,8 @@ def main() -> int:
                 "train_dp_per_rank": [r[kernel] for r in train_dp["launches_per_rank"]],
                 "train_dp_one_process": train_dp["launches_one_process"][kernel],
                 "train_dp_nccl": train_dp["launches_nccl_world_of_one"][kernel],
-                "sweep": sweep["launches"][kernel]}
+                "sweep": sweep["launches"][kernel], "prep_scene": prep["launches"][kernel],
+                "prep_scene_eval": prep["eval_launches"][kernel]}
 
     f32 = times["float32"]
     k1t = train_t["field_fused"]

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import re
 import shutil
 import time
 import tomllib
@@ -152,40 +153,65 @@ def step_config_from_pipeline(p: dict, steps_per_epoch: int, with_depth=None,
 # run and pipeline configs (satnerf_tpu/configs.py:42-235)
 # --------------------------------------------------------------------------
 
-_BOOL_STR = {"true": True, "t": True, "yes": True, "y": True, "on": True, "1": True,
-             "false": False, "f": False, "no": False, "n": False, "off": False,
-             "0": False}
+# pydantic's lax string forms of a bool (case-insensitive, not stripped)
+_BOOL_STR = {"0": False, "off": False, "f": False, "false": False, "n": False, "no": False,
+             "1": True, "on": True, "t": True, "true": True, "y": True, "yes": True}
+# an int as a string: ASCII digits with single underscores, optionally ".0..."
+_INT_STR = re.compile(r"[+-]?[0-9]+(?:_[0-9]+)*(?:\.0+)?")
 
 
 def _coerce(name: str, kind: str, v):
-    """The reference's lax coercion for the field types the configs declare."""
-    if kind == "Optional[str]":
-        if v is None:
-            return None
-        kind = "str"
-    if kind == "float" and isinstance(v, (int, float, str)):
-        return float(v)
-    if kind == "int":
-        if isinstance(v, (int, str)):
-            return int(v)
-        if isinstance(v, float) and v.is_integer():
-            return int(v)
+    """``v`` as the declared ``kind`` ("str", "int", "float", "bool", "dict",
+    "Optional[...]", "list[...]" or the name of a config class), or
+    ``ValueError`` where the reference's lax validation (pydantic 2) raises
+    on what a TOML file or a keyword argument gives."""
+    if kind.startswith("Optional["):
+        return None if v is None else _coerce(name, kind[len("Optional["):-1], v)
+    if kind == "str" and isinstance(v, str):
+        return v
     if kind == "bool":
         if isinstance(v, bool):
             return v
-        if isinstance(v, int) and v in (0, 1):
+        if isinstance(v, (int, float)) and v in (0, 1):
             return bool(v)
         if isinstance(v, str) and v.lower() in _BOOL_STR:
             return _BOOL_STR[v.lower()]
-    if kind == "str" and isinstance(v, str):
-        return v
-    if kind == "list[int]" and isinstance(v, (list, tuple)):
-        return [_coerce(name, "int", x) for x in v]
+    if kind == "int":
+        if isinstance(v, int):
+            return int(v)
+        if isinstance(v, float) and v.is_integer() and abs(v) < 2**63:
+            return int(v)
+        if isinstance(v, str) and _INT_STR.fullmatch(v.strip()):
+            return int(v.strip().split(".")[0])
+    if kind == "float":
+        if isinstance(v, (int, float)):
+            return float(v)
+        if isinstance(v, str) and v.isascii():
+            try:
+                return float(v)
+            except ValueError:
+                pass
+    if kind.startswith("list[") and isinstance(v, (list, tuple)):
+        return [_coerce(name, kind[len("list["):-1], x) for x in v]
+    if kind == "dict" and isinstance(v, dict):
+        return dict(v)
+    cls = _Config.kinds.get(kind)
+    if cls is not None:
+        if isinstance(v, cls):
+            return v
+        if isinstance(v, dict):
+            return cls(**v)
     raise ValueError(f"config field {name!r}: {v!r} is not a valid {kind}")
 
 
 class _Config:
     """Coerces every field to its declared type on construction."""
+
+    kinds: dict = {}  # config classes by name, for a field declaring one
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        _Config.kinds[cls.__name__] = cls
 
     def __post_init__(self):
         for f in dataclasses.fields(self):

@@ -767,3 +767,60 @@ def test_cuda_http_render_runs_the_kernels_and_matches_the_cpu(cuda_device, cuda
     ref = RenderService.from_run(cuda_run, chunk=1024, device="cpu").render(name)
     assert float(np.abs(served["rgb"] - ref["rgb"]).max()) <= 1e-4
     assert float(np.abs(served["depth"] - ref["depth"]).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_trains_on_a_dataset_the_port_prepared(cuda_device, tmp_path):
+    """A small DFC2019 Track-3 distribution (4 views of 96²) through the
+    port's ``create_dataset`` (cropping, the native BA, masks on the cropped
+    grid), then 6 steps at 4x512 on the card: every step launches K1, K2,
+    K4, K5 and K5's backward as scheduled, no plain version runs."""
+    import numpy as np
+
+    import torch_dfc_case as dfc
+    from satnerf_torch.configs import MainConfig, RSSemanticConfig, RunConfig
+    from satnerf_torch.data_prep.create_dataset import create_dataset
+    from satnerf_torch.data_prep.dataset_config import DatasetConfig
+    from satnerf_torch.models import field as fld
+    from satnerf_torch.ops import composite as comp
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+    from satnerf_torch.pipelines import load_pipeline
+    from satnerf_torch.train.loop import Trainer
+
+    dist = dfc.write_distribution(str(tmp_path / "raw"), 4, 96, n_tie_points=120)
+    out = str(tmp_path / "datasets" / "JAX_068")
+    create_dataset(DatasetConfig(general=dfc.general(dist, out), steps=dfc.PREP_STEPS[:2]))
+    dfc.crop_masks(dist, out, str(tmp_path / "masks"))
+    create_dataset(DatasetConfig(general=dfc.general(dist, out, str(tmp_path / "masks"),
+                                                     split_mode="fixed", n_test=1),
+                                 steps=dfc.PREP_STEPS))
+    cfg = MainConfig(
+        RunConfig(dataset_name="JAX_068", datasets_dp=str(tmp_path / "datasets"),
+                  cache_dp=str(tmp_path / "cache"), workspace_dp=str(tmp_path / "training"),
+                  max_train_steps=6, num_sanity_val_steps=0, seed=0),
+        RSSemanticConfig(fc_layers=4, fc_units=512, fc_skips=[2], n_samples=32,
+                         batch_size=256, first_beta_epoch=0))
+    pipeline = load_pipeline(cfg)
+    pipeline.prepare_run()
+    pipeline.load_datasets()
+    assert pipeline.datasets["depth"].combined["rays"].shape[0] > 0
+    counters = [(ff, "LAUNCHES"), (ff, "HEADS_BWD_LAUNCHES"), (trunk, "LAUNCHES"),
+                (comp, "LAUNCHES"), (comp, "BWD_LAUNCHES"), (ff, "PLAIN_CALLS"),
+                (trunk, "PLAIN_CALLS"), (trunk, "FWD_PLAIN_CALLS"), (comp, "PLAIN_CALLS"),
+                (fld, "PLAIN_CALLS")]
+    torch.cuda.synchronize()
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    trainer = Trainer(pipeline, log_every=1, device=cuda_device)
+    state = trainer.fit(validate_every_epoch=False)
+    got = {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": getattr(mod, name)
+           for mod, name in counters}
+    drop = min(pipeline.ds_drop_step, 6)
+    assert state.step == 6
+    assert got["field_fused.LAUNCHES"] == got["field_fused.HEADS_BWD_LAUNCHES"] == \
+        got["trunk.LAUNCHES"] == 3 * drop + 2 * (6 - drop), got
+    assert got["composite.LAUNCHES"] == got["composite.BWD_LAUNCHES"] == \
+        2 * drop + (6 - drop), got
+    assert not any(v for k, v in got.items() if "PLAIN" in k), got
+    assert all(np.isfinite(v) for h in trainer.history for v in h.values())

@@ -239,8 +239,9 @@ def test_configs_load_equal_to_the_reference_and_dump_reloads_equal(tmp_path, pi
 @pytest.mark.parametrize("kw", [dict(learnrate=1), dict(n_samples=8.0), dict(n_samples="8"),
                                 dict(depth_enabled=1), dict(depth_enabled="false"),
                                 dict(fc_skips=(1, 2.0)), dict(sc_lambda="0.5"),
+                                dict(n_samples="8.0"), dict(depth_enabled=1.0),
                                 dict(n_samples=8.5), dict(depth_enabled=2),
-                                dict(pipeline=3)])
+                                dict(sc_lambda="\u0663"), dict(pipeline=3)])
 def test_dataclass_configs_coerce_as_pydantic(kw):
     try:
         want = jconfigs.RSSemanticConfig(**kw).model_dump()
