@@ -8,8 +8,8 @@ JSON line per phase:
 
 1. device and toolchain;
 2. the kernel build (one nvcc per source, in parallel), with the HGMMA
-   (wgmma) count in the SASS of each tensor-core kernel (K1, K2, K3, K4) and
-   its registers and spills;
+   (wgmma) count in the SASS of each tensor-core kernel (K1, K2, K3, K4, K6)
+   and its registers and spills;
 3. the sine engines of ``csrc/sine.cuh`` and their cosines against
    ``ops/fastmath.py``;
 4. the fused field kernel against its plain PyTorch version at the
@@ -52,7 +52,8 @@ JSON line per phase:
 10. the trunk-only kernel K3 against its plain version at the flagship
    width (f32 and bf16, with and without the "stored" pre-activations, at
    1, 63, 64, 65 and 65,537 points, each run twice for bitwise-equal
-   results) and its interleaved variant K6 (run twice, bitwise equal, and
+   results) and its interleaved variant K6 at 1, 63, 64, 65, 127, 128, 129
+   and 65,537 points (run twice, bitwise equal to each other and to K3, and
    within the field bar of the plain version);
 11. the RS-Semantic ablation field with its semantic beta head
    (``use_separate_beta_for_s``, ``use_beta_for_s``; trunk through K3):
@@ -63,8 +64,11 @@ JSON line per phase:
    launch counts and every ``c_`` loss term finite, a 32-ray step against
    the CPU, and one 128x128 request through the fine field with the
    ``_coarse`` outputs held against the CPU;
-13. CUDA-event times of K3 and its plain version at the training shapes,
-   and of K6 against K3 at the interleave prototype's shape;
+13. K3 and K6 in turns (K3, K6, K6, K3; ``cuda_ms`` and ``device_time``)
+   beside their bounds and the plain version: f32 at 65,536, 131,072 and
+   1,048,576 points, bf16 at the interleave prototype's 1,048,576 x 63
+   (K6 checked there in both dtypes); with ``--parent``, the parent's K6
+   at that shape in the same turns;
 14. ``train_scene``: the training CLI end to end on a generated scene (4 + 1
    views, 96x96, 300 tie points): ``run.training.start_training`` on the
    flagship TOML as it is, 144 steps (the depth drop at step 36, the beta
@@ -210,6 +214,11 @@ PER_STEP_HIER = {"field_fused": 24, "heads_bwd": 12, "trunk_fwd": 0, "trunk_bwd"
 TRUNK_TIME_POINTS = (65_536, 131_072)  # K3 per depth render / per main render
 SERVE_COPIES = 8  # port_times: K1 at 8 x 131,072 = 1,048,576 points, the serve chunk
 K6_POINTS, K6_C_IN = 1_048_576, 63  # tools/interleave_trunk_proto.py:82, :30
+K6_CHECK_POINTS = (1, 63, 64, 65, 127, 128, 129, N_FIELD_CHECK)  # K6 against K3
+# K3 and K6 in turns: f32 at K3's shapes and a serve chunk, bf16 at the prototype's
+K6_TIME_SHAPES = (("float32", TRUNK_TIME_POINTS[0], "field"),
+                  ("float32", TRUNK_TIME_POINTS[1], "field"),
+                  ("float32", SERVE_COPIES * 131_072, "field"), ("bfloat16", K6_POINTS, "proto"))
 # train_scene: the synthetic scene at generate_scene's defaults (4 + 1 views,
 # 96 x 96, 300 tie points) trained for 4 epochs of 36 steps: the depth drop at
 # step 36 and the beta gate at epoch 2 fall inside the run
@@ -1217,7 +1226,7 @@ def bwd_times(dev, turns: list | None) -> tuple:
             entries[f"{key}/{dname}"] = e
     fwd = {}
     for k in times:
-        if k.startswith(("field_fused", "trunk_fwd")):
+        if k.startswith(("field_fused", "trunk_fwd/")):
             fwd[k] = {"ms": mine[k] if parent else times[k]["ms"]}
             if parent and k in theirs:
                 fwd[k].update(parent_ms=theirs[k],
@@ -1285,14 +1294,14 @@ def profile_phase(dev, scfg, params, vocab: int) -> dict:
 def trunk_forward_phase(dev, field, spec, enc) -> dict:
     """K3 against its plain version (f32, bf16; with and without the "stored"
     pre-activations; at every size of FIELD_CHECK_POINTS), each run twice for
-    bitwise-equal results; K6 at the largest size, run twice for
-    bitwise-equal results and held against the plain version."""
+    bitwise-equal results; K6 at every size of K6_CHECK_POINTS (``k6_check``:
+    twice, bitwise K3, within the bar of the plain version)."""
     import torch
 
     from satnerf_torch.ops import field_fused as ff
     from satnerf_torch.ops import trunk
 
-    cases = {}
+    cases, k6 = {}, {}
     worst_f32 = 0.0
     with torch.no_grad():
         for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -1322,20 +1331,81 @@ def trunk_forward_phase(dev, field, spec, enc) -> dict:
                     outs[emit_acts] = out
                     del acts, acts2, ref_acts
                 cases[f"{dname}/n{n}/acts_variant_bitwise"] = torch.equal(outs[True], outs[False])
-            # K6 (the FMA interleaved variant): repeatable and within the bar
-            il = trunk.fused_trunk_interleaved(spec, x, packed)
-            il2 = trunk.fused_trunk_interleaved(spec, x, packed)
-            torch.cuda.synchronize()
-            il_err = float((il.float() - ref.float()).abs().max())
-            cases[f"{dname}/interleaved"] = {"bitwise_repeat": torch.equal(il, il2),
-                                             "max_abs_err": il_err,
-                                             "bitwise_k3": torch.equal(il, outs[False])}
-            check(torch.equal(il, il2), f"K6 two runs differ in {dname}")
-            check(il_err <= TOL_FIELD[dname], f"K6 vs plain in {dname}: {il_err}")
+            # K6 (the warp-specialised variant): bitwise K3, repeatable, within
+            # the bar of the plain version
+            for n in K6_CHECK_POINTS:
+                x = ff.pack_x(spec, enc[:n], dt)
+                k6[f"{dname}/n{n}"] = k6_check(spec, x, packed, f"{dname} n{n}")
     emit({"phase": "trunk_forward_check", "points": FIELD_CHECK_POINTS, "layers": spec.layers,
-          "feat": spec.feat, "c_in": spec.c_in, "cases": cases,
-          "tol": {"out": TOL_FIELD, "acts": TOL_RESID}})
-    return {"max_abs_err_f32": worst_f32}
+          "feat": spec.feat, "c_in": spec.c_in, "cases": cases, "k6_points": K6_CHECK_POINTS,
+          "k6": k6, "tol": {"out": TOL_FIELD, "acts": TOL_RESID}})
+    return {"max_abs_err_f32": worst_f32, "k6": k6}
+
+
+def k6_check(spec, x, packed, key: str) -> dict:
+    """K6 run twice against K3 and the plain version on the same inputs:
+    both runs bitwise equal to each other and to K3, within the field bar
+    of the plain version (checked); its errors."""
+    import torch
+
+    from satnerf_torch.ops import trunk
+
+    k6 = trunk.fused_trunk_interleaved(spec, x, packed)
+    k6_again = trunk.fused_trunk_interleaved(spec, x, packed)
+    k3 = trunk.fused_trunk(spec, x, packed)
+    torch.cuda.synchronize()
+    ref = trunk.fused_trunk_reference(spec, x, packed)[0]
+    dname = "float32" if x.dtype == torch.float32 else "bfloat16"
+    got = {"bitwise_repeat": torch.equal(k6, k6_again), "bitwise_k3": torch.equal(k6, k3),
+           "max_abs_diff_k3": float((k6.float() - k3.float()).abs().max()),
+           "max_abs_err": float((k6.float() - ref.float()).abs().max()),
+           "k3_max_abs_err": float((k3.float() - ref.float()).abs().max())}
+    check(bool(torch.isfinite(k6).all()), f"K6 {key} non-finite")
+    check(got["bitwise_repeat"], f"K6 {key}: two runs differ")
+    check(got["bitwise_k3"], f"K6 {key}: not bitwise K3 ({got['max_abs_diff_k3']})")
+    check(got["max_abs_err"] <= TOL_FIELD[dname], f"K6 {key} vs plain {got['max_abs_err']}")
+    return got
+
+
+def k6_proto_case(dev, spec, dt):
+    """(spec, x, packed) at the interleave prototype's shape: 1,048,576
+    points, c_in 63, with its weight scales (normal * 0.02, bias * 0.01,
+    x * 0.5; tools/interleave_trunk_proto.py:89-96), seed 21, in ``dt``."""
+    import dataclasses
+
+    import torch
+
+    sp = dataclasses.replace(spec, c_in=K6_C_IN)
+    g = torch.Generator().manual_seed(21)
+
+    def rnd(*shape, scale):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    p6 = {"w0": rnd(sp.cx, sp.feat, scale=0.02),
+          "w_mid": rnd(sp.layers - 1, sp.feat, sp.feat, scale=0.02),
+          "w_skip": rnd(len(sp.skips), sp.cx, sp.feat, scale=0.02),
+          "b": rnd(sp.layers, sp.feat, scale=0.01)}
+    p6["w0"][K6_C_IN:] = 0
+    p6["w_skip"][:, K6_C_IN:] = 0
+    p6 = {k: (v if k == "b" else v.to(dt)).contiguous() for k, v in p6.items()}
+    x6 = rnd(K6_POINTS, sp.cx, scale=0.5)
+    x6[:, K6_C_IN:] = 0
+    return sp, x6.to(dt).contiguous(), p6
+
+
+def k6_times(dev) -> dict:
+    """``--tree``: K6 at the prototype's shape (bf16) on the flagship trunk's
+    widths, CUDA events; the entry point every slice of the port has."""
+    import torch
+
+    from satnerf_torch.models.field import fused_field_spec
+    from satnerf_torch.ops import trunk
+
+    spec = fused_field_spec(flagship_case(dev)["fcfg"])
+    sp, x6, p6 = k6_proto_case(dev, spec, torch.bfloat16)
+    with torch.no_grad():
+        return {"trunk_fwd_interleaved/proto_bf16": {
+            "ms": cuda_ms(lambda: trunk.fused_trunk_interleaved(sp, x6, p6), reps=3)}}
 
 
 def serve_variant_phase(name: str, dev, rcfg, params: dict, vocab: int,
@@ -1403,10 +1473,14 @@ def serve_variant_phase(name: str, dev, rcfg, params: dict, vocab: int,
     return {"launches": got, "request_ms": req_ms}
 
 
-def trunk_times_phase(dev, field, spec, enc_fn) -> dict:
-    """CUDA-event times of K3 and its plain version at the training shapes
-    (f32), and of K6 against K3 at the interleave prototype's shape (bf16,
-    c_in 63), each beside its bound."""
+def trunk_times_phase(dev, field, spec, enc_fn, turns: list | None = None) -> dict:
+    """K3 and K6 in turns (K3, K6, K6, K3; ``cuda_ms`` and ``device_time``)
+    beside their bounds and the plain version's time at K6_TIME_SHAPES: f32
+    at K3's depth and main renders (65,536, 131,072) and a serve chunk's
+    1,048,576 points (c_in 60), bf16 at the interleave prototype's shape
+    (1,048,576 x 63); K6 at that shape checked in both dtypes
+    (``k6_check``). With ``turns`` (``--parent``), the parent's K6 beside
+    this one at the prototype's shape, in the same turns."""
     import dataclasses
 
     import torch
@@ -1429,65 +1503,51 @@ def trunk_times_phase(dev, field, spec, enc_fn) -> dict:
                 "flops": flops, "bytes": nbytes, "shape": [n, sp.cx],
                 "achieved_tflops": flops / (ms * 1e-3) / 1e12}
 
-    out = {}
+    out, in_turns = {}, {}
     with torch.no_grad():
-        packed = field.packed(torch.float32)
-        for n in TRUNK_TIME_POINTS:
-            x = ff.pack_x(spec, enc_fn(n), torch.float32)
-            k = cuda_ms(lambda: trunk.fused_trunk(spec, x, packed), reps=5)
-            pl = cuda_ms(lambda: trunk.fused_trunk_reference(spec, x, packed), reps=2)
-            out[f"k3_f32_{n}"] = entry(k, pl, spec, n, x, packed)
-            # the same comparison as trunk_forward_check, at the path's shape
-            err = float((trunk.fused_trunk(spec, x, packed)
-                         - trunk.fused_trunk_reference(spec, x, packed)[0]).abs().max())
-            check(err <= TOL_FIELD["float32"], f"trunk f32 at {n} points err {err}")
-            out[f"k3_f32_{n}"]["max_abs_err"] = err
+        for dname, n, case in K6_TIME_SHAPES:
+            dt = torch.float32 if dname == "float32" else torch.bfloat16
+            if case == "proto":
+                sp, x, packed = k6_proto_case(dev, spec, dt)
+                for d2 in (torch.float32, torch.bfloat16):  # K6 at this shape, both dtypes
+                    sp2, x2, p2 = (sp, x, packed) if d2 == dt else k6_proto_case(dev, spec, d2)
+                    out[f"k6_check_{d2}".replace("torch.", "")] = k6_check(sp2, x2, p2,
+                                                                           f"{d2} proto")
+                    del x2, p2
+            else:
+                sp, packed = spec, field.packed(dt)
+                x = ff.pack_x(spec, enc_fn(n), dt)
+            k3_ms, k6_ms, k3_dev, k6_dev = [], [], [], []
+            for fn in (trunk.fused_trunk, trunk.fused_trunk_interleaved,
+                       trunk.fused_trunk_interleaved, trunk.fused_trunk):
+                call = lambda: fn(sp, x, packed)  # noqa: E731
+                ms, dev_t = cuda_ms(call, reps=5), device_time(call, reps=5, warmup=1)
+                (k3_ms if fn is trunk.fused_trunk else k6_ms).append(ms)
+                (k3_dev if fn is trunk.fused_trunk else k6_dev).append(dev_t["ms"])
+            plain = cuda_ms(lambda: trunk.fused_trunk_reference(sp, x, packed), reps=1)
+            err = float((trunk.fused_trunk(sp, x, packed).float()
+                         - trunk.fused_trunk_reference(sp, x, packed)[0].float()).abs().max())
+            check(err <= TOL_FIELD[dname], f"K3 {dname} at {n} points err {err}")
+            key = f"{dname}_{n}" + ("_c63" if case == "proto" else "")
+            for name, ms_l, dev_l in (("k3", k3_ms, k3_dev), ("k6", k6_ms, k6_dev)):
+                out[f"{name}_{key}"] = {**entry(sum(ms_l) / 2, plain, sp, n, x, packed),
+                                        "device_ms": sum(dev_l) / 2}
+            out[f"k3_{key}"]["max_abs_err"] = err
+            in_turns[key] = {"cuda_ms": {"k3": k3_ms, "k6": k6_ms},
+                             "device_ms": {"k3": k3_dev, "k6": k6_dev},
+                             "k6_over_k3": sum(k6_ms) / sum(k3_ms),
+                             "k6_over_k3_device": sum(k6_dev) / sum(k3_dev)}
             del x
-
-        # K6 against K3: 1,048,576 points, c_in 63, 8x512, skip at 4, bf16, with
-        # the prototype's weight scales (normal * 0.02, bias * 0.01, x * 0.5)
-        sp = dataclasses.replace(spec, c_in=K6_C_IN)
-        g = torch.Generator().manual_seed(21)
-        bf = torch.bfloat16
-
-        def rnd(*shape, scale):
-            return (torch.randn(*shape, generator=g) * scale).to(dev)
-
-        p6 = {"w0": rnd(sp.cx, sp.feat, scale=0.02), "w_mid": rnd(sp.layers - 1, sp.feat,
-                                                                   sp.feat, scale=0.02),
-              "w_skip": rnd(len(sp.skips), sp.cx, sp.feat, scale=0.02),
-              "b": rnd(sp.layers, sp.feat, scale=0.01)}
-        p6["w0"][K6_C_IN:] = 0
-        p6["w_skip"][:, K6_C_IN:] = 0
-        p6 = {k: (v if k == "b" else v.to(bf)).contiguous() for k, v in p6.items()}
-        x6 = rnd(K6_POINTS, sp.cx, scale=0.5)
-        x6[:, K6_C_IN:] = 0
-        x6 = x6.to(bf).contiguous()
-        k3 = trunk.fused_trunk(sp, x6, p6)
-        k6 = trunk.fused_trunk_interleaved(sp, x6, p6)
-        k6_again = trunk.fused_trunk_interleaved(sp, x6, p6)
-        torch.cuda.synchronize()
-        bitwise = torch.equal(k6, k6_again)
-        check(bitwise, "K6: two runs differ at the prototype's shape")
-        ref = trunk.fused_trunk_reference(sp, x6, p6)[0]
-        k6_err = float((k6.float() - ref.float()).abs().max())
-        k3_err = float((k3.float() - ref.float()).abs().max())
-        check(k6_err <= TOL_FIELD["bfloat16"], f"K6 vs plain err {k6_err}")
-        check(k3_err <= TOL_FIELD["bfloat16"], f"K3 vs plain err {k3_err} (K6's shape)")
-        del k3, k6, k6_again, ref
-        turns = []  # K3, K6, K6, K3
-        for fn in (trunk.fused_trunk, trunk.fused_trunk_interleaved,
-                   trunk.fused_trunk_interleaved, trunk.fused_trunk):
-            turns.append(cuda_ms(lambda: fn(sp, x6, p6), reps=5))
-        pl6 = cuda_ms(lambda: trunk.fused_trunk_reference(sp, x6, p6), reps=1)
-        e3 = entry((turns[0] + turns[3]) / 2, pl6, sp, K6_POINTS, x6, p6)
-        e6 = entry((turns[1] + turns[2]) / 2, pl6, sp, K6_POINTS, x6, p6)
-        e3["max_abs_err"] = k3_err
-        e6.update(max_abs_err=k6_err, bitwise_repeat=bitwise)
-        out["k3_bf16_k6_shape"], out["k6_bf16"] = e3, e6
-        out["k3_k6_turns_ms"] = turns
+    out["turns"] = in_turns
+    if turns:
+        mine, theirs = turn_means(turns)
+        k = "trunk_fwd_interleaved/proto_bf16"
+        out["k6_parent_turns"] = {"ms": [t["times"][k]["ms"] for t in turns],
+                                  "trees": [t["tree"] for t in turns],
+                                  "this_ms": mine[k], "parent_ms": theirs[k]}
     emit({"phase": "trunk_kernel_times", "mac_per_point_c_in_60": macs(spec),
-          "mac_per_point_c_in_63": macs(sp), "times": out})
+          "mac_per_point_c_in_63": macs(dataclasses.replace(spec, c_in=K6_C_IN)),
+          "times": out})
     return out
 
 
@@ -1532,9 +1592,9 @@ def step_times(dev, steps: int = 5) -> dict:
 
 
 def child_times(tree: str, save: str) -> int:
-    """``--tree DIR --save FILE``: port_times, composite_times and
-    step_times on the checkout at DIR (its own package and kernels), printing
-    the times as the last line."""
+    """``--tree DIR --save FILE``: port_times, composite_times, step_times
+    and k6_times on the checkout at DIR (its own package and kernels),
+    printing the times as the last line."""
     sys.path.insert(0, tree)
     import torch
 
@@ -1546,8 +1606,8 @@ def child_times(tree: str, save: str) -> int:
     disable_tf32()
     _build.build_all()
     dev = torch.device("cuda")
-    print(json.dumps({**port_times(dev, save), **composite_times(dev), **step_times(dev)}),
-          flush=True)
+    print(json.dumps({**port_times(dev, save), **composite_times(dev), **step_times(dev),
+                      **k6_times(dev)}), flush=True)
     return 0
 
 
@@ -2623,14 +2683,18 @@ def main() -> int:
           "per_source_seconds": {k: round(v, 2) for k, v in per_lib.items()},
           "build_dir": os.path.relpath(_build.build_dir(), REPO)})
     # the libraries on the tensor cores: HGMMA (wgmma) instructions in each
-    # kernel's SASS, and ptxas's registers and spills (K6, trunk_fwd_il_kernel,
-    # stays on the FMA units)
+    # kernel's SASS, and ptxas's registers and spills
     tc_libs = {"field_bwd": ("tc_row_kernel", "reduce_kernel"),
                "trunk_bwd": ("tc_row_kernel", "reduce_kernel"),
-               "field_fused": ("field_fused_kernel",), "trunk_fwd": ("trunk_fwd_kernel",)}
+               "field_fused": ("field_fused_kernel",),
+               "trunk_fwd": ("trunk_fwd_kernel", "trunk_fwd_il_kernel")}
     sass = {lib: _build.sass_counts(lib) for lib in tc_libs}
     ptxas = {lib: _build.ptxas_report(lib) for lib in tc_libs}
-    emit({"phase": "build_bwd_sass", "hgmma_per_kernel": sass, "ptxas": ptxas})
+    k6_regs = {k: v.get("registers") for k, v in ptxas["trunk_fwd"].items()
+               if "trunk_fwd_il_kernel" in k}
+    emit({"phase": "build_bwd_sass", "hgmma_per_kernel": sass, "ptxas": ptxas,
+          "k6_registers_per_thread": k6_regs})
+    check(len(k6_regs) == 2, f"K6: {len(k6_regs)} instances in the ptxas report")
     for lib, names in tc_libs.items():
         check(isinstance(sass[lib], dict), f"{lib}: no SASS listing ({sass[lib]})")
         tc_kernels = {k: n for k, n in sass[lib].items() if any(p in k for p in names)}
@@ -2912,7 +2976,7 @@ def main() -> int:
                                   coarse=True, fields=2)
 
     # ---- 13. K3 and K6 times -----------------------------------------------------------
-    trunk_t = trunk_times_phase(dev, field_b, spec_b, lambda n: field_inputs(n, 3)[0])
+    trunk_t = trunk_times_phase(dev, field_b, spec_b, lambda n: field_inputs(n, 3)[0], turns)
 
     # ---- 14-20. the training CLI on a generated scene, resume, serving its best;
     # the eval battery on that run; the run served by view name over HTTP; its
@@ -2951,8 +3015,11 @@ def main() -> int:
 
     f32 = times["float32"]
     k1t = train_t["field_fused"]
-    k3t = trunk_t[f"k3_f32_{TRUNK_TIME_POINTS[1]}"]
-    k6t = trunk_t["k6_bf16"]
+    k3t = trunk_t[f"k3_float32_{TRUNK_TIME_POINTS[1]}"]
+    k6_key = f"bfloat16_{K6_POINTS}_c63"
+    k6t = trunk_t[f"k6_{k6_key}"]
+    k6_checks = list(trunk_chk["k6"].values()) + [
+        v for k, v in trunk_t.items() if k.startswith("k6_check_")]
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "shape")
     op_keys = ("bound_3xtf32_ms", "bound_f32_fma_ms", "bound_bf16_ms")
     fwd_t = train_t["forward_times"]
@@ -3039,23 +3106,36 @@ def main() -> int:
             "replaces": "satnerf_tpu/ops/pallas/trunk.py:347",
             "launches": beta_s["launches"]["trunk_fwd"],
             "max_abs_err": max([trunk_chk["max_abs_err_f32"]]
-                               + [trunk_t[f"k3_f32_{n}"]["max_abs_err"]
+                               + [trunk_t[f"k3_float32_{n}"]["max_abs_err"]
                                   for n in TRUNK_TIME_POINTS]),
             **{k: k3t[k] for k in timed + op_keys},
             "library_ms": None,
-            "turns": {k: v for k, v in fwd_t.items() if k.startswith("trunk_fwd")},
-            "at_65536": {k: trunk_t[f"k3_f32_{TRUNK_TIME_POINTS[0]}"][k] for k in timed},
-            "bf16_at_k6_shape": {k: trunk_t["k3_bf16_k6_shape"][k]
-                                 for k in timed + op_keys},
+            "turns": {k: v for k, v in fwd_t.items() if k.startswith("trunk_fwd/")},
+            "at_65536": {k: trunk_t[f"k3_float32_{TRUNK_TIME_POINTS[0]}"][k] for k in timed},
+            "bf16_at_k6_shape": {k: trunk_t[f"k3_{k6_key}"][k] for k in timed + op_keys},
         },
         {
             "name": "trunk_fwd_interleaved", "route": "cuda",
             "source": "satnerf_torch/csrc/trunk_fwd.cu",
-            "replaces": "tools/interleave_trunk_proto.py:64",
+            "replaces": "tools/interleave_trunk_proto.py:59",
             "launches": beta_s["launches"]["trunk_fwd_interleaved"], "on_main_path": False,
-            "max_abs_err": k6t["max_abs_err"], "bitwise_repeat": k6t["bitwise_repeat"],
-            **{k: k6t[k] for k in timed + op_keys},
+            "on_tensor_cores": True, "registers_per_thread": k6_regs,
+            "max_abs_err": max([c["max_abs_err"] for k, c in trunk_chk["k6"].items()
+                                if k.startswith("float32")]
+                               + [trunk_t["k6_check_float32"]["max_abs_err"]]),
+            "bitwise_k3": all(c["bitwise_k3"] for c in k6_checks),
+            "bitwise_repeat": all(c["bitwise_repeat"] for c in k6_checks),
+            **{k: k6t[k] for k in timed + op_keys}, "device_ms": k6t["device_ms"],
             "library_ms": None,
+            "shapes": {k: {"ms": trunk_t[f"k6_{k}"]["ms"],
+                           "device_ms": trunk_t[f"k6_{k}"]["device_ms"],
+                           "k3_ms": trunk_t[f"k3_{k}"]["ms"],
+                           "k3_device_ms": trunk_t[f"k3_{k}"]["device_ms"],
+                           **{b: trunk_t[f"k6_{k}"][b] for b in ("bound_ms", "bound_by",
+                                                                 "plain_ms", "shape")
+                              + op_keys}}
+                       for k in trunk_t["turns"]},
+            "parent_turns": trunk_t.get("k6_parent_turns"),
         },
     ]
     for entry in kernels:

@@ -1,6 +1,5 @@
-// Row-tile GEMM helpers on the f32 FMA units, shared by K6's trunk loop
-// (trunk_layers.cuh) and the backward kernels' 16-wide row kernel
-// (bwd_common.cuh); trunk_tc.cuh takes its element stores.
+// Row-tile GEMM helpers on the f32 FMA units, for the backward kernels'
+// 16-wide row kernel (bwd_common.cuh); trunk_tc.cuh takes its element stores.
 //
 // A block of kThreads threads owns a kRows-row tile of points; its activations
 // sit in shared memory and the weights stream from global memory (L2). For an

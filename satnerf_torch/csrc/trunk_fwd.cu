@@ -20,45 +20,47 @@
 // padded to a multiple of 16).
 //
 // K6 replaces the prototype tools/interleave_trunk_proto.py (pallas_call :64,
-// body _fwd_kernel_il :33): the same function over two independent 32-row
-// sub-tiles per block, one group of 256 threads each, on the f32 FMA trunk
-// loop of trunk_layers.cuh. The block runs 2L + 1 phases split by barriers;
-// in phase p group A does step p and group B step p - 1, where step 2i is
-// layer i's products and step 2i + 1 its epilogue (bias, sine, store). So one
-// group's FMAs issue while the other group evaluates its sine polynomial,
-// which is what the prototype tried between the TPU's MXU and VPU. It takes
-// the packed (in, out) weights. Its redesign (warpgroup ping-pong on wgmma)
-// is later work; it is off every path.
+// body _fwd_kernel_il :33): the same function, forward only, whose idea is to
+// run one half of the work's products while the other half's sines are
+// evaluated. trunk_ws.cuh says how it does that on this card: a producer
+// warpgroup streams the weights through a four- or eight-slot ring with
+// full/empty mbarriers, and two consumer warpgroups take the tensor cores in
+// turns (named barriers), each one's epilogue under the other's wgmmas. What
+// bounds it is K3's bound (operations: 3xTF32 in f32, bf16 on the tensor
+// cores). It keeps K3's order of sums and epilogue, so it equals K3 bit for
+// bit. It takes the prepared weights of K3 and, in f32, their tf32 hi and lo
+// parts (ops/trunk.py:tc_split_weights). It is off every path.
 //
 // Width instantiated: feat 512 (as K4, satnerf_torch/ops/trunk.py FEAT_WIDTHS).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "trunk_layers.cuh"
 #include "trunk_tc.cuh"
+#include "trunk_ws.cuh"
 
 // Mirror of satnerf_torch.ops.trunk._TrunkArgs (ctypes); keep in sync.
 struct TrunkArgs {
   const void* x;    // (n, cx) compute dtype
   void* out;        // (n, F) compute dtype
-  const void* w0;   // K3: prepared W^T (tc_trunk_weights); K6: packed (cx, F)
+  const void* w0;   // prepared W^T (tc_trunk_weights); K6 in f32: the tf32 hi parts
   const void* w_mid;
   const void* w_skip;
   const void* b;    // (L, F) f32
   void* acts_out;   // (L, n, F) compute dtype or null (K3 only)
   int n, layers, feat, cx, skip_mask, sin_mode, bf16;
   float w0_scale;
+  const void* w0_lo;  // K6 in f32: the tf32 lo parts (tc_split_weights); else null
+  const void* w_mid_lo;
+  const void* w_skip_lo;
 };
 
 namespace {
 
-using namespace satnerf::tile;
-using namespace satnerf::trunk;
-
 constexpr int kFeat = 512;
-constexpr int kSubTiles = 2;  // K6: row sub-tiles (thread groups) per block
 
 namespace fw = satnerf::fwd;
+namespace tc = satnerf::tc;
+namespace ws = satnerf::ws;
 
 template <typename T, int F>
 __global__ void __launch_bounds__(fw::kThreads, 1)
@@ -78,52 +80,35 @@ __global__ void __launch_bounds__(fw::kThreads, 1)
                              nullptr, nullptr);
 }
 
+// K6: the producer warpgroup (threads 256 .. 383) streams the weights, the
+// two consumer warpgroups (0 .. 255) run the trunk over the block's 64 rows
 template <typename T, int F>
-__global__ void __launch_bounds__(kSubTiles * kThreads, 1)
-trunk_fwd_il_kernel(const TrunkArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int ldh = F + kPad;
-  const int ldx = a.cx + kPad;
-  const int grp = threadIdx.x / kThreads;  // 0: A, 1: B
-  const unsigned tid = threadIdx.x % kThreads;
-  T* X = reinterpret_cast<T*>(smem_raw) + grp * kRows * (ldx + ldh);
-  T* H = X + kRows * ldx;
-  const int row0 = (blockIdx.x * kSubTiles + grp) * kRows;
-  load_tile(X, ldx, static_cast<const T*>(a.x), a.cx, row0, a.n, tid, kThreads);
-  __syncthreads();
-  const T* w_mid = static_cast<const T*>(a.w_mid);
-  const T* w_skip = static_cast<const T*>(a.w_skip);
-  const float* b = static_cast<const float*>(a.b);
-  float acc[Map<F>::kRpt][2];
-  const int steps = 2 * a.layers;
-  for (int p = 0; p <= steps; ++p) {
-    const int step = p - grp;
-    if (step >= 0 && step < steps) {
-      const int i = step / 2;
-      if (step % 2 == 0) {  // layer i's products, into registers
-        if (i == 0) {
-          layer_acc<F, T>(acc, X, ldx, a.cx, static_cast<const T*>(a.w0), nullptr, 0, 0,
-                          nullptr, tid);
-        } else {
-          const bool skip = (a.skip_mask >> i) & 1;
-          const int s = __popc(a.skip_mask & ((1 << i) - 1));  // skips before layer i
-          layer_acc<F, T>(acc, H, ldh, F, w_mid + static_cast<size_t>(i - 1) * F * F,
-                          skip ? X : nullptr, ldx, a.cx,
-                          skip ? w_skip + static_cast<size_t>(s) * a.cx * F : nullptr, tid);
-        }
-      } else if (i == 0) {  // its epilogue, in place in H: layer 0 with the w0
-        // scale, the others with the constant 1, as trunk_tile instantiates
-        // them, so nvcc contracts each sine argument as it does in K3
-        layer_store<F, T, false>(acc, b, H, ldh, kSine, a.w0_scale, a.sin_mode, nullptr,
-                                 0, 0, tid);
-      } else {
-        layer_store<F, T, false>(acc, b + i * F, H, ldh, kSine, 1.0f, a.sin_mode, nullptr,
-                                 0, 0, tid);
-      }
+__global__ void __launch_bounds__(ws::kThreads, 1)
+    trunk_fwd_il_kernel(const __grid_constant__ TrunkArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  using S = ws::Smem<T, F>;
+  constexpr int kSlots = ws::Ring<T>::kSlots;
+  unsigned char* smem = fw::align1024(smem_raw);
+  T* H = reinterpret_cast<T*>(smem);
+  T* X = H + fw::kRows * S::kLdh;
+  const uint32_t ring = tc::smem_u32(smem + S::kRing);
+  const uint32_t full = tc::smem_u32(smem + S::kBars), empty = full + 8 * kSlots;
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < kSlots; ++j) {
+      tc::mbar_init(full + 8 * j, 1);      // the producer's arrival with its bytes
+      tc::mbar_init(empty + 8 * j, 4);     // the four warps of the warpgroup that read it
     }
-    __syncthreads();
+    tc::fence_mbar_init();
   }
-  store_tile<T, F>(static_cast<T*>(a.out), H, ldh, row0, a.n - row0, tid, kThreads);
+  __syncthreads();  // the block's one barrier
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 2) {
+    ws::regs_dec<ws::Ring<T>::kProducerRegs>();
+    if (threadIdx.x == ws::kConsumers) ws::produce<T, F>(a, ring, full, empty);
+    return;
+  }
+  ws::regs_inc<ws::Ring<T>::kConsumerRegs>();
+  ws::consume<T, F>(a, wg, H, X, ring, full, empty, blockIdx.x * fw::kRows);
 }
 
 template <typename T>
@@ -145,15 +130,15 @@ int launch(const TrunkArgs& a, cudaStream_t stream) {
 
 template <typename T>
 int launch_il(const TrunkArgs& a, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * kSubTiles * kRows *
-                      static_cast<size_t>((a.cx + kPad) + (kFeat + kPad));
+  constexpr bool f32 = sizeof(T) == 4;
+  if (fw::round16(a.cx) > fw::kMaxK ||
+      f32 != (a.w0_lo != nullptr && a.w_mid_lo != nullptr && a.w_skip_lo != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = ws::Smem<T, kFeat>::kBytes;
   auto kern = trunk_fwd_il_kernel<T, kFeat>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows_per_block = kSubTiles * kRows;
-  kern<<<(a.n + rows_per_block - 1) / rows_per_block, kSubTiles * kThreads, smem,
-         stream>>>(a);
+  kern<<<(a.n + fw::kRows - 1) / fw::kRows, ws::kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

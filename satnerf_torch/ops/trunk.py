@@ -13,8 +13,11 @@ for CPU tensors they run their plain PyTorch versions
 autograd :func:`fused_trunk` goes through :class:`FusedTrunk`: K3 forward,
 K4 backward. K1 (``ops/field_fused.py``) runs the same trunk in front of its
 heads; the CUDA trunk loop of both is ``csrc/trunk_tc.cuh`` (tensor cores),
-which takes the weights prepared by :func:`tc_trunk_weights`; K6 keeps the
-f32 FMA loop of ``csrc/trunk_layers.cuh`` on the packed weights.
+which takes the weights prepared by :func:`tc_trunk_weights`.
+:func:`fused_trunk_interleaved` (K6, off every path) runs the same
+arithmetic on the warp-specialised ping-pong loop of ``csrc/trunk_ws.cuh``,
+on the same prepared weights (in f32 split once into tf32 hi and lo by
+:func:`tc_split_weights`), and equals K3 bit for bit.
 
 The trunk is ``h_0 = sin(w0 * (x @ W0 + b0))``,
 ``h_i = sin(h_{i-1} @ W_i [+ x @ Ws_i] + b_i)``, on the packed layout of
@@ -177,6 +180,22 @@ TRUNK_LAYOUTS = {
 }
 
 
+TC_SPLIT_KEYS = ("w0", "w_mid", "w_skip")
+
+
+def tc_split_weights(prepared: dict) -> dict:
+    """K6's weights from :func:`tc_trunk_weights`'s: in f32 each weight split
+    once into tf32 hi (under its own key) and lo (``<key>_lo``), the rounding
+    of ``_bwd.split_tf32``, which K3 applies in the kernel to every chunk it
+    stages; bf16 weights and the bias as they are."""
+    if prepared["w0"].dtype != torch.float32:
+        return prepared
+    out = dict(prepared)
+    for k in TC_SPLIT_KEYS:
+        out[k], out[f"{k}_lo"] = _bwd.split_tf32(prepared[k])
+    return out
+
+
 def tc_trunk_weights(packed: dict) -> dict:
     """The trunk's packed weights prepared for ``csrc/trunk_tc.cuh``: w0,
     w_mid (per layer) and w_skip (per skip), each W^T of the packed (in, out)
@@ -248,6 +267,7 @@ class _TrunkArgs(ctypes.Structure):
         + [(k, ctypes.c_int) for k in ("n", "layers", "feat", "cx", "skip_mask",
                                        "sin_mode", "bf16")]
         + [("w0_scale", ctypes.c_float)]
+        + [(f"{k}_lo", ctypes.c_void_p) for k in TC_SPLIT_KEYS]
     )
 
 
@@ -269,12 +289,15 @@ def _check_forward(name: str, spec, x, packed) -> None:
 
 
 def _launch_forward(fn_name: str, spec, x, packed, out, acts) -> None:
-    """One launch of ``fn_name`` on ``packed``: K3 takes the weights of
-    :func:`tc_trunk_weights`, K6 the packed ones."""
+    """One launch of ``fn_name`` on the prepared weights ``packed``: those of
+    :func:`tc_trunk_weights` (K3), or of :func:`tc_split_weights` (K6, whose
+    f32 lo parts go to the ``*_lo`` fields)."""
     lib = load_library("trunk_fwd")
     args = _TrunkArgs()
+    lo = [f"{k}_lo" for k in TC_SPLIT_KEYS]
     for k, t in (("x", x), ("out", out), ("acts_out", acts),
-                 *((k, packed[k]) for k in TRUNK_KEYS)):
+                 *((k, packed[k]) for k in TRUNK_KEYS),
+                 *((k, packed.get(k)) for k in lo)):
         setattr(args, k, t.data_ptr() if t is not None else None)
     args.n, args.layers, args.feat, args.cx = x.shape[0], spec.layers, spec.feat, spec.cx
     args.skip_mask = sum(1 << i for i in spec.skips)
@@ -347,19 +370,33 @@ def fused_trunk(spec, x: torch.Tensor, packed: dict) -> torch.Tensor:
     return _forward(spec, x, packed, emit_acts=False)[0]
 
 
-def fused_trunk_interleaved(spec, x: torch.Tensor, packed: dict) -> torch.Tensor:
-    """K6: :func:`fused_trunk`'s function computed over two interleaved row
-    sub-tiles per block (forward only, as the prototype), on the f32 FMA
-    units; bitwise repeatable, within the field bar of the plain version.
-    CPU tensors run :func:`fused_trunk_reference`; CUDA
-    tensors launch K6 (counted in ``INTERLEAVED_LAUNCHES``) or raise."""
+def fused_trunk_interleaved(spec, x: torch.Tensor, packed: dict,
+                            emit_acts: bool = False) -> torch.Tensor:
+    """K6: :func:`fused_trunk`'s function (forward only, as the prototype),
+    computed by the warp-specialised ping-pong kernel of ``csrc/trunk_ws.cuh``
+    on the weights K3 takes; bitwise equal to K3. It is defined for what the
+    kernel takes (feat 512, at most 64 padded inputs, no pre-activations) on
+    every device. CPU tensors run :func:`fused_trunk_reference`; CUDA tensors
+    launch K6 (counted in ``INTERLEAVED_LAUNCHES``) or raise."""
     global INTERLEAVED_LAUNCHES
+    name = "fused_trunk_interleaved"
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if spec.feat not in FEAT_WIDTHS:
+        raise ValueError(f"{name} kernel is built for feat in {FEAT_WIDTHS}, got {spec.feat}")
+    if _bwd.padded_k(spec.cx) > TC_MAX_K:
+        raise ValueError(f"{name} kernel takes at most {TC_MAX_K} inputs, got {spec.cx}")
+    if emit_acts:
+        raise ValueError(f"{name} writes no pre-activations (emit_acts)")
     if x.device.type == "cpu":
         return fused_trunk_reference(spec, x, packed)[0]
-    _check_forward("fused_trunk_interleaved", spec, x, packed)
+    _check_forward(name, spec, x, packed)
     out = torch.empty((x.shape[0], spec.feat), dtype=x.dtype, device=x.device)
     if x.shape[0]:
-        _launch_forward("trunk_fwd_interleaved", spec, x, packed, out, None)
+        prepared = tc_cached(f"trunk/{x.dtype}", packed, lambda: tc_trunk_weights(packed))
+        split = tc_cached(f"trunk_split/{x.dtype}", packed,
+                          lambda: tc_split_weights(prepared))
+        _launch_forward("trunk_fwd_interleaved", spec, x, split, out, None)
         INTERLEAVED_LAUNCHES += 1
     return out
 

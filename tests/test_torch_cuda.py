@@ -299,8 +299,10 @@ def _trunk_case(cuda_device, n=1001, **cfg_kw):
 @pytest.mark.parametrize("emit_acts", [False, True])
 def test_cuda_trunk_kernel_matches_plain(cuda_device, dtype, emit_acts, record_property):
     """K3 against its plain version at feat 512 on 1,001 points (ragged
-    against the 64-row tile), bitwise repeatable; K6 bitwise repeatable and
-    within the same bar of the plain version."""
+    against the 64-row tile), bitwise repeatable; K6 (the warp-specialised
+    ping-pong loop of csrc/trunk_ws.cuh, which keeps K3's order of sums and
+    its epilogue) bitwise equal to K3 and so within the same bar of the
+    plain version."""
     from satnerf_torch.ops import field_fused as ff
     from satnerf_torch.ops import trunk
 
@@ -317,9 +319,10 @@ def test_cuda_trunk_kernel_matches_plain(cuda_device, dtype, emit_acts, record_p
         assert (trunk.FWD_LAUNCHES, trunk.INTERLEAVED_LAUNCHES) == (before[0] + 2, before[1] + 2)
         ref, ref_acts = trunk.fused_trunk_reference(spec, x, packed, emit_acts)
     assert out.dtype == dtype and out.shape == (x.shape[0], 512)
-    # K3 on the tensor cores, K6 on the FMA units: each bitwise repeatable,
-    # each within the field bar of the plain version
+    # each bitwise repeatable; K6 bitwise K3 (whose output does not depend
+    # on emit_acts)
     assert torch.equal(out, again) and torch.equal(il, il2)
+    assert torch.equal(il, out)
     # chip_smoke.py TOL_FIELD / TOL_RESID say why bf16 has its own bar
     tol = 5e-5 if dtype == torch.float32 else 2e-2
     err = float((out.float() - ref.float()).abs().max())
@@ -331,6 +334,34 @@ def test_cuda_trunk_kernel_matches_plain(cuda_device, dtype, emit_acts, record_p
         assert _rel(acts, ref_acts) < (5e-5 if dtype == torch.float32 else 4e-2)
     else:
         assert acts is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 65, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_interleaved_trunk_ragged(cuda_device, n, dtype):
+    """K6 at ragged n (one row, one past the 64-row tile, 300): one launch
+    per call, bitwise equal to K3 and to itself, within the field bar of the
+    plain version, on weights whose preparation is cached."""
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    _, field, spec, enc = _trunk_case(cuda_device, n=n)
+    with torch.no_grad():
+        packed = field.packed(dtype)
+        x = ff.pack_x(spec, enc, dtype)
+        before = trunk.INTERLEAVED_LAUNCHES
+        il = trunk.fused_trunk_interleaved(spec, x, packed)
+        il2 = trunk.fused_trunk_interleaved(spec, x, packed)
+        k3 = trunk.fused_trunk(spec, x, packed)
+        torch.cuda.synchronize()
+        assert trunk.INTERLEAVED_LAUNCHES == before + 2
+        ref = trunk.fused_trunk_reference(spec, x, packed)[0]
+    assert il.shape == (n, 512) and il.dtype == dtype
+    assert torch.equal(il, il2) and torch.equal(il, k3)
+    tol = 5e-5 if dtype == torch.float32 else 2e-2
+    assert float((il.float() - ref.float()).abs().max()) < tol
+    assert f"trunk_split/{dtype}" in packed.prepared
 
 
 @pytest.mark.cuda

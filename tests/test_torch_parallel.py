@@ -4,9 +4,18 @@ port, against one process of the port.
 
 * One flagship-layout step (every loss term on, a 2 x 64 field) whose two
   shards hold different numbers of masked rays and of car rays, also with
-  ``grad_accum`` 2 (the global batch's micro-batches): the loss
-  within rtol 2e-5 and the parameters within 1e-6 of one process, the JAX
-  package's bars for its sharded step (``tests/test_parallel.py``).
+  ``grad_accum`` 2 (the global batch's micro-batches), checked for what data
+  parallelism changes, the order in which the gradient is summed: the loss
+  within rtol 2e-5 and the first trunk layer's weight within 1e-6 of one
+  process (the JAX package's bars for its sharded step,
+  ``tests/test_parallel.py``); every all-reduced gradient within
+  ``TOL_GRAD`` of its largest one-process component; the two ranks'
+  parameters bitwise equal; and the one-process Adam, applied to rank 0's
+  gradient, giving rank 0's parameters bit for bit. (Adam's first step
+  lr * g / (|g| + 1e-8) turns the rounding of a sum over two ranks into a
+  parameter difference of up to lr for the components near 1e-8, so a bar
+  on every parameter after the step measures that rounding, not the data
+  parallelism.)
 * The fault those bars guard against: averaging the two shards' own losses
   misses the one-process loss by more than rtol 2e-5.
 * A sharded validation render against the single one (1e-5, labels equal).
@@ -33,11 +42,18 @@ from satnerf_torch.render.renderer import render_image_chunked
 from satnerf_torch.run import training
 from satnerf_torch.train.checkpoint import export_params
 from satnerf_torch.train.step import build_train_step, compute_losses
-from torch_dp_case import GRAD_ACCUM, STEP_SEED, STOP_STEP, render_case, step_case
+from satnerf_torch.train.state import trainable
+from torch_dp_case import (GRAD_ACCUM, STEP_SEED, STOP_STEP, record_grads, render_case,
+                           step_case, trainable_names)
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL_LOSS, TOL_PARAM = 2e-5, 1e-6  # tests/test_parallel.py
+# all-reduced against one-process gradients, max |dg| / max |g| per tensor:
+# measured 4.9e-7 (grad_accum 1) and 4.1e-7 (2) in runs alone, up to 3.7e-6
+# in a run beside six busy processes
+TOL_GRAD = 1e-5
+FIRST_TRUNK_W = "model_coarse.fc_net.0.weight"  # tests/test_parallel.py:58 trunk[0].w
 FIT_PIPE = dict(n_samples=8, fc_layers=2, fc_units=64, fc_skips=[1], batch_size=256,
                 render_chunk_size=4096, first_beta_epoch=0, depth_enabled=True,
                 use_car_reg_loss=True, car_reg_loss_start=0)
@@ -89,20 +105,37 @@ def ranks(tmp_path_factory):
 @pytest.mark.parametrize("grad_accum", GRAD_ACCUM)
 def test_two_ranks_step_matches_one_process(ranks, grad_accum):
     scfg, state, batch = step_case(grad_accum)
+    want_grads = record_grads(state)
     state, metrics = build_train_step(scfg)(state, batch,
                                             torch.Generator().manual_seed(STEP_SEED))
     want = export_params(state.params)
-    for r in range(2):
-        got = torch.load(ranks["out"] / f"step_rank{r}_k{grad_accum}.pt", weights_only=True)
-        assert set(got["metrics"]) == set(metrics)
+    got = [torch.load(ranks["out"] / f"step_rank{r}_k{grad_accum}.pt", weights_only=True)
+           for r in range(2)]
+    for g in got:
+        assert set(g["metrics"]) == set(metrics)
         for k, v in metrics.items():
-            np.testing.assert_allclose(got["metrics"][k], v.item(), rtol=TOL_LOSS,
+            np.testing.assert_allclose(g["metrics"][k], v.item(), rtol=TOL_LOSS,
                                        atol=1e-7, err_msg=k)
-        for k, v in want.items():
-            torch.testing.assert_close(got["params"][k], v, rtol=0, atol=TOL_PARAM)
-        assert got["local_batch"] == 32
-        assert got["odd_batch"] == ("global batch 63 is not divisible by the pod's 2 devices "
-                                    "(realized batch would be 62)")
+        assert set(g["grads"]) == set(want_grads) and set(g["params"]) == set(want)
+        for k, v in want_grads.items():  # the all-reduce sums what one process sums
+            err = float((g["grads"][k] - v).abs().max())
+            assert err <= TOL_GRAD * float(v.abs().max()), (k, err)
+        torch.testing.assert_close(g["params"][FIRST_TRUNK_W], want[FIRST_TRUNK_W], rtol=0,
+                                   atol=TOL_PARAM)
+        assert g["local_batch"] == 32
+        assert g["odd_batch"] == ("global batch 63 is not divisible by the pod's 2 devices "
+                                  "(realized batch would be 62)")
+    for k in want:  # both ranks step with the same gradient: replicas stay equal
+        assert torch.equal(got[0]["params"][k], got[1]["params"][k]), k
+    # the one-process optimizer on rank 0's gradient: rank 0's step, exactly
+    _, replay, _ = step_case(grad_accum)
+    for name, p in zip(trainable_names(replay.params), trainable(replay.params)):
+        p.grad = got[0]["grads"][name].clone()
+    for group in replay.optimizer.param_groups:
+        group["lr"] = replay.schedule(replay.step)
+    replay.optimizer.step()
+    for k, v in export_params(replay.params).items():
+        assert torch.equal(v, got[0]["params"][k]), k
     for k in ("coarse_semantic", "coarse_car_reg_loss", "coarse_ds", "coarse_sc_term2"):
         assert metrics[k].item() != 0.0, k  # every term the shards split is on
 

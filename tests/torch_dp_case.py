@@ -6,7 +6,8 @@ each of its two gloo ranks runs:
 
 Each rank (1) takes one flagship-layout training step on ``step_case``'s
 global batch, whose two halves hold different numbers of masked rays and of
-car rays, (2) renders ``render_case``'s rays through
+car rays, and keeps the all-reduced gradients Adam stepped with
+(``record_grads``), (2) renders ``render_case``'s rays through
 ``render_image_sharded``, (3) trains the run of RUN_TOML (``data_parallel =
 2``) until rank 1 alone asks to stop at STOP_STEP, and writes what it got
 under OUT_DP. It imports no JAX.
@@ -25,7 +26,7 @@ if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
 from satnerf_torch.configs import load_configs, load_pipeline_toml, step_config_from_pipeline  # noqa: E402
-from satnerf_torch.train.state import create_train_state, init_params  # noqa: E402
+from satnerf_torch.train.state import create_train_state, init_params, trainable  # noqa: E402
 
 SMALL = dict(n_samples=8, fc_layers=2, fc_units=64, fc_skips=[1])
 # every loss term on from step 0: beta and car-reg gates open, beta for the
@@ -73,6 +74,28 @@ def step_case(grad_accum: int = 1):
     return scfg, state, {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
+def trainable_names(params: dict) -> list:
+    """The names of ``export_params`` for ``trainable(params)``, in its order."""
+    names = [f"model_coarse.{n}" for n, _ in params["field"].named_parameters()]
+    if params.get("fine") is not None:
+        names += [f"model_fine.{n}" for n, _ in params["fine"].named_parameters()]
+    return names + [f"model_{k}.weight" for k in ("t", "t_s") if params.get(k) is not None]
+
+
+def record_grads(state) -> dict:
+    """-> a dict that the next ``state.optimizer.step()`` fills with copies of
+    the gradients it steps with ({name: grad}): after the all-reduce and the
+    1/K of ``grad_accum``, before Adam."""
+    got = {}
+    names, leaves = trainable_names(state.params), trainable(state.params)
+
+    def keep(optimizer, args, kwargs):
+        got.update({n: p.grad.detach().clone() for n, p in zip(names, leaves)})
+
+    state.optimizer.register_step_pre_hook(keep)
+    return got
+
+
 def _rays(n: int, rng):
     o = np.concatenate([rng.uniform(-0.8, 0.8, (n, 2)), np.ones((n, 1))], 1)
     d = np.concatenate([rng.uniform(-0.15, 0.15, (n, 2)), -np.ones((n, 1))], 1)
@@ -113,10 +136,11 @@ def main(out_dp: str, run_fp: str, pipe_fp: str) -> int:
         for k in GRAD_ACCUM:
             scfg, state, batch = step_case(k)
             replicated(state.params, layout)
+            grads = record_grads(state)
             state, metrics = build_train_step(scfg, layout)(
                 state, batch, torch.Generator().manual_seed(STEP_SEED))
             torch.save({"metrics": {k: v.item() for k, v in metrics.items()},
-                        "params": export_params(state.params),
+                        "params": export_params(state.params), "grads": grads,
                         "local_batch": local_batch_slice(N_RAYS), "odd_batch": odd_batch},
                        os.path.join(out_dp, f"step_rank{rank}_k{k}.pt"))
 
