@@ -123,7 +123,18 @@ JSON line per phase:
    the adapter georegistered) with the launches of K1, K2, K4, K5 and K5's
    backward by the schedule and no plain version, the plain rgb MSE
    falling; the eval battery inline over the predefined test split (K1 and
-   K5 once per chunk; PSNR/SSIM, altitude MAE, semantic accuracy and mIoU).
+   K5 once per chunk; PSNR/SSIM, altitude MAE, semantic accuracy and mIoU);
+21. ``quality_tools``: ``python -m satnerf_torch.tools.ours_train_eval``'s
+   ``main`` at full width (8x512, 64 samples, 1,024 rays, bf16, the poly
+   sine) on a generated 4 + 2-view 64x64 scene, 300 steps with curve evals
+   at steps 100 and 200 and at the end: every results JSON's PSNR, SSIM,
+   MAE, accuracy and mIoU finite, the test PSNR at the end above step
+   100's, the launches of K1, K2, K4, K5 and K5's backward by the step and
+   validation schedule plus K1 and K5 once per eval chunk, no plain
+   version; ``tools.sin_swap_eval`` of that run under poly, poly5 and
+   poly7f, each engine's renders through K1 under its ``SinMode``
+   (``ops/field_fused.py:LAUNCHES_BY_SIN``); ``tools.quality_gate`` on the
+   results JSON.
 
 K1's and K3's bounds are given three ways: f32 products as 3xTF32 on the
 tensor cores (bound_ms in f32), on the f32 FMA units, and bf16 on the
@@ -243,6 +254,14 @@ SWEEP_STEPS = 8  # each of the sweep's two runs, then its one validation
 # validations are the sanity one and the run's last)
 PREP = {"n_views": 14, "img_size": 512, "n_tie_points": 300}
 PREP_STEPS = 200
+# quality_tools: ours_train_eval at full width (8 x 512, 64 samples, 1,024
+# rays, bf16, the poly sine) on a 4 + 2-view 64 x 64 scene, QUALITY_STEPS
+# steps (an epoch is 16 steps; the depth drop at 75) with curve evals at
+# QUALITY_EVAL_AT and at the end, then sin_swap_eval and quality_gate
+QUALITY_SCENE = {"n_train": 4, "n_test": 2, "img_size": 64, "n_tie_points": 300}
+QUALITY_STEPS = 300
+QUALITY_EVAL_AT = (100, 200)
+QUALITY_SINS = ("poly", "poly5", "poly7f")
 
 
 def op_bounds(flops: float, dname: str) -> dict:
@@ -2636,6 +2655,112 @@ def prep_scene_phase(dev, work: str) -> dict:
     return line
 
 
+def quality_tools_phase(dev, work: str) -> dict:
+    """The quality tools on the card: ``tools.ours_train_eval`` at full
+    width (QUALITY_SCENE, QUALITY_STEPS steps in bf16, curve evals at
+    QUALITY_EVAL_AT): every results JSON's metrics finite, PSNR at the last
+    horizon above the first, the launches of K1, K2, K4, K5 and K5's
+    backward by the step and validation schedule plus K1 and K5 once per
+    eval chunk, no plain version; ``tools.sin_swap_eval`` of the run under
+    QUALITY_SINS, each engine's renders through K1 under its ``SinMode``;
+    ``tools.quality_gate`` on the results JSON."""
+    import contextlib
+    import io
+
+    from satnerf_torch.datasets.synthetic import generate_scene
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.tools import ours_train_eval, quality_gate, sin_swap_eval
+    from satnerf_torch.train.loop import Trainer
+
+    t_phase = time.monotonic()
+    scene = os.path.join(work, "datasets", "SYN_Q")
+    generate_scene(scene, **QUALITY_SCENE)
+    out = os.path.join(work, "quality", "poly_s0")
+    trainers = []
+    fit = Trainer.fit
+
+    def recorded_fit(self, *args, **kwargs):
+        trainers.append(self)
+        return fit(self, *args, **kwargs)
+
+    try:
+        Trainer.fit = recorded_fit
+        reset_counters()
+        t0 = time.monotonic()
+        rc = ours_train_eval.main([
+            scene, out, "--steps", str(QUALITY_STEPS), "--batch", str(TRAIN_RAYS),
+            "--n-samples", "64", "--units", "512", "--dtype", "bfloat16",
+            "--eval-at", ",".join(map(str, QUALITY_EVAL_AT)), "--device", dev.type])
+        run_s = time.monotonic() - t0
+        got, plain_calls = read_counters()
+    finally:
+        Trainer.fit = fit
+        disable_tf32()
+    check(rc == 0 and len(trainers) == 1, f"ours_train_eval exited {rc}")
+    trainer = trainers[0]
+    results = {}
+    for step in QUALITY_EVAL_AT + (QUALITY_STEPS,):
+        name = "results.json" if step == QUALITY_STEPS else f"results_step{step}.json"
+        with open(os.path.join(out, name)) as f:
+            r = json.load(f)
+        check(all(math.isfinite(r[k]) for k in ("psnr", "ssim", "mae", "acc", "miou")),
+              f"quality_tools {name}: {r}")
+        results[step] = {k: r[k] for k in ("psnr", "ssim", "mae", "acc", "miou")}
+    first, last = results[QUALITY_EVAL_AT[0]]["psnr"], results[QUALITY_STEPS]["psnr"]
+    check(last > first, f"test PSNR did not rise: step {QUALITY_EVAL_AT[0]} {first}, "
+                        f"step {QUALITY_STEPS} {last}")
+    rgb_test = trainer.pipeline.datasets["rgb_test"]
+    eval_chunks = (len(QUALITY_EVAL_AT) + 1) * sum(  # evaluate_ours: 8,192-ray chunks
+        -(-len(item["rays"]) // 8192) for item in rgb_test.data[1:])
+    want = scene_expected_launches(trainer, QUALITY_STEPS, trainer.pipeline.ds_drop_step)
+    want["field_fused"] += eval_chunks
+    want["composite"] += eval_chunks
+    check(got == want, f"quality_tools launches {got}, expected {want}")
+    check(not any(plain_calls.values()), f"quality_tools: a plain version ran: {plain_calls}")
+
+    # the same checkpoint under each engine: K1 under that SinMode, no plain field
+    run_dp = trainer.cfg.run.run_dp
+    swap_dp = os.path.join(work, "sinswap")
+    try:
+        reset_counters()
+        t0 = time.monotonic()
+        rc = sin_swap_eval.main([run_dp, "--sins", ",".join(QUALITY_SINS), "--out", swap_dp,
+                                 "--device", dev.type])
+        swap_s = time.monotonic() - t0
+        swap_got, swap_plain = read_counters()
+    finally:
+        disable_tf32()  # load_run applied the run's matmul_precision "high"
+    with open(os.path.join(swap_dp, "summary.json")) as f:
+        rows = json.load(f)
+    test_chunks = sum(-(-len(item["rays"]) // 16384) for item in rgb_test.data[1:])
+    check(rc == 0 and [r["eval_sin"] for r in rows] == list(QUALITY_SINS),
+          f"sin_swap_eval exited {rc}: {rows}")
+    check(all(r["field_kernel_launches"] == test_chunks and r["plain_field_calls"] == 0
+              and all(math.isfinite(r[k]) for k in ("psnr", "ssim", "mae")) for r in rows),
+          f"sin_swap_eval rows {rows}")
+    _check_chunk_launches("quality_tools sin_swap", swap_got, swap_plain,
+                          len(QUALITY_SINS) * test_chunks)
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = quality_gate.main([os.path.dirname(out), "--engines", "poly", "--seeds", "0"])
+    table = text.getvalue()
+    check(rc == 0 and "| poly seed 0 |" in table and "DECISION" in table,
+          f"quality_gate exited {rc}: {table}")
+    line = {
+        "phase": "quality_tools", "scene": QUALITY_SCENE, "steps": QUALITY_STEPS,
+        "eval_at": QUALITY_EVAL_AT, "results": results, "launches": got,
+        "expected_launches": want, "plain_calls": plain_calls,
+        "depth_drop_step": trainer.pipeline.ds_drop_step,
+        "loop_ms_per_step_host": trainer.ms_per_step, "ours_train_eval_s": run_s,
+        "sin_swap": rows, "sin_swap_launches": swap_got, "sin_swap_s": swap_s,
+        "quality_gate": table.strip().splitlines(),
+        "seconds": time.monotonic() - t_phase,
+    }
+    emit(line)
+    return line
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if "--tree" in argv:
@@ -2981,8 +3106,8 @@ def main() -> int:
     # ---- 14-20. the training CLI on a generated scene, resume, serving its best;
     # the eval battery on that run; the run served by view name over HTTP; its
     # visualizers re-rendered; the scene over two data-parallel ranks; a sweep;
-    # 21. a dataset built by the port from a DFC2019 distribution, trained on
-    # and evaluated ----
+    # a dataset built by the port from a DFC2019 distribution, trained on and
+    # evaluated; 21. the quality tools ----
     import shutil
     import tempfile
 
@@ -2996,6 +3121,8 @@ def main() -> int:
         sweep = sweep_phase(dev, work)
         os.makedirs(os.path.join(work, "prep"))
         prep = prep_scene_phase(dev, os.path.join(work, "prep"))
+        os.makedirs(os.path.join(work, "quality_tools"))
+        quality = quality_tools_phase(dev, os.path.join(work, "quality_tools"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3011,7 +3138,9 @@ def main() -> int:
                 "train_dp_one_process": train_dp["launches_one_process"][kernel],
                 "train_dp_nccl": train_dp["launches_nccl_world_of_one"][kernel],
                 "sweep": sweep["launches"][kernel], "prep_scene": prep["launches"][kernel],
-                "prep_scene_eval": prep["eval_launches"][kernel]}
+                "prep_scene_eval": prep["eval_launches"][kernel],
+                "quality_tools": quality["launches"][kernel],
+                "quality_tools_sin_swap": quality["sin_swap_launches"][kernel]}
 
     f32 = times["float32"]
     k1t = train_t["field_fused"]

@@ -71,6 +71,7 @@ HIDDEN_BIAS_ROWS = ("rgb0", "sv0", "sv1", "sv2", "sky0", "b0", "s0")
 KERNEL_WIDTHS = ((512, 256), (512, 512))
 
 LAUNCHES = 0  # K1 launches made by fused_field (CUDA tensors only)
+LAUNCHES_BY_SIN = {m: 0 for m in SIN_MODES}  # the same launches, by the kernel's SinMode
 HEADS_BWD_LAUNCHES = 0  # heads_backward calls that launched K2 (CUDA only)
 PLAIN_CALLS = 0  # fused_field_reference and heads_backward_reference calls
 # widths the heads backward kernels are instantiated for (csrc/field_bwd.cu)
@@ -613,6 +614,7 @@ def _forward(spec: FieldSpec, x, aux, packed, resid: bool):
     if n:
         _launch(spec, x, aux, packed, out, shared, acts)
         LAUNCHES += 1
+        LAUNCHES_BY_SIN[spec.sin_mode] += 1
     return out, shared, acts
 
 

@@ -9,8 +9,9 @@ Policy as in the reference: track the best ``train/mae`` (minimum), keep
 ``model_t.weight``, ``model_t_s.weight``; :func:`export_params`), so
 ``models/import_params.py:load_lightning_ckpt``, the JAX package's
 ``params_from_lightning_ckpt`` and ``RenderService.from_checkpoint`` all
-read a port checkpoint. ``last`` adds the Adam state, ``step`` and
-``epoch``; ``best`` and the epoch snapshots are params-only.
+read a port checkpoint. ``last`` adds the Adam state, ``step``, ``epoch``
+and the best MAE so far (so a resumed run saves ``best`` where one
+uninterrupted run does); ``best`` and the epoch snapshots are params-only.
 """
 
 from __future__ import annotations
@@ -109,6 +110,7 @@ class CheckpointManager:
                    "global_step": step, "epoch": step // self.steps_per_epoch}
         if not params_only:
             payload["optimizer"] = state.optimizer.state_dict()
+            payload["best_mae"] = self.best_mae  # a resume keeps the best-save policy
         path = self.path(name)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
@@ -139,8 +141,9 @@ class CheckpointManager:
     # -- restore -------------------------------------------------------------
     def restore(self, state: TrainState, name: str = "last",
                 path: str | None = None) -> TrainState:
-        """Restore params, Adam state and step in place, from this run's
-        ``name`` or an explicit checkpoint file; the file is read once."""
+        """Restore params, Adam state, step and the best MAE so far in place,
+        from this run's ``name`` or an explicit checkpoint file; the file is
+        read once."""
         t0 = time.monotonic()
         path = path or self.path(name)
         raw = torch.load(path, map_location="cpu", weights_only=True)
@@ -154,6 +157,7 @@ class CheckpointManager:
         load_params_(state.params, _nested_from_state(raw["state_dict"]))
         state.optimizer.load_state_dict(raw["optimizer"])
         state.step = int(raw["step"])
+        self.best_mae = float(raw.get("best_mae", float("inf")))
         self.seconds["restore"].append(time.monotonic() - t0)
         logger.info("Checkpoint", f"restored {os.path.basename(path)} at step {state.step}")
         return state

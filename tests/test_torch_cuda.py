@@ -700,9 +700,13 @@ def _reset_counts():
     from satnerf_torch.ops import field_fused as ff
     from satnerf_torch.ops import trunk
 
-    counters = {"k1": (ff, "LAUNCHES"), "k5": (comp, "LAUNCHES"), "k3": (trunk, "FWD_LAUNCHES"),
+    counters = {"k1": (ff, "LAUNCHES"), "k2": (ff, "HEADS_BWD_LAUNCHES"),
+                "k3": (trunk, "FWD_LAUNCHES"), "k4": (trunk, "LAUNCHES"),
+                "k5": (comp, "LAUNCHES"), "k5_bwd": (comp, "BWD_LAUNCHES"),
+                "k6": (trunk, "INTERLEAVED_LAUNCHES"),
                 "plain_field": (ff, "PLAIN_CALLS"), "plain_trunk": (fld, "PLAIN_CALLS"),
-                "plain_k3": (trunk, "FWD_PLAIN_CALLS"), "plain_k5": (comp, "PLAIN_CALLS")}
+                "plain_k3": (trunk, "FWD_PLAIN_CALLS"), "plain_k4": (trunk, "PLAIN_CALLS"),
+                "plain_k5": (comp, "PLAIN_CALLS")}
     torch.cuda.synchronize()
     for mod, name in counters.values():
         setattr(mod, name, 0)
@@ -855,3 +859,89 @@ def test_cuda_trains_on_a_dataset_the_port_prepared(cuda_device, tmp_path):
         2 * drop + (6 - drop), got
     assert not any(v for k, v in got.items() if "PLAIN" in k), got
     assert all(np.isfinite(v) for h in trainer.history for v in h.values())
+
+
+def _trained_through_the_kernels(got: dict) -> None:
+    assert got["k1"] > 0 and got["k2"] == got["k4"] > 0, got
+    assert got["k5"] > 0 and got["k5_bwd"] > 0 and got["k3"] == got["k6"] == 0, got
+    assert not any(v for k, v in got.items() if k.startswith("plain")), got
+
+
+@pytest.mark.cuda
+def test_cuda_examples_run_on_the_card(cuda_device, tmp_path, monkeypatch, capsys):
+    """The four examples on the card, as ``python -m
+    satnerf_torch.examples.<name>`` runs them (their ``main``, in this
+    process): 01 trains through K1, K2, K4, K5 and K5's backward with no plain
+    version; 02's battery and 03's three views render through K1 and K5 once
+    per chunk; 04's checkpoint round trip is exact."""
+    import glob
+    import importlib
+    import os
+
+    from satnerf_torch.device import disable_tf32
+
+    monkeypatch.setenv("SATNERF_EXAMPLES_OUT", str(tmp_path))
+    monkeypatch.setenv("SATNERF_EXAMPLES_STEPS", "12")
+    monkeypatch.setenv("SATNERF_EXAMPLES_IMG", "32")
+    launches = {}
+    try:
+        for name in ("01_train_synthetic", "02_eval_battery", "03_relight_views",
+                     "04_reference_interop"):
+            counts = _reset_counts()
+            assert importlib.import_module(f"satnerf_torch.examples.{name}").main(
+                ["--device", "cuda"]) == 0
+            launches[name] = counts()
+    finally:
+        disable_tf32()  # the eval loader applied the run's matmul precision
+    out = capsys.readouterr().out
+    _trained_through_the_kernels(launches["01_train_synthetic"])
+    # 02: the test split (a prepended train view and one test view of 32 x 32,
+    # one 16,384-ray chunk each); 03: three views of 32 x 32 at chunk 4,096
+    for name, chunks in (("02_eval_battery", 2), ("03_relight_views", 3)):
+        got = launches[name]
+        assert got["k1"] == got["k5"] == chunks, (name, got)
+        assert not any(v for k, v in got.items() if k.startswith("plain")), (name, got)
+    assert "PSNR" in out and out.count(" wrote ") == 3 and "round trip exact" in out
+    assert len(glob.glob(os.path.join(str(tmp_path), "relight", "*.png"))) == 3
+
+
+@pytest.mark.cuda
+def test_cuda_ours_train_eval_and_sin_swap_run_the_kernels(cuda_device, tmp_path):
+    """``ours_train_eval`` on the card (8 x 512 in bf16, 16 steps, a horizon
+    at 8): its launches by the trainer's schedule, no plain version, every
+    metric finite; then ``sin_swap_eval`` of the run under poly, poly5 and
+    poly7f: one K1 launch per chunk under each engine, no plain field."""
+    import json
+    import math
+    import os
+
+    from satnerf_torch.datasets.synthetic import generate_scene
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.tools import ours_train_eval, sin_swap_eval
+
+    scene = str(tmp_path / "datasets" / "SYN")
+    generate_scene(scene, n_train=2, n_test=1, img_size=32, n_tie_points=80)
+    out = str(tmp_path / "poly_s0")
+    counts = _reset_counts()
+    assert ours_train_eval.main([scene, out, "--steps", "16", "--batch", "256", "--units",
+                                 "512", "--n-samples", "16", "--eval-at", "8",
+                                 "--device", "cuda"]) == 0
+    _trained_through_the_kernels(counts())
+    for name in ("results.json", "results_step8.json"):
+        with open(os.path.join(out, name)) as f:
+            r = json.load(f)
+        assert all(math.isfinite(r[k]) for k in ("psnr", "ssim", "mae", "acc", "miou")), r
+    (run,) = os.listdir(os.path.join(out, "training"))
+    counts = _reset_counts()
+    try:
+        assert sin_swap_eval.main([os.path.join(out, "training", run), "--sins",
+                                   "poly,poly5,poly7f", "--out", str(tmp_path / "swap"),
+                                   "--device", "cuda"]) == 0
+    finally:
+        disable_tf32()
+    with open(str(tmp_path / "swap" / "summary.json")) as f:
+        rows = json.load(f)
+    assert [r["eval_sin"] for r in rows] == ["poly", "poly5", "poly7f"]
+    assert all(r["field_kernel_launches"] == 1 and r["plain_field_calls"] == 0
+               for r in rows), rows
+    assert counts()["plain_field"] == 0
