@@ -134,7 +134,18 @@ JSON line per phase:
    version; ``tools.sin_swap_eval`` of that run under poly, poly5 and
    poly7f, each engine's renders through K1 under its ``SinMode``
    (``ops/field_fused.py:LAUNCHES_BY_SIN``); ``tools.quality_gate`` on the
-   results JSON.
+   results JSON;
+22. ``trained_audit``: the kernels against their plain versions at trained
+   weights, where the checks above (at initial weights) do not reach: the
+   field ``quality_tools`` trained, and one trained the same way in f32 for
+   150 steps; one batch of their scene (1,024 rays + 1,024 depth rays, a
+   fixed seed) at the run's step through the kernels and through their
+   plain versions on the card (TF32 off), in f32 (3xTF32) and in bf16: every
+   loss term, every output of K1 on the same points, K5's weights and the
+   gradient of every parameter and of the t table, each within its bar
+   (``TOL_AUDIT``); beside them, how far bf16 moves the kernels, their plain
+   versions and the layer-by-layer field from the plain f32 step, and how
+   far the layer-by-layer f32 step is from it.
 
 K1's and K3's bounds are given three ways: f32 products as 3xTF32 on the
 tensor cores (bound_ms in f32), on the f32 FMA units, and bf16 on the
@@ -155,6 +166,7 @@ import subprocess
 import sys
 import time
 from contextlib import contextmanager as contextlib_contextmanager
+from contextlib import nullcontext as contextlib_nullcontext
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PIPELINE_TOML = os.path.join(REPO, "configs", "pipelines", "rs_semantic.toml")
@@ -262,6 +274,34 @@ QUALITY_SCENE = {"n_train": 4, "n_test": 2, "img_size": 64, "n_tie_points": 300}
 QUALITY_STEPS = 300
 QUALITY_EVAL_AT = (100, 200)
 QUALITY_SINS = ("poly", "poly5", "poly7f")
+# trained_audit: the field quality_tools trained (bf16, QUALITY_STEPS) and one
+# trained the same way in f32 for AUDIT_F32_STEPS; one batch of their scene
+# (TRAIN_RAYS rays + TRAIN_RAYS depth rays, drawn and jittered from AUDIT_SEED)
+# at the run's step through the kernels, against their plain versions on the
+# card (the same autograd functions and packed weights, TF32 off), in f32 and in
+# bf16: every loss term (TOL_STEP_LOSS's measure), every K1 output on the same
+# points, K5's weights and every gradient (rel_err). f32: the bars of the kernel
+# checks above (K1's outputs and K5's weights, which follow from them, at
+# TOL_FIELD; the gradients at TOL_FIELD_BWD; the loss terms at TOL_STEP_LOSS).
+# bf16: the same bf16 arithmetic on both sides, apart where an f32 sum in another
+# order flips a bf16 rounding; read on an H100 80GB HBM3 (700 W) at the two fields up
+# to 4.3e-6 on a loss term, 5.7e-3 on K1's outputs, 2.2e-4 on K5's weights and
+# 1.04e-2 on a gradient (at the 256² rung's step 8,000: 7.5e-6, 1.9e-2, 2.0e-4,
+# 1.65e-2), so the bars are TOL_STEP_LOSS, TOL_FIELD's and TOL_FIELD_BWD's bf16
+# 2e-2 and 1e-3 for the weights, each under tests/test_pallas_trunk.py:78's 0.1
+# between two engines. How far bf16 itself moves the step from
+# the plain f32 one is printed beside, for the kernels and the plain versions
+# alike, with no bar: at trained weights a head's gradient is a sum that nearly
+# cancels, and a bf16 rounding of every point's terms moves it by up to its size
+AUDIT_F32_STEPS = 150
+AUDIT_SEED = 7
+AUDIT_LAYERED_TILES = 8  # the layer-by-layer field's checkpointed tiles (remat_chunks)
+TOL_AUDIT = {
+    "float32": {"loss": TOL_STEP_LOSS, "field": TOL_FIELD["float32"],
+                "weights": TOL_FIELD["float32"], "grad": TOL_FIELD_BWD["float32"]},
+    "bfloat16": {"loss": TOL_STEP_LOSS, "field": TOL_FIELD["bfloat16"], "weights": 1e-3,
+                 "grad": TOL_FIELD_BWD["bfloat16"]},
+}
 
 
 def op_bounds(flops: float, dname: str) -> dict:
@@ -2670,34 +2710,25 @@ def quality_tools_phase(dev, work: str) -> dict:
     from satnerf_torch.datasets.synthetic import generate_scene
     from satnerf_torch.device import disable_tf32
     from satnerf_torch.tools import ours_train_eval, quality_gate, sin_swap_eval
-    from satnerf_torch.train.loop import Trainer
 
     t_phase = time.monotonic()
     scene = os.path.join(work, "datasets", "SYN_Q")
     generate_scene(scene, **QUALITY_SCENE)
     out = os.path.join(work, "quality", "poly_s0")
-    trainers = []
-    fit = Trainer.fit
-
-    def recorded_fit(self, *args, **kwargs):
-        trainers.append(self)
-        return fit(self, *args, **kwargs)
-
     try:
-        Trainer.fit = recorded_fit
-        reset_counters()
-        t0 = time.monotonic()
-        rc = ours_train_eval.main([
-            scene, out, "--steps", str(QUALITY_STEPS), "--batch", str(TRAIN_RAYS),
-            "--n-samples", "64", "--units", "512", "--dtype", "bfloat16",
-            "--eval-at", ",".join(map(str, QUALITY_EVAL_AT)), "--device", dev.type])
-        run_s = time.monotonic() - t0
-        got, plain_calls = read_counters()
+        with recording_fit() as fits:
+            reset_counters()
+            t0 = time.monotonic()
+            rc = ours_train_eval.main([
+                scene, out, "--steps", str(QUALITY_STEPS), "--batch", str(TRAIN_RAYS),
+                "--n-samples", "64", "--units", "512", "--dtype", "bfloat16",
+                "--eval-at", ",".join(map(str, QUALITY_EVAL_AT)), "--device", dev.type])
+            run_s = time.monotonic() - t0
+            got, plain_calls = read_counters()
     finally:
-        Trainer.fit = fit
         disable_tf32()
-    check(rc == 0 and len(trainers) == 1, f"ours_train_eval exited {rc}")
-    trainer = trainers[0]
+    check(rc == 0 and len(fits) == 1, f"ours_train_eval exited {rc}")
+    trainer = fits[0][0]
     results = {}
     for step in QUALITY_EVAL_AT + (QUALITY_STEPS,):
         name = "results.json" if step == QUALITY_STEPS else f"results_step{step}.json"
@@ -2758,6 +2789,287 @@ def quality_tools_phase(dev, work: str) -> dict:
         "seconds": time.monotonic() - t_phase,
     }
     emit(line)
+    return {**line, "fit": fits[0], "scene_dp": scene}
+
+
+@contextlib_contextmanager
+def recording_fit():
+    """Within: every ``Trainer.fit`` appends (trainer, the state it returns)
+    to the yielded list."""
+    from satnerf_torch.train.loop import Trainer
+
+    fits = []
+    fit = Trainer.fit
+
+    def recorded_fit(self, *args, **kwargs):
+        state = fit(self, *args, **kwargs)
+        fits.append((self, state))
+        return state
+
+    Trainer.fit = recorded_fit
+    try:
+        yield fits
+    finally:
+        Trainer.fit = fit
+
+
+def audit_batch(pipeline, n: int, n_depth: int, seed: int, dev) -> dict:
+    """``n`` rays of the pipeline's train split and min(``n_depth``, its tie
+    points) depth rays, each drawn without replacement from ``seed``."""
+    import numpy as np
+    import torch
+
+    from satnerf_torch.train.data import DEPTH_KEYS, TRAIN_KEYS, device_store, gather_batch
+
+    rng = np.random.default_rng(seed)
+    batch = {}
+    for split, keys, rows, prefix in (("rgb", TRAIN_KEYS, n, ""),
+                                      ("depth", DEPTH_KEYS, n_depth, "depth_")):
+        comb = pipeline.datasets[split].combined
+        total = int(comb["rays"].shape[0])
+        idx = np.sort(rng.choice(total, size=min(rows, total), replace=False))
+        store = device_store(comb, keys, device=dev)
+        batch.update(gather_batch(store, torch.from_numpy(idx).to(dev), prefix=prefix))
+    return batch
+
+
+@contextlib_contextmanager
+def _audit_hooks():
+    """Within: the renderer's field evaluations (inputs and outputs) and K5's
+    weights of each composite are recorded."""
+    from satnerf_torch.render import renderer
+
+    rec = {"field": [], "weights": []}
+    eval_field, composite = renderer._eval_field, renderer.composite
+
+    def eval_recorded(*args):
+        out = eval_field(*args)
+        rec["field"].append((args, {k: v.detach() for k, v in out.items()}))
+        return out
+
+    def composite_recorded(*args):
+        out = composite(*args)
+        rec["weights"].append(out[0].detach())
+        return out
+
+    renderer._eval_field, renderer.composite = eval_recorded, composite_recorded
+    try:
+        yield rec
+    finally:
+        renderer._eval_field, renderer.composite = eval_field, composite
+
+
+@contextlib_contextmanager
+def plain_versions():
+    """Within: K1, K2, K4 and K5 (with its backward) run their plain versions
+    on CUDA tensors, through the same autograd functions and packed weights
+    (``_reference_forward``, ``heads_backward_reference``,
+    ``trunk_backward_reference``, ``composite_reference``), with TF32 off."""
+    import torch
+
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.ops import composite as comp
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+    from satnerf_torch.render import renderer
+
+    saved = (ff._forward, ff.heads_backward, trunk.trunk_backward, renderer.composite)
+
+    def trunk_backward(spec, x, packed, acts, g_shared, need_gx=True):
+        return trunk.trunk_backward_reference(spec, x, packed, acts, g_shared)
+
+    def heads_backward(spec, shared, aux, g_out, packed, need_aux=True):
+        return ff.heads_backward_reference(spec, shared, aux, g_out, packed)
+
+    ff._forward, ff.heads_backward = ff._reference_forward, heads_backward
+    trunk.trunk_backward, renderer.composite = trunk_backward, comp.composite_reference
+    torch.set_float32_matmul_precision("highest")
+    disable_tf32()
+    try:
+        yield
+    finally:
+        ff._forward, ff.heads_backward, trunk.trunk_backward, renderer.composite = saved
+
+
+def _named_grads(params: dict) -> dict:
+    out = {}
+    for key in ("field", "fine"):
+        if params.get(key) is not None:
+            out.update({f"{key}.{k}": p.grad.detach()
+                        for k, p in params[key].named_parameters()})
+    for key in ("t", "t_s"):
+        if params.get(key) is not None:
+            out[key] = params[key].grad.detach()
+    return out
+
+
+def audit_engine(pipeline, params: dict, step: int, batch: dict, dev, dtype: str,
+                 plain: bool, layered: bool = False, precision: str | None = None) -> dict:
+    """One training step of the pipeline's depth step config at ``step`` on
+    copies of ``params``, its jitter drawn from AUDIT_SEED, in ``dtype``:
+    through the kernels (library matmuls at the run's precision) or, with
+    ``plain``, through their plain versions (``plain_versions``); with
+    ``layered`` too, through the layer-by-layer field (the JAX package's XLA
+    path: in bf16 the trunk's products in bf16, the heads in f32) in
+    AUDIT_LAYERED_TILES checkpointed tiles. ``precision`` replaces the run's
+    matmul precision for the kernels. -> loss terms, every gradient, the
+    field evaluations (inputs and outputs) and K5's weights."""
+    import dataclasses
+
+    import torch
+
+    from satnerf_torch.run.training import apply_matmul_precision
+    from satnerf_torch.train.data import EpochSampler
+    from satnerf_torch.train.state import create_train_state
+    from satnerf_torch.train.step import build_train_step
+
+    cfg = pipeline.cfg
+    spe = EpochSampler(len(pipeline.datasets["rgb"]), cfg.pipeline.batch_size).steps_per_epoch
+    scfg = pipeline.step_config(spe, with_depth=True, device=dev)
+    rcfg = dataclasses.replace(scfg.render, compute_dtype=dtype)
+    if layered:
+        rcfg = dataclasses.replace(rcfg, remat_chunks=AUDIT_LAYERED_TILES,
+                                   field=dataclasses.replace(rcfg.field, trunk_impl="xla"))
+    scfg = dataclasses.replace(scfg, render=rcfg)
+    prm = copy_params(params, dev)
+    state = create_train_state(prm, cfg.pipeline.learnrate, cfg.pipeline.lr_scheduler, spe)
+    state.step = int(step)
+    gen = torch.Generator(device=dev).manual_seed(AUDIT_SEED)
+    if not plain:
+        precision = precision or cfg.run.matmul_precision
+        apply_matmul_precision(precision)
+        # as a fresh process of the run has it, whatever this one set before
+        torch.backends.cuda.matmul.allow_tf32 = precision != "highest"
+    with plain_versions() if plain else contextlib_nullcontext(), _audit_hooks() as rec:
+        state, metrics = build_train_step(scfg)(state, batch, gen)
+    torch.cuda.synchronize()
+    return {"loss": {k: float(v) for k, v in metrics.items()}, "grad": _named_grads(prm),
+            "field": rec["field"], "weights": rec["weights"], "fcfg": rcfg.field}
+
+
+def _audit_errors(got: dict, ref: dict) -> dict:
+    """Per tensor: loss terms as TOL_STEP_LOSS measures them, the rest by
+    ``rel_err``; the field evaluations in the order the step made them."""
+    check(set(got["loss"]) == set(ref["loss"]) and len(got["field"]) == len(ref["field"])
+          and len(got["weights"]) == len(ref["weights"]),
+          f"trained_audit: {len(got['field'])} field evaluations and "
+          f"{len(got['weights'])} composites against {len(ref['field'])}, "
+          f"{len(ref['weights'])}")
+    field = {}
+    for i, ((_, o), (_, r)) in enumerate(zip(got["field"], ref["field"])):
+        field.update({f"eval{i}.{k}": rel_err(o[k], v) for k, v in r.items() if v.numel()})
+    return {
+        "loss": {k: abs(got["loss"][k] - v) / max(1.0, abs(v)) for k, v in ref["loss"].items()},
+        "field": field,
+        "weights": {f"composite{i}": rel_err(a, b)
+                    for i, (a, b) in enumerate(zip(got["weights"], ref["weights"]))},
+        "grad": {k: rel_err(got["grad"][k], v) for k, v in ref["grad"].items()},
+    }
+
+
+def trained_audit(pipeline, params: dict, step: int, n_rays: int, n_depth: int, dev) -> dict:
+    """The kernels against their plain versions at ``params`` (a trained
+    state of ``pipeline``'s run) on one batch of its scene, in f32 and in
+    bf16 -> {"float32" | "bfloat16": {"loss" | "field" | "weights" | "grad":
+    {name: error}}}, held to TOL_AUDIT; beside them, unbarred, how far bf16
+    takes the kernels, their plain versions and the layer-by-layer field
+    from the plain f32 step ("bfloat16_vs_float32",
+    "plain_bfloat16_vs_float32", "layered_bfloat16_vs_float32"), and how far
+    apart two plain f32 steps are, the layer-by-layer field's and the
+    kernels' plain versions' ("layered_float32_vs_float32"). K1's outputs
+    are compared on the points the kernels' step evaluated (the plain field
+    on the same inputs)."""
+    import torch
+
+    from satnerf_torch.render import renderer
+
+    batch = audit_batch(pipeline, n_rays, n_depth, AUDIT_SEED, dev)
+    kept = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    runs = {}
+    field = copy_params(params, dev)["field"]
+
+    def plain_fields(run, kernel_run):
+        # the plain field on the kernels' points, not on the plain step's
+        with plain_versions(), torch.no_grad():
+            run["field"] = [(args, renderer._eval_field(field, run["fcfg"], *args[2:]))
+                            for args, _ in kernel_run["field"]]
+        return run
+
+    try:
+        for dtype in ("float32", "bfloat16"):
+            runs[dtype] = audit_engine(pipeline, params, step, batch, dev, dtype, plain=False)
+            runs[f"plain_{dtype}"] = plain_fields(
+                audit_engine(pipeline, params, step, batch, dev, dtype, plain=True),
+                runs[dtype])
+        # the run's matmul precision reaches no product of the kernels' step
+        highest = audit_engine(pipeline, params, step, batch, dev, "float32", plain=False,
+                               precision="highest")
+        same = highest["loss"] == runs["float32"]["loss"] and all(
+            torch.equal(v, runs["float32"]["grad"][k]) for k, v in highest["grad"].items())
+        del highest
+        for dtype in ("float32", "bfloat16"):
+            runs[f"layered_{dtype}"] = plain_fields(
+                audit_engine(pipeline, params, step, batch, dev, dtype, plain=True,
+                             layered=True), runs[dtype])
+    finally:  # the caller's TF32 setting, as it was
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = kept
+    out = {"rays": int(batch["rays"].shape[0]), "depth_rays": int(batch["depth_rays"].shape[0]),
+           "step": int(step), "float32_highest_bitwise": same}
+    for name, (a, b) in {"float32": ("float32", "plain_float32"),
+                         "bfloat16": ("bfloat16", "plain_bfloat16"),
+                         "bfloat16_vs_float32": ("bfloat16", "plain_float32"),
+                         "plain_bfloat16_vs_float32": ("plain_bfloat16", "plain_float32"),
+                         "layered_bfloat16_vs_float32": ("layered_bfloat16", "plain_float32"),
+                         "layered_float32_vs_float32": ("layered_float32", "plain_float32"),
+                         }.items():
+        out[name] = _audit_errors(runs[a], runs[b])
+    return out
+
+
+def audit_failures(audit: dict) -> list:
+    """Every error of a ``trained_audit`` beyond its TOL_AUDIT bar."""
+    bad = []
+    for engine, bars in TOL_AUDIT.items():
+        for group, bar in bars.items():
+            bad += [f"{engine} {group} {k}: {e}" for k, e in audit[engine][group].items()
+                    if not e <= bar]
+    return bad
+
+
+def audit_worst(audit: dict) -> dict:
+    return {e: {g: max(v.values()) for g, v in audit[e].items()}
+            for e in audit if isinstance(audit[e], dict)}
+
+
+def trained_audit_phase(dev, quality: dict, work: str) -> dict:
+    """``trained_audit`` at the field quality_tools trained (bf16, its last
+    step) and at one trained the same way in f32 for AUDIT_F32_STEPS steps;
+    the line prints every error, then any beyond its bar fails the run."""
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.tools import ours_train_eval
+
+    t_phase = time.monotonic()
+    out = os.path.join(work, "quality", "f32_s0")
+    try:
+        with recording_fit() as fits:
+            rc = ours_train_eval.main([
+                quality["scene_dp"], out, "--steps", str(AUDIT_F32_STEPS),
+                "--batch", str(TRAIN_RAYS), "--n-samples", "64", "--units", "512",
+                "--dtype", "float32", "--device", dev.type])
+    finally:
+        disable_tf32()
+    check(rc == 0 and len(fits) == 1, f"ours_train_eval f32 exited {rc}")
+    audits = {}
+    for name, (trainer, state) in (("bfloat16_run", quality["fit"]), ("float32_run", fits[0])):
+        audits[name] = trained_audit(trainer.pipeline, state.params, state.step,
+                                     TRAIN_RAYS, TRAIN_RAYS, dev)
+    line = {"phase": "trained_audit", "steps": {"bfloat16_run": QUALITY_STEPS,
+                                                "float32_run": AUDIT_F32_STEPS},
+            "worst": {k: audit_worst(a) for k, a in audits.items()}, "tol": TOL_AUDIT,
+            "audits": audits, "seconds": time.monotonic() - t_phase}
+    emit(line)
+    bad = [f"{k}: {b}" for k, a in audits.items() for b in audit_failures(a)]
+    check(not bad, f"trained_audit beyond its bars: {bad}")
     return line
 
 
@@ -3123,6 +3435,8 @@ def main() -> int:
         prep = prep_scene_phase(dev, os.path.join(work, "prep"))
         os.makedirs(os.path.join(work, "quality_tools"))
         quality = quality_tools_phase(dev, os.path.join(work, "quality_tools"))
+        trained_audit_phase(dev, quality, os.path.join(work, "quality_tools"))
+        del quality["fit"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -945,3 +945,52 @@ def test_cuda_ours_train_eval_and_sin_swap_run_the_kernels(cuda_device, tmp_path
     assert all(r["field_kernel_launches"] == 1 and r["plain_field_calls"] == 0
                for r in rows), rows
     assert counts()["plain_field"] == 0
+
+
+def _chip_smoke():
+    """The repository's chip_smoke.py, loaded by path."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_at_trained_weights(cuda_device, tmp_path, record_property):
+    """``chip_smoke.trained_audit`` on a short trained state (2 x 512 in bf16,
+    100 steps on a 2 + 1-view 32x32 scene: the beta gate, car-reg and the
+    depth drop behind it): one batch of 512 + 512 depth rays through the
+    kernels and through their plain versions on the card (TF32 off), in f32
+    and in bf16; every loss term, K1 output, K5 weight and gradient within
+    chip_smoke.py's TOL_AUDIT."""
+    from satnerf_torch.configs import MainConfig, RSSemanticConfig, RunConfig
+    from satnerf_torch.datasets.synthetic import generate_scene
+    from satnerf_torch.pipelines import load_pipeline
+    from satnerf_torch.train.loop import Trainer
+
+    smoke = _chip_smoke()
+    generate_scene(str(tmp_path / "datasets" / "SYN"), n_train=2, n_test=1, img_size=32,
+                   n_tie_points=300)
+    run = RunConfig(dataset_name="SYN", datasets_dp=str(tmp_path / "datasets"),
+                    cache_dp=str(tmp_path / "cache"), workspace_dp=str(tmp_path / "training"),
+                    max_train_steps=100, check_val_every_n_epoch=1000, num_sanity_val_steps=0,
+                    seed=0)
+    pipe = RSSemanticConfig(n_samples=32, fc_layers=2, fc_units=512, fc_skips=[1],
+                            batch_size=512, ignore_car_index=False, use_car_reg_loss=True,
+                            car_reg_loss_start=3, lambda_c=1.0, compute_dtype="bfloat16")
+    pipeline = load_pipeline(MainConfig(run, pipe))
+    pipeline.prepare_run()
+    pipeline.load_datasets()
+    state = Trainer(pipeline, device="cuda").fit(validate_every_epoch=False)
+    assert state.step == 100 > pipeline.ds_drop_step
+    audit = smoke.trained_audit(pipeline, state.params, state.step, 512, 512, cuda_device)
+    worst = smoke.audit_worst(audit)
+    record_property("worst", worst)
+    assert audit["rays"] == 512 and audit["depth_rays"] > 0
+    failures = smoke.audit_failures(audit)
+    assert not failures, (failures, worst)
