@@ -144,8 +144,10 @@ JSON line per phase:
    loss term, every output of K1 on the same points, K5's weights and the
    gradient of every parameter and of the t table, each within its bar
    (``TOL_AUDIT``); beside them, how far bf16 moves the kernels, their plain
-   versions and the layer-by-layer field from the plain f32 step, and how
-   far the layer-by-layer f32 step is from it.
+   versions and the layer-by-layer field from the plain f32 step, how far
+   the layer-by-layer f32 step is from it, and (the float64 column, no bar)
+   how far the f32 kernels and their f32 plain versions lie from the plain
+   step in f64 on the same batch.
 
 K1's and K3's bounds are given three ways: f32 products as 3xTF32 on the
 tensor cores (bound_ms in f32), on the f32 FMA units, and bf16 on the
@@ -292,7 +294,11 @@ QUALITY_SINS = ("poly", "poly5", "poly7f")
 # between two engines. How far bf16 itself moves the step from
 # the plain f32 one is printed beside, for the kernels and the plain versions
 # alike, with no bar: at trained weights a head's gradient is a sum that nearly
-# cancels, and a bf16 rounding of every point's terms moves it by up to its size
+# cancels, and a bf16 rounding of every point's terms moves it by up to its size.
+# The float64 column (no bar): the f32 kernels and their f32 plain versions
+# against the plain step in f64 (the same batch, jitter and points; every
+# parameter in f64), so that the kernels' error and the yardstick's own are
+# read apart
 AUDIT_F32_STEPS = 150
 AUDIT_SEED = 7
 AUDIT_LAYERED_TILES = 8  # the layer-by-layer field's checkpointed tiles (remat_chunks)
@@ -560,9 +566,9 @@ def synthetic_rays(n: int, seed: int, vocab: int):
 
 
 def rel_err(a, b) -> float:
-    """max |a - b| over max |b|."""
-    return float((a.float() - b.float()).abs().max()
-                 / b.float().abs().max().clamp_min(1e-30))
+    """max |a - b| over max |b|, taken in f64."""
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max().clamp_min(1e-30))
 
 
 def field_backward_phase(field, fcfg, enc, sun_d, t_emb) -> dict:
@@ -2932,6 +2938,12 @@ def audit_engine(pipeline, params: dict, step: int, batch: dict, dev, dtype: str
                                    field=dataclasses.replace(rcfg.field, trunk_impl="xla"))
     scfg = dataclasses.replace(scfg, render=rcfg)
     prm = copy_params(params, dev)
+    if dtype == "float64":
+        # the truth: the plain step on the same parameter values in f64; the
+        # batch, its jitter and the sampled points stay the f32 step's
+        check(plain, "trained_audit: float64 runs the plain versions only")
+        prm = {k: v.double() if k in ("field", "fine")
+               else v.detach().double().requires_grad_(True) for k, v in prm.items()}
     state = create_train_state(prm, cfg.pipeline.learnrate, cfg.pipeline.lr_scheduler, spe)
     state.step = int(step)
     gen = torch.Generator(device=dev).manual_seed(AUDIT_SEED)
@@ -2976,9 +2988,11 @@ def trained_audit(pipeline, params: dict, step: int, n_rays: int, n_depth: int, 
     from the plain f32 step ("bfloat16_vs_float32",
     "plain_bfloat16_vs_float32", "layered_bfloat16_vs_float32"), and how far
     apart two plain f32 steps are, the layer-by-layer field's and the
-    kernels' plain versions' ("layered_float32_vs_float32"). K1's outputs
-    are compared on the points the kernels' step evaluated (the plain field
-    on the same inputs)."""
+    kernels' plain versions' ("layered_float32_vs_float32"), and, unbarred
+    too, how far the f32 kernels and their f32 plain versions lie from the
+    plain step in f64 ("float32_vs_float64", "plain_float32_vs_float64":
+    the float64 column). K1's outputs are compared on the points the
+    kernels' step evaluated (the plain field on the same inputs)."""
     import torch
 
     from satnerf_torch.render import renderer
@@ -2987,12 +3001,15 @@ def trained_audit(pipeline, params: dict, step: int, n_rays: int, n_depth: int, 
     kept = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     runs = {}
     field = copy_params(params, dev)["field"]
+    field64 = copy_params(params, dev)["field"].double()
 
-    def plain_fields(run, kernel_run):
+    def plain_fields(run, kernel_run, f64=False):
         # the plain field on the kernels' points, not on the plain step's
         with plain_versions(), torch.no_grad():
-            run["field"] = [(args, renderer._eval_field(field, run["fcfg"], *args[2:]))
-                            for args, _ in kernel_run["field"]]
+            run["field"] = [
+                (args, renderer._eval_field(field64, run["fcfg"], torch.float64, *args[3:])
+                 if f64 else renderer._eval_field(field, run["fcfg"], *args[2:]))
+                for args, _ in kernel_run["field"]]
         return run
 
     try:
@@ -3011,6 +3028,9 @@ def trained_audit(pipeline, params: dict, step: int, n_rays: int, n_depth: int, 
             runs[f"layered_{dtype}"] = plain_fields(
                 audit_engine(pipeline, params, step, batch, dev, dtype, plain=True,
                              layered=True), runs[dtype])
+        runs["plain_float64"] = plain_fields(
+            audit_engine(pipeline, params, step, batch, dev, "float64", plain=True),
+            runs["float32"], f64=True)
     finally:  # the caller's TF32 setting, as it was
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = kept
     out = {"rays": int(batch["rays"].shape[0]), "depth_rays": int(batch["depth_rays"].shape[0]),
@@ -3021,6 +3041,8 @@ def trained_audit(pipeline, params: dict, step: int, n_rays: int, n_depth: int, 
                          "plain_bfloat16_vs_float32": ("plain_bfloat16", "plain_float32"),
                          "layered_bfloat16_vs_float32": ("layered_bfloat16", "plain_float32"),
                          "layered_float32_vs_float32": ("layered_float32", "plain_float32"),
+                         "float32_vs_float64": ("float32", "plain_float64"),
+                         "plain_float32_vs_float64": ("plain_float32", "plain_float64"),
                          }.items():
         out[name] = _audit_errors(runs[a], runs[b])
     return out

@@ -39,17 +39,33 @@
 //
 // Staging: the row GEMM's A (rows, K) is K-major already and goes through
 // registers (the split); its B is the weight stored (width, K), K-major as
-// tf32 wgmma requires, and arrives by cp.async. The reduction contracts over
+// tf32 wgmma requires, and arrives by cp.async; in f32 the next chunk goes
+// in four pieces, one beside each k-step's MMAs. The reduction contracts over
 // rows, the strided dimension of both operands, so it transposes them in
 // registers: a warp reads 32 neighbouring columns of four rows (f32) or 32
 // column pairs of eight rows (bf16, one 32-bit load per row) and stores each
 // column's values as one 16-byte chunk.
 //
 // What holds the blocks above that bound (f32 at 65,536 points on an H100 SXM
-// at 700 W: K4's row launches 3.5x, its reduction 3.2x): one block per SM, so
+// at 700 W: K4 4.1x, its reduction 3.2x; the f32 row GEMM's per-step sums
+// below cost it a wait per k-step and 128-wide tiles): one block per SM, so
 // the register staging, the split and the epilogue run beside no MMAs; every
 // 128-row tile reads its weight columns (hi and lo) again from L2; and the
 // reduction waits for each chunk's MMAs before adding them to its f32 total.
+//
+// Accuracy in f32. The tensor cores add into their accumulator with
+// truncation toward zero (1 + 0.75 ulp reads 1, -1 - 0.75 ulp reads -1), so
+// an add's error leans the way the sum it lands on points. Summed over rows
+// whose values cancel, as a head's bias gradient does at trained weights,
+// errors that follow a partial sum's sign stay where the values go. So every
+// tensor-core sum is short and its truncating add lands on that sum itself:
+// the row GEMM sums each k-step afresh (its cross terms first, then hi*hi)
+// into an f32 total in registers, rounded to nearest, which is why its f32
+// tiles are 128 wide (the total beside the accumulator); the reduction sums
+// each 32-row chunk afresh, its cross terms first; and the bias sums are
+// compensated (Kahan) chains, where a plain chain of 4,096 f32 adds drifts.
+// Measured at trained weights (k2_audit.py): K2's head gradients, step-level,
+// within the plain f32 version's distance from f64.
 //
 // Thin products stay on the f32 FMA row kernel by a fixed rule on shape: an
 // output 16 wide. That is K2's g_aux launch: under 1% of K2's multiply-adds,
@@ -266,25 +282,36 @@ __device__ __forceinline__ void put16(unsigned char* hi, unsigned char* lo, uint
   }
 }
 
-// d (+)= A B^T over one staged 128-byte chunk: four k-steps, each three
-// passes in f32 (lo*hi, hi*lo, hi*hi) and one in bf16; `fresh` overwrites d
-// with the chunk's sum instead of adding to it. a_hi/a_lo: this warpgroup's
-// 64 rows; b_hi/b_lo: the N rows of B.
+// d (+)= A B^T over one staged 128-byte chunk of four k-steps; `fresh`
+// overwrites d with the chunk's sum instead of adding to it. bf16: one pass
+// a k-step. f32: the cross terms lo*hi and hi*lo of every k-step first, then
+// hi*hi of every k-step. Each tensor-core add truncates the sum to f32
+// toward zero, so an add costs up to an ulp of what d holds: the eight
+// cross-term adds land on a sum ~2^-11 of the chunk's, and only the four
+// hi*hi adds cost ulps of the chunk's own size. a_hi/a_lo: this
+// warpgroup's 64 rows; b_hi/b_lo: the N rows of B.
 template <typename T, int N>
 __device__ __forceinline__ void mma_chunk(float (&d)[N / 2], uint32_t a_hi, uint32_t a_lo,
                                           uint32_t b_hi, uint32_t b_lo, bool fresh) {
+  if constexpr (Tc<T>::kParts == 2) {
 #pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const uint32_t step = 32 * s;
-    const uint64_t ah = tc::desc_sw128(a_hi + step), bh = tc::desc_sw128(b_hi + step);
-    const int keep = (s == 0 && fresh) ? 0 : 1;
-    if (Tc<T>::kParts == 2) {
-      const uint64_t al = tc::desc_sw128(a_lo + step), bl = tc::desc_sw128(b_lo + step);
-      tc::mma<T, N>(d, al, bh, keep);
-      tc::mma<T, N>(d, ah, bl, 1);
-      tc::mma<T, N>(d, ah, bh, 1);
-    } else {
-      tc::mma<T, N>(d, ah, bh, keep);
+    for (int s = 0; s < 4; ++s) {
+      const uint32_t step = 32 * s;
+      tc::mma<T, N>(d, tc::desc_sw128(a_lo + step), tc::desc_sw128(b_hi + step),
+                    (s == 0 && fresh) ? 0 : 1);
+      tc::mma<T, N>(d, tc::desc_sw128(a_hi + step), tc::desc_sw128(b_lo + step), 1);
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint32_t step = 32 * s;
+      tc::mma<T, N>(d, tc::desc_sw128(a_hi + step), tc::desc_sw128(b_hi + step), 1);
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint32_t step = 32 * s;
+      tc::mma<T, N>(d, tc::desc_sw128(a_hi + step), tc::desc_sw128(b_hi + step),
+                    (s == 0 && fresh) ? 0 : 1);
     }
   }
 }
@@ -317,25 +344,33 @@ __device__ __forceinline__ void load_a(const RowArgs& a, int j, int k0, int row0
   }
 }
 
+// piece i of this thread's A chunk (rows 32 i .. 32 i + 31 of the tile)
+template <typename T>
+__device__ __forceinline__ void store_a_piece(unsigned char* hi, unsigned char* lo,
+                                              const uint4 (&r)[4], int i) {
+  const int idx = threadIdx.x + kTcThreads * i;
+  put16(hi, lo, tc::sw128(idx >> 3, idx & 7), r[i], Tc<T>::kParts == 2);
+}
+
 template <typename T>
 __device__ __forceinline__ void store_a(unsigned char* hi, unsigned char* lo,
                                         const uint4 (&r)[4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = threadIdx.x + kTcThreads * i;
-    put16(hi, lo, tc::sw128(idx >> 3, idx & 7), r[i], Tc<T>::kParts == 2);
-  }
+  for (int i = 0; i < 4; ++i) store_a_piece<T>(hi, lo, r, i);
 }
 
-// cp.async of rows n0 .. n0 + BN - 1 of W^T (width, K), chunk k0; zeros past K
+// cp.async of rows n0 .. n0 + BN - 1 of W^T (width, K), chunk k0; zeros past K.
+// Piece p of 4 (or all of them, p < 0): a quarter of the rows
 template <typename T, int BN>
 __device__ __forceinline__ void issue_b(const void* w, int K, int n0, int k0,
-                                        unsigned char* dst) {
+                                        unsigned char* dst, int p = -1) {
   constexpr int kPer = 16 / sizeof(T);
+  constexpr int kIters = BN * 8 / kTcThreads;
   const char* base = static_cast<const char*>(w);
   const uint32_t d0 = tc::smem_u32(dst);
 #pragma unroll
-  for (int i = 0; i < BN * 8 / kTcThreads; ++i) {
+  for (int i = 0; i < kIters; ++i) {
+    if (p >= 0 && i * 4 / kIters != p) continue;
     const int idx = threadIdx.x + kTcThreads * i;
     const int rr = idx >> 3, col = k0 + (idx & 7) * kPer;
     const bool ok = col < K;
@@ -368,12 +403,33 @@ __device__ __forceinline__ void stage_row_chunk(const RowArgs& a, unsigned char*
   tc::fence_async_smem();
 }
 
+// piece p of 4 of stage_row_chunk (f32): a quarter of the B copies and of the
+// A stores; the caller waits for the copies and fences after the last piece
+template <int BN>
+__device__ __forceinline__ void stage_row_piece(const RowArgs& a, unsigned char* st, int j,
+                                                int k0, int n0, const uint4 (&r)[4], int p) {
+  using S = RowSmem<float, BN>;
+  unsigned char* b_hi = st + 2 * kTileA;
+  issue_b<float, BN>(a.w[j], a.k[j], n0, k0, b_hi, p);
+  issue_b<float, BN>(a.w_lo[j], a.k[j], n0, k0, b_hi + S::kB, p);
+  tc::cp_async_commit();
+  store_a_piece<float>(st, st + kTileA, r, p);
+}
+
 template <typename T, int BN>
 __global__ void __launch_bounds__(kTcThreads, 1)
     tc_row_kernel(const __grid_constant__ RowArgs a) {
   extern __shared__ unsigned char tc_smem_raw[];
   using S = RowSmem<T, BN>;
   constexpr int kKc = Tc<T>::kKc;
+  // f32: the tensor cores add into `acc` with truncation toward zero, so an
+  // add's error leans the way the sum it lands on points. Each k-step's three
+  // passes start afresh, the cross terms first, so that the one add that
+  // truncates at the step's own size lands on the step's sum itself, and join
+  // `total` in an f32 add, rounded to nearest. Over many rows whose values
+  // cancel (a bias gradient at trained weights) those errors then cancel with
+  // the values; truncating a longer running sum left them standing.
+  constexpr bool kFold = Tc<T>::kParts == 2;
   unsigned char* smem = align1024(tc_smem_raw);
   const int wg = threadIdx.x / 128;
   const int row0 = blockIdx.x * kTcRows, n0 = blockIdx.y * BN;
@@ -381,9 +437,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   int nc = 0;
   for (int j = 0; j < a.n_prod; ++j) nc += (a.k[j] + kKc - 1) / kKc;
 
-  float acc[BN / 2];
+  float acc[BN / 2], total[BN / 2];  // total: f32 only
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = total[i] = 0.0f;
   uint4 ra[4];
   int j = 0, k0 = 0;  // the next chunk to stage
   if (nc > 0) {
@@ -399,36 +455,69 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     if (more) load_a<T>(a, j, k0, row0, ra);  // in flight during the MMAs
     const uint32_t a_hi = tc::smem_u32(cur) + wg * 64 * 128;
     const uint32_t b_hi = tc::smem_u32(cur) + Tc<T>::kParts * kTileA;
-    tc::fence_regs(acc);
-    tc::wg_fence();
-    mma_chunk<T, BN>(acc, a_hi, a_hi + kTileA, b_hi, b_hi + S::kB, false);
-    tc::wg_commit();
-    tc::wg_wait<1>();  // chunk c - 1 done: its stage may be refilled
-    tc::fence_regs(acc);
-    __syncthreads();
-    if (more) {
-      stage_row_chunk<T, BN>(a, nxt, j, k0, n0, ra);
-      next_chunk(a, kKc, j, k0);
+    if constexpr (kFold) {
+      // the next chunk is staged in four pieces, one beside each k-step's MMAs
+      // (every MMA on its stage, chunk c - 1's, retired before the barrier
+      // that ended the last iteration). One accumulator: a second, to run a
+      // step's MMAs under the previous step's sum, spilled (255 registers)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const uint32_t k = 32 * s;
+        tc::fence_regs(acc);
+        tc::wg_fence();
+        tc::mma<T, BN>(acc, tc::desc_sw128(a_hi + kTileA + k), tc::desc_sw128(b_hi + k), 0);
+        tc::mma<T, BN>(acc, tc::desc_sw128(a_hi + k), tc::desc_sw128(b_hi + S::kB + k), 1);
+        tc::mma<T, BN>(acc, tc::desc_sw128(a_hi + k), tc::desc_sw128(b_hi + k), 1);
+        tc::wg_commit();
+        if (more) stage_row_piece<BN>(a, nxt, j, k0, n0, ra, s);
+        tc::wg_wait<0>();
+        tc::fence_regs(acc);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) total[i] += acc[i];
+      }
+      if (more) {
+        tc::cp_async_wait_all();
+        tc::fence_async_smem();
+        next_chunk(a, kKc, j, k0);
+      }
+      __syncthreads();
+    } else {
+      tc::fence_regs(acc);
+      tc::wg_fence();
+      mma_chunk<T, BN>(acc, a_hi, a_hi + kTileA, b_hi, b_hi + S::kB, false);
+      tc::wg_commit();
+      tc::wg_wait<1>();  // chunk c - 1 done: its stage may be refilled
+      tc::fence_regs(acc);
+      __syncthreads();
+      if (more) {
+        stage_row_chunk<T, BN>(a, nxt, j, k0, n0, ra);
+        next_chunk(a, kKc, j, k0);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
-  tc::wg_wait<0>();
-  tc::fence_regs(acc);
+  if constexpr (!kFold) {
+    tc::wg_wait<0>();
+    tc::fence_regs(acc);
+  }
   __syncthreads();  // both warpgroups are done with the stages
 
-  // the accumulator fragment to shared memory: warp w of the warpgroup holds
+  // the sums' fragment to shared memory: warp w of the warpgroup holds
   // rows 16w + lane/4 (+8); value 4i + 2h + e sits at column
   // 8i + 2(lane % 4) + e, row + 8h
   constexpr int ldc = BN + 8;
   float* ct = reinterpret_cast<float*>(smem);
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
   const int r0 = wg * 64 + warp * 16 + lane / 4;
+  auto put = [&](const float (&v)[BN / 2]) {
 #pragma unroll
-  for (int i = 0; i < BN / 8; ++i)
+    for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(ct + (r0 + 8 * h) * ldc + 8 * i + 2 * (lane % 4)) =
-          make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(ct + (r0 + 8 * h) * ldc + 8 * i + 2 * (lane % 4)) =
+            make_float2(v[4 * i + 2 * h], v[4 * i + 2 * h + 1]);
+  };
+  if constexpr (kFold) put(total); else put(acc);
   __syncthreads();
   // the epilogue, a column pair per thread along each row
 #pragma unroll 1
@@ -471,12 +560,16 @@ inline int check_row(const RowArgs& a) {
   return 0;
 }
 
-// the fixed rule on shape: width 16 -> FMA kernel; multiples of 256 -> 128 x 256
-// tensor-core tiles; other multiples of 64 -> 128 x 64 tiles
+// the fixed rule on shape: width 16 -> FMA kernel; multiples of kWide<T> ->
+// 128 x kWide<T> tensor-core tiles (f32 128: its f32 total beside the
+// accumulator must fit the registers; bf16 256); other multiples of 64 ->
+// 128 x 64 tiles
+template <typename T> constexpr int kWide = Tc<T>::kParts == 2 ? 128 : 256;
+
 template <typename T>
 int dispatch_row(const RowArgs& a, cudaStream_t stream) {
   if (a.width == kThinWidth) return launch_row<T, kThinWidth>(a, stream);
-  if (a.width > 0 && a.width % 256 == 0) return launch_tc_row<T, 256>(a, stream);
+  if (a.width > 0 && a.width % kWide<T> == 0) return launch_tc_row<T, kWide<T>>(a, stream);
   if (a.width > 0 && a.width % 64 == 0) return launch_tc_row<T, 64>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -488,6 +581,21 @@ inline int row_entry(const RowArgs* a, cudaStream_t stream) {
 }
 
 // ---- the weight-gradient reduction on the tensor cores ------------------------------
+
+// s + x, compensated (Kahan): c keeps what the f32 add of s dropped, so a
+// chain of thousands of adds ends within a few roundings of the exact sum,
+// where a plain chain drifts by its length times the rounding of its
+// partial sums (a bias gradient that cancels at trained weights reads that
+// drift against its small result)
+struct Kahan {
+  float s = 0.0f, c = 0.0f;
+  __device__ __forceinline__ void add(float x) {
+    const float y = x - c;
+    const float t = s + y;
+    c = (t - s) - y;
+    s = t;
+  }
+};
 
 constexpr int kRedTile = 128;  // dW tile: 128 x 128, 64 rows of it per warpgroup
 
@@ -582,7 +690,7 @@ __device__ void red_tile(const GemmJob& g, int tile, int split, int split_rows, 
   const int wg = threadIdx.x / 128;
   // f32 bias fold: this thread's column of B, over its rows
   const bool fold = g.bias_part != nullptr && k0 == 0;
-  float csum = 0.0f;
+  Kahan csum;
   const T* A = static_cast<const T*>(g.a);
   const T* B = static_cast<const T*>(g.b);
 
@@ -601,10 +709,10 @@ __device__ void red_tile(const GemmJob& g, int tile, int split, int split_rows, 
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float4 v = *reinterpret_cast<float4*>(&rb[i]);
-        csum += v.x;
-        csum += v.y;
-        csum += v.z;
-        csum += v.w;
+        csum.add(v.x);
+        csum.add(v.y);
+        csum.add(v.z);
+        csum.add(v.w);
       }
     }
   };
@@ -656,7 +764,7 @@ __device__ void red_tile(const GemmJob& g, int tile, int split, int split_rows, 
   if (fold) {  // the two row groups of each column, in order
     float* cs = reinterpret_cast<float*>(smem);
     __syncthreads();
-    cs[threadIdx.x] = csum;
+    cs[threadIdx.x] = csum.s;
     __syncthreads();
     const int col = m0 + threadIdx.x;
     if (threadIdx.x < 128 && col < g.m)
@@ -672,22 +780,22 @@ template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16
 }
 
 // 64 columns of one bias sum that no GEMM stages (bf16: the f32 gradient):
-// 4 row groups, then the 4 partials in order
+// 4 row groups, each a compensated chain, then the 4 partials in order
 template <typename T>
 __device__ void sum_tile(const SumJob& s, int tile, int rows, unsigned char* smem) {
   constexpr int kCols = 64, kGroups = kTcThreads / kCols;
   float* part = reinterpret_cast<float*>(smem);
   const int col = tile * kCols + threadIdx.x % kCols;
   const int grp = threadIdx.x / kCols;
-  float acc = 0.0f;
+  Kahan acc;
   if (col < s.m) {
     for (int n = grp; n < rows; n += kGroups) {
       const size_t idx = static_cast<size_t>(n) * s.ldb + col;
-      acc += s.b_f32 ? static_cast<const float*>(s.b)[idx]
-                     : to_f32<T>(static_cast<const T*>(s.b)[idx]);
+      acc.add(s.b_f32 ? static_cast<const float*>(s.b)[idx]
+                      : to_f32<T>(static_cast<const T*>(s.b)[idx]));
     }
   }
-  part[threadIdx.x] = acc;
+  part[threadIdx.x] = acc.s;
   __syncthreads();
   if (grp == 0 && col < s.m) {
     float total = part[threadIdx.x];

@@ -21,14 +21,21 @@
 // it lands, into the slot's hi and lo parts, so the weights cross L2 once;
 // the head projections' K is permuted (ops/field_fused.py:tc_weights).
 //
-// Accuracy: the tensor cores add into the accumulator with truncation, and
-// one accumulator over K = 512 (192 adds in 3xTF32) left h_{L-1} 6.7e-5 off
-// the plain version after 8 layers, above the 5e-5 bar. So each chunk's
-// products (f32: 2 k-steps; bf16: each k-step) start a fresh accumulator
-// and join an f32 total in registers, as the backward's reduction does;
-// 64 + 64 registers per pass is why a pass is 128 columns per warpgroup. A
-// 512-wide layer written in place holds its first pass's values until the
-// second pass has read all of H (Held).
+// Accuracy: the tensor cores add into the accumulator with truncation toward
+// zero, and one accumulator over K = 512 (192 adds in 3xTF32) left h_{L-1}
+// 6.7e-5 off the plain version after 8 layers, above the 5e-5 bar. So each
+// chunk's products (f32: 2 k-steps; bf16: each k-step) start a fresh
+// accumulator and join an f32 total in registers (rounded to nearest), as
+// the backward's reduction does; 64 + 64 registers per pass is why a pass
+// is 128 columns per warpgroup. In f32 the chunk's cross terms go first
+// (mma_unit), so that only its hi*hi adds truncate at the chunk's own size.
+// An error that follows a partial sum's sign survives a sum over the points
+// of a batch where the points cancel (the loss's gradient of a head bias at
+// trained weights): the running output of every head's projection (K 512 +
+// 6 x 256 in K1) left those gradients 40x farther from f64 than the plain
+// version's, so a projection sums each k-step afresh (project). A 512-wide
+// layer written in place holds its first pass's values until the second
+// pass has read all of H (Held).
 //
 // The slots carry one stream of chunks through the whole tile, in the order
 // of a plan the host builds from the argument struct (Plan): each job is a
@@ -75,7 +82,8 @@ enum Act { kLinear = 0, kSine = 1, kRelu = 2 };
 // K per wgmma k-step (32 bytes), tensor-core passes per product, row
 // padding of the activation tiles, and k-steps per sum into the f32 total
 // (bf16 every step: its activations round to 8 bits, so a different f32
-// sum flips roundings that the next layers carry; f32 every chunk)
+// sum flips roundings that the next layers carry; f32 every chunk, its
+// cross terms first: mma_unit)
 template <typename T> struct Tc;
 template <> struct Tc<float> {
   static constexpr int kKs = 8, kParts = 2, kPad = 4, kSum = 2;
@@ -315,6 +323,47 @@ __device__ __forceinline__ void mma_step(float (&acc)[kNW / 2], const T* A, int 
   }
 }
 
+// one unit (Tc<T>::kSum k-steps from column k0 of A) of this warpgroup's 128
+// columns into acc, afresh: f32 the cross terms lo*hi and hi*lo of every
+// step first, then hi*hi of every step; bf16 one product. b: B's tile of the
+// unit's first step, the next step's b + b_step. The caller commits.
+template <typename T>
+__device__ __forceinline__ void mma_unit(float (&acc)[kNW / 2], const T* A, int ld, int k0,
+                                         uint32_t b, uint32_t b_step) {
+  if constexpr (Tc<T>::kParts == 2) {
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int r = warp * 16 + (lane >> 2);
+    uint32_t hi[Tc<T>::kSum][4], lo[Tc<T>::kSum][4];
+#pragma unroll
+    for (int s = 0; s < Tc<T>::kSum; ++s) {
+      const int c = k0 + s * Tc<T>::kKs + (lane & 3);
+      const float v[4] = {A[r * ld + c], A[(r + 8) * ld + c], A[r * ld + c + 4],
+                          A[(r + 8) * ld + c + 4]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float h, l;
+        tc::split_tf32(v[i], h, l);
+        hi[s][i] = __float_as_uint(h);
+        lo[s][i] = __float_as_uint(l);
+      }
+    }
+    tc::wg_fence();
+#pragma unroll
+    for (int s = 0; s < Tc<T>::kSum; ++s) {
+      const uint32_t bs = b + s * b_step;
+      tc::mma_rs<T, kNW>(acc, lo[s], tc::desc_sw32(bs), s == 0 ? 0 : 1);
+      tc::mma_rs<T, kNW>(acc, hi[s], tc::desc_sw32(bs + kPart), 1);
+    }
+#pragma unroll
+    for (int s = 0; s < Tc<T>::kSum; ++s)
+      tc::mma_rs<T, kNW>(acc, hi[s], tc::desc_sw32(b + s * b_step), 1);
+  } else {
+#pragma unroll
+    for (int s = 0; s < Tc<T>::kSum; ++s)
+      mma_step<T>(acc, A, ld, k0 + s * Tc<T>::kKs, b + s * b_step, s == 0 ? 0 : 1);
+  }
+}
+
 // total = A0 W0 [+ A1 W1] for this warpgroup's 128 columns of pass job q,
 // each chunk's (bf16: each k-step's) products summed afresh on the tensor
 // cores and added to the f32 total. Chunk c + 1 is received (waited for and split) while chunk c's
@@ -340,23 +389,21 @@ __device__ __forceinline__ void pass(const Plan& pl, Ring& r, int q, ATile<T> a0
     const int ns = min(spc, steps - c * spc);
     bool received = c + 1 >= nch;
     tc::fence_regs(acc);
-    for (int s = 0; s < ns; ++s) {
+    for (int s = 0; s < ns; s += Tc<T>::kSum) {  // K is a multiple of 16: whole units
       const int gs = c * spc + s;
       const bool second = gs >= steps0;
       const ATile<T> a = second ? a1 : a0;
-      mma_step<T>(acc, a.p, a.ld, (second ? gs - steps0 : gs) * kKs,
-                  cur + ((s << j.rows_log2) * 32) + wg_off, s % Tc<T>::kSum > 0 ? 1 : 0);
-      if (s % Tc<T>::kSum == Tc<T>::kSum - 1 || s == ns - 1) {  // into the f32 total
-        tc::wg_commit();
-        if (!received) {
-          receive<T>(j, c + 1, r, r.cons + 1);
-          received = true;
-        }
-        tc::wg_wait<0>();
-        tc::fence_regs(acc);
-#pragma unroll
-        for (int i = 0; i < kNW / 2; ++i) total[i] += acc[i];
+      mma_unit<T>(acc, a.p, a.ld, (second ? gs - steps0 : gs) * kKs,
+                  cur + ((s << j.rows_log2) * 32) + wg_off, (1 << j.rows_log2) * 32);
+      tc::wg_commit();
+      if (!received) {
+        receive<T>(j, c + 1, r, r.cons + 1);
+        received = true;
       }
+      tc::wg_wait<0>();
+      tc::fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < kNW / 2; ++i) total[i] += acc[i];
     }
     ++r.cons;
     __syncthreads();  // chunk c's wgmmas done by all, chunk c + 1 split by all
@@ -425,7 +472,7 @@ __device__ __forceinline__ void project(const Plan& pl, Ring& r, int q, float (&
   constexpr int kKs = Tc<T>::kKs;
   constexpr int kMine = kNW / kKs;  // this warpgroup's k-steps
   // the wgmmas read their A registers asynchronously, so a fragment stays
-  // live until its group completes: wait every kBatch k-steps
+  // live until its group completes: bf16 waits every kBatch k-steps
   constexpr int kBatch = 2;
   float out[8];
   float4* kp = reinterpret_cast<float4*>(keep + 8 * threadIdx.x);
@@ -437,10 +484,13 @@ __device__ __forceinline__ void project(const Plan& pl, Ring& r, int q, float (&
   __syncthreads();
   const uint32_t base = slot<T>(r, r.cons) + (threadIdx.x >> 7) * kMine * 16 * 32;
   tc::fence_regs(out);
+  if constexpr (Tc<T>::kParts == 2) {
+    // f32: each k-step's products start afresh (the cross terms, then hi*hi)
+    // and join the running output in an f32 add; the wait also releases
+    // the step's fragments
 #pragma unroll
-  for (int i = 0; i < kMine; ++i) {
-    const uint32_t b = base + i * 16 * 32;
-    if constexpr (Tc<T>::kParts == 2) {
+    for (int i = 0; i < kMine; ++i) {
+      const uint32_t b = base + i * 16 * 32;
       // fragment (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) <- columns
       // 2t, 2t (row + 8), 2t + 1, 2t + 1 (row + 8) of group i
       const float a[4] = {v[4 * i], v[4 * i + 2], v[4 * i + 1], v[4 * i + 3]};
@@ -452,28 +502,38 @@ __device__ __forceinline__ void project(const Plan& pl, Ring& r, int q, float (&
         hi[e] = __float_as_uint(h);
         lo[e] = __float_as_uint(l);
       }
+      float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       const uint64_t bh = tc::desc_sw32(b), bl = tc::desc_sw32(b + kPart);
+      tc::fence_regs(acc);
       tc::wg_fence();
-      tc::mma_rs<T, 16>(out, lo, bh, 1);
-      tc::mma_rs<T, 16>(out, hi, bl, 1);
-      tc::mma_rs<T, 16>(out, hi, bh, 1);
-    } else {
+      tc::mma_rs<T, 16>(acc, lo, bh, 0);
+      tc::mma_rs<T, 16>(acc, hi, bl, 1);
+      tc::mma_rs<T, 16>(acc, hi, bh, 1);
+      tc::wg_commit();
+      tc::wg_wait<0>();
+      tc::fence_regs(acc);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) out[e] += acc[e];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kMine; ++i) {
       const uint32_t a[4] = {pack_bf16(v[8 * i], v[8 * i + 1]),
                              pack_bf16(v[8 * i + 2], v[8 * i + 3]),
                              pack_bf16(v[8 * i + 4], v[8 * i + 5]),
                              pack_bf16(v[8 * i + 6], v[8 * i + 7])};
       tc::wg_fence();
-      tc::mma_rs<T, 16>(out, a, tc::desc_sw32(b), 1);
+      tc::mma_rs<T, 16>(out, a, tc::desc_sw32(base + i * 16 * 32), 1);
+      if (i % kBatch == kBatch - 1) {  // release the fragments of kBatch k-steps
+        tc::wg_commit();
+        tc::wg_wait<0>();
+        tc::fence_regs(out);
+      }
     }
-    if (i % kBatch == kBatch - 1) {  // release the fragments of kBatch k-steps
-      tc::wg_commit();
-      tc::wg_wait<0>();
-      tc::fence_regs(out);
-    }
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::fence_regs(out);
   }
-  tc::wg_commit();
-  tc::wg_wait<0>();
-  tc::fence_regs(out);
   kp[0] = make_float4(out[0], out[1], out[2], out[3]);
   kp[1] = make_float4(out[4], out[5], out[6], out[7]);
   ++r.cons;

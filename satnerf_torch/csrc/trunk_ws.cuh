@@ -51,8 +51,9 @@
 // (K3 splits each chunk in the consumer threads, behind the barrier).
 //
 // The order of sums is K3's: a fresh accumulator per Tc<T>::kSum k-steps
-// (f32 2, bf16 1), added into an f32 total in registers, then K3's epilogue
-// (fwd::epilogue); so K6 equals K3 bit for bit. One accumulator is in flight
+// (f32 2, cross terms first; bf16 1: fwd::mma_unit), added into an f32
+// total in registers, then K3's epilogue (fwd::epilogue); so K6 equals K3
+// bit for bit. One accumulator is in flight
 // at a time: the unit's wgmmas, then its sum. A second one, to keep the next
 // unit's wgmmas running under the sum (wg_wait<1>), spilled in bf16 (192
 // registers of sums beside the A fragments) and was no faster, so the
@@ -250,9 +251,7 @@ __device__ __forceinline__ void issue(const Unit& v, ATile<T> a0, ATile<T> a1, u
   const ATile<T> A = v.prod ? a1 : a0;
   const uint32_t b = slot_addr<T>(ring, slot) + v.s0 * kStep;
   tc::fence_regs(acc);
-#pragma unroll
-  for (int s = 0; s < Tc<T>::kSum; ++s)
-    fwd::mma_step<T>(acc, A.p, A.ld, v.k0 + s * Tc<T>::kKs, b + s * kStep, s > 0 ? 1 : 0);
+  fwd::mma_unit<T>(acc, A.p, A.ld, v.k0, b, kStep);
   tc::wg_commit();
 }
 

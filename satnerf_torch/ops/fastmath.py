@@ -40,8 +40,14 @@ Q2 = 7.633781238515e-03
 PI2_F32 = float(np.float32(2.0 * math.pi))
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the plain versions compute in: f32 for f32 and bf16 operands,
+    f64 for f64 ones (an f64 run of a plain version is the kernels' truth)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _reduce(xf: torch.Tensor, two_term_reduction: bool) -> torch.Tensor:
-    """r = x - 2pi * round(x / 2pi), in [-pi, pi] (f32)."""
+    """r = x - 2pi * round(x / 2pi), in [-pi, pi] (f32, or f64 for f64)."""
     n = torch.round(xf * INV_PI2)
     if two_term_reduction:
         r = xf - n * PI2_HI
@@ -62,7 +68,7 @@ def _poly(r: torch.Tensor, degree7: bool) -> torch.Tensor:
 
 def _sin_poly(x: torch.Tensor, two_term_reduction: bool, degree7: bool):
     dtype = x.dtype
-    r = _reduce(x.to(torch.float32), two_term_reduction)
+    r = _reduce(x.to(acc_dtype(x.dtype)), two_term_reduction)
     # fold [-pi, pi] -> [-pi/2, pi/2]: sin(pi - r) = sin(r)
     r = torch.where(r > HALF_PI, math.pi - r, r)
     r = torch.where(r < -HALF_PI, -math.pi - r, r)
@@ -73,7 +79,7 @@ def _cos_poly(x: torch.Tensor, two_term_reduction: bool, degree7: bool):
     """cos(x) = sin(pi/2 - |r|) for r the [-pi, pi] reduction of x
     (``satnerf_tpu/ops/pallas/trunk.py:_cos_f32``): no fold needed."""
     dtype = x.dtype
-    r = _reduce(x.to(torch.float32), two_term_reduction)
+    r = _reduce(x.to(acc_dtype(x.dtype)), two_term_reduction)
     return _poly(HALF_PI - torch.abs(r), degree7).to(dtype)
 
 

@@ -54,7 +54,7 @@ from torch.autograd.function import once_differentiable
 from satnerf_torch.ops import _bwd, trunk
 from satnerf_torch.ops.trunk import TRUNK_KEYS, dot_f32, in_out, pack_trunk, place_rows
 from satnerf_torch.ops._build import check_launch, load_library
-from satnerf_torch.ops.fastmath import COSINE_ENGINES, SIN_MODES, SINE_ENGINES
+from satnerf_torch.ops.fastmath import COSINE_ENGINES, SIN_MODES, SINE_ENGINES, acc_dtype
 
 COL_SIGMA = 0
 COL_RGB = 1
@@ -206,23 +206,23 @@ def pack_field(field, spec: FieldSpec, dtype: torch.dtype) -> dict:
 
     Differentiable: under grad mode the packed tensors carry autograd history
     back to the module's parameters. Weights go to ``dtype`` (the compute
-    dtype), biases stay f32. Every
+    dtype), biases to f32 (f64 for f64). Every
     head's blocks are packed whatever ``spec.heads_on`` says; the
     ``heads_on=False`` variant reads ``b_small_sc``, whose rgb/sky/beta/
     semantic columns are 0.
     """
     F, fl, aw = spec.feat, spec.fl, spec.aux_w
-    f32 = torch.float32
+    bias_dt = acc_dtype(dtype)
     p: dict = pack_trunk(field, spec, dtype)
 
     p["w_feats"] = in_out(field.feats_from_xyz, dtype)
-    p["b_feats"] = field.feats_from_xyz.bias.to(f32).contiguous()
+    p["b_feats"] = field.feats_from_xyz.bias.to(bias_dt).contiguous()
 
-    hb = torch.zeros((len(HIDDEN_BIAS_ROWS), fl), dtype=f32,
+    hb = torch.zeros((len(HIDDEN_BIAS_ROWS), fl), dtype=bias_dt,
                      device=p["w0"].device)
 
     def hidden_bias(name, linear):
-        hb[HIDDEN_BIAS_ROWS.index(name)] = linear.bias.to(f32)
+        hb[HIDDEN_BIAS_ROWS.index(name)] = linear.bias.to(bias_dt)
 
     sv = field.sun_v_net
     w_sv0 = in_out(sv[0], dtype)  # (F + 3, fl)
@@ -264,9 +264,9 @@ def pack_field(field, spec: FieldSpec, dtype: torch.dtype) -> dict:
         )
 
     def bias_cols(pairs):
-        bs = torch.zeros((OUT_W,), dtype=f32, device=hb.device)
+        bs = torch.zeros((OUT_W,), dtype=bias_dt, device=hb.device)
         for col, linear in pairs:
-            b = linear.bias.to(f32)
+            b = linear.bias.to(bias_dt)
             bs[col : col + b.shape[0]] = b
         return bs
 
@@ -363,13 +363,16 @@ def fused_field_reference(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor,
     return _reference_forward(spec, x, aux, packed, resid=False)[0]
 
 
-def heads_backward_reference(spec: FieldSpec, shared, aux, g_out, packed):
+def heads_backward_reference(spec: FieldSpec, shared, aux, g_out, packed, trace=None):
     """Plain PyTorch version of the heads backward, as ``_heads_bwd_kernel``:
-    (g_shared (N, F), g_aux (N, aux_w), {head key: gradient})."""
+    (g_shared (N, F), g_aux (N, aux_w), {head key: gradient}). Sums run in
+    f32, in f64 for f64 operands. A ``trace`` dict receives the
+    intermediates under the names of the kernel's workspaces (``feats``,
+    ``pre``/``hid``/``ga`` by head layer, ``g_feats``)."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
     sin, cos = SINE_ENGINES[spec.sin_mode], COSINE_ENGINES[spec.sin_mode]
-    dt, f32 = shared.dtype, torch.float32
+    dt, acc = shared.dtype, acc_dtype(shared.dtype)
     p = packed
 
     def bias(name):
@@ -456,11 +459,22 @@ def heads_backward_reference(spec: FieldSpec, shared, aux, g_out, packed):
     gw["w_feats"] = dot_at(shared, g_feats_dt)
     g_shared = g_shared + dot_t(g_feats_dt, p["w_feats"])
     gw["b_feats"] = g_feats.sum(0)
-    gb = torch.zeros(p["b_heads"].shape, dtype=f32, device=shared.device)
+    gb = torch.zeros(p["b_heads"].shape, dtype=acc, device=shared.device)
     for name, ga in gb_rows:
-        gb[HIDDEN_BIAS_ROWS.index(name)] = ga.to(f32).sum(0)
+        gb[HIDDEN_BIAS_ROWS.index(name)] = ga.to(acc).sum(0)
     gw["b_heads"] = gb
-    gw["b_small" if spec.heads_on else "b_small_sc"] = g_out.to(f32).sum(0)
+    gw["b_small" if spec.heads_on else "b_small_sc"] = g_out.to(acc).sum(0)
+    if trace is not None:
+        pre = {"sv0": a_sv1, "sv1": a_sv2, "sv2": a_sv3}
+        hid = {"sv0": sv1, "sv1": sv2, "sv2": sv3}
+        if spec.heads_on:
+            pre.update(rgb0=a_hr, sky0=a_sky)
+            hid.update(rgb0=hr, sky0=hsky)
+            if spec.has_beta:
+                pre["b0"], hid["b0"] = a_hb, hbet
+            if spec.has_semantic:
+                pre["s0"], hid["s0"] = a_hs, hs
+        trace.update(feats=feats, pre=pre, hid=hid, ga=dict(gb_rows), g_feats=g_feats)
     g_heads = {k: gw[k].to(p[k].dtype) for k in spec.head_keys()}
     return g_shared.to(dt), g_aux.to(dt), g_heads
 
@@ -623,12 +637,38 @@ def _forward(spec: FieldSpec, x, aux, packed, resid: bool):
 # -----------------------------------------------------------------------
 
 
-def _heads_backward_cuda(spec: FieldSpec, shared, aux, g_out, packed, need_aux):
+def heads_reduce_pairs(spec: FieldSpec, shared, aux, g, feats, hid, ga, g_feats) -> dict:
+    """{head weight key: (A, B)}: every dW = A^T B of K2's reduction, on the
+    workspaces of :func:`_heads_backward_cuda` (``hid``, ``ga`` by head
+    layer)."""
+    pairs = {
+        "w2_shared": (shared, g), "w_feats": (shared, g_feats),
+        "w_sv0_f": (feats, ga["sv0"]), "w_sv0_aux": (aux, ga["sv0"]),
+        "w_sv1": (hid["sv0"], ga["sv1"]), "w_sv2": (hid["sv1"], ga["sv2"]),
+        "w2_sv": (hid["sv2"], g),
+    }
+    if spec.heads_on:
+        pairs.update({
+            "w_rgb0": (feats, ga["rgb0"]), "w2_rgb": (hid["rgb0"], g),
+            "w_sky0_aux": (aux, ga["sky0"]), "w2_sky": (hid["sky0"], g),
+        })
+        if spec.has_beta:
+            pairs.update({"w_b0_f": (feats, ga["b0"]), "w_b0_aux": (aux, ga["b0"]),
+                          "w2_beta": (hid["b0"], g)})
+        if spec.has_semantic:
+            pairs.update({"w_s0_f": (feats, ga["s0"]), "w2_sem": (hid["s0"], g)})
+            if spec.use_tj_for_s:
+                pairs["w_s0_aux"] = (aux, ga["s0"])
+    return pairs
+
+
+def _heads_backward_cuda(spec: FieldSpec, shared, aux, g_out, packed, need_aux, trace=None):
     """K2: row launches (recompute, reverse sweep, g_feats, g_aux, g_shared)
     and one reduction of ``csrc/field_bwd.cu``. The row GEMM takes W^T
     (out, in) for the recomputed layers and the packed (in, out) weight as
     it is for the reverse sweep; the aux block and the aux rows of the
-    weights are padded with zeros to 16 columns / rows."""
+    weights are padded with zeros to 16 columns / rows. A ``trace`` dict
+    receives the workspaces as :func:`heads_backward_reference` names them."""
     dt, f32, dev = shared.dtype, torch.float32, shared.device
     n, F, fl = shared.shape[0], spec.feat, spec.fl
     bf16 = dt == torch.bfloat16
@@ -722,24 +762,7 @@ def _heads_backward_cuda(spec: FieldSpec, shared, aux, g_out, packed, need_aux):
     # every head dW = A^T B and db = sum B in one reduction
     gw = {k: torch.empty(p[k].shape, dtype=f32, device=dev)
           for k in spec.head_keys()}
-    pairs = {
-        "w2_shared": (shared, g), "w_feats": (shared, g_feats),
-        "w_sv0_f": (feats, ga["sv0"]), "w_sv0_aux": (aux, ga["sv0"]),
-        "w_sv1": (hid["sv0"], ga["sv1"]), "w_sv2": (hid["sv1"], ga["sv2"]),
-        "w2_sv": (hid["sv2"], g),
-    }
-    if spec.heads_on:
-        pairs.update({
-            "w_rgb0": (feats, ga["rgb0"]), "w2_rgb": (hid["rgb0"], g),
-            "w_sky0_aux": (aux, ga["sky0"]), "w2_sky": (hid["sky0"], g),
-        })
-        if spec.has_beta:
-            pairs.update({"w_b0_f": (feats, ga["b0"]), "w_b0_aux": (aux, ga["b0"]),
-                          "w2_beta": (hid["b0"], g)})
-        if spec.has_semantic:
-            pairs.update({"w_s0_f": (feats, ga["s0"]), "w2_sem": (hid["s0"], g)})
-            if spec.use_tj_for_s:
-                pairs["w_s0_aux"] = (aux, ga["s0"])
+    pairs = heads_reduce_pairs(spec, shared, aux, g, feats, hid, ga, g_feats)
     gemms = [(a, b, gw[k]) for k, (a, b) in pairs.items()]
     gw["b_heads"].zero_()  # rows of absent heads stay 0
     sums = [(g_feats32, gw["b_feats"])]
@@ -747,6 +770,8 @@ def _heads_backward_cuda(spec: FieldSpec, shared, aux, g_out, packed, need_aux):
     small = "b_small" if spec.heads_on else "b_small_sc"
     sums.append((g32, gw[small]))
     _bwd.reduce_op("field_bwd", "heads_bwd_reduce", dt, n, gemms=gemms, sums=sums)
+    if trace is not None:
+        trace.update(feats=feats, pre=pre, hid=hid, ga=ga, g_feats=g_feats32)
     g_heads = {k: gw[k].to(p[k].dtype) for k in spec.head_keys()}
     return g_shared, g_aux, g_heads
 

@@ -45,7 +45,7 @@ from torch.autograd.function import once_differentiable
 
 from satnerf_torch.ops import _bwd
 from satnerf_torch.ops._build import check_launch, load_library
-from satnerf_torch.ops.fastmath import COSINE_ENGINES, SIN_MODES, SINE_ENGINES
+from satnerf_torch.ops.fastmath import COSINE_ENGINES, SIN_MODES, SINE_ENGINES, acc_dtype
 
 LAUNCHES = 0  # trunk_backward calls that launched K4 (CUDA only)
 PLAIN_CALLS = 0  # trunk_backward_reference calls
@@ -60,9 +60,11 @@ TC_MAX_K = 64  # widest padded input the tensor-core forward kernels take
 
 
 def dot_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """f32 product of compute-dtype operands (``preferred_element_type=f32``):
-    bf16 operands are upcast before the product, so it sums in f32."""
-    return a.to(torch.float32) @ w.to(torch.float32)
+    """Product of compute-dtype operands summed in at least f32
+    (``preferred_element_type=f32``): bf16 operands are upcast before the
+    product, so it sums in f32; f64 operands stay f64."""
+    acc = acc_dtype(torch.promote_types(a.dtype, w.dtype))
+    return a.to(acc) @ w.to(acc)
 
 
 # -----------------------------------------------------------------------
@@ -84,9 +86,10 @@ def place_rows(w_in_out: torch.Tensor, rows: int, at: int) -> torch.Tensor:
 
 def pack_trunk(field, spec, dtype: torch.dtype) -> dict:
     """The trunk of a ``models.field.Field`` in the kernels' packed layout:
-    weights in ``dtype`` (the compute dtype), biases f32. Differentiable: under
-    grad mode the packed tensors carry autograd history back to the module's
-    parameters (``Field.packed`` caches a detached copy for inference)."""
+    weights in ``dtype`` (the compute dtype), biases f32 (f64 for f64).
+    Differentiable: under grad mode the packed tensors carry autograd history
+    back to the module's parameters (``Field.packed`` caches a detached copy
+    for inference)."""
     L, cx = spec.layers, spec.cx
     fc = [field.fc_net[2 * i] for i in range(L)]
     w0 = place_rows(in_out(fc[0], dtype), cx, 0)
@@ -104,7 +107,7 @@ def pack_trunk(field, spec, dtype: torch.dtype) -> dict:
         "w_mid": torch.stack(mids).contiguous(),
         "w_skip": (torch.stack(skips).contiguous() if skips
                    else w0.new_zeros((1, cx, spec.feat))),  # placeholder, never read
-        "b": torch.stack([l.bias.to(torch.float32) for l in fc]).contiguous(),
+        "b": torch.stack([l.bias.to(acc_dtype(dtype)) for l in fc]).contiguous(),
     }
 
 
@@ -417,7 +420,7 @@ def trunk_backward_reference(spec, x, packed, acts, g_shared):
     global PLAIN_CALLS
     PLAIN_CALLS += 1
     sin, cos = SINE_ENGINES[spec.sin_mode], COSINE_ENGINES[spec.sin_mode]
-    dt, L, f32 = x.dtype, spec.layers, torch.float32
+    dt, L, acc = x.dtype, spec.layers, acc_dtype(x.dtype)
     w0, w_mid, w_skip, b = (packed[k] for k in ("w0", "w_mid", "w_skip", "b"))
     if acts is None:  # "recompute": pre- and post-activations from x
         a = dot_f32(x, w0) + b[0:1]
@@ -431,16 +434,16 @@ def trunk_backward_reference(spec, x, packed, acts, g_shared):
             hs.append(sin(a).to(dt))
     else:  # "stored": post-activations from the stored pre-activations
         pre = [acts[i] for i in range(L)]
-        hs = [sin(spec.w0 * acts[0].to(f32)).to(dt)]
-        hs += [sin(acts[i].to(f32)).to(dt) for i in range(1, L - 1)]
+        hs = [sin(spec.w0 * acts[0].to(acc)).to(dt)]
+        hs += [sin(acts[i].to(acc)).to(dt) for i in range(1, L - 1)]
 
-    g = g_shared.to(dt).to(f32)
-    gwmid = torch.zeros(w_mid.shape, dtype=f32, device=x.device)
-    gwskip = torch.zeros(w_skip.shape, dtype=f32, device=x.device)
-    gb = torch.zeros(b.shape, dtype=f32, device=x.device)
-    gx_skip = torch.zeros((x.shape[0], x.shape[1]), dtype=f32, device=x.device)
+    g = g_shared.to(dt).to(acc)
+    gwmid = torch.zeros(w_mid.shape, dtype=acc, device=x.device)
+    gwskip = torch.zeros(w_skip.shape, dtype=acc, device=x.device)
+    gb = torch.zeros(b.shape, dtype=acc, device=x.device)
+    gx_skip = torch.zeros((x.shape[0], x.shape[1]), dtype=acc, device=x.device)
     for i in range(L - 1, 0, -1):
-        ga = g * cos(pre[i].to(f32))
+        ga = g * cos(pre[i].to(acc))
         ga_dt = ga.to(dt)
         gwmid[i - 1] = dot_f32(hs[i - 1].t(), ga_dt)
         gb[i] = ga.sum(0)
@@ -449,7 +452,7 @@ def trunk_backward_reference(spec, x, packed, acts, g_shared):
             gwskip[s] = dot_f32(x.t(), ga_dt)
             gx_skip = gx_skip + dot_f32(ga_dt, w_skip[s].t())
         g = dot_f32(ga_dt, w_mid[i - 1].t())
-    ga0 = g * cos(spec.w0 * pre[0].to(f32)) * spec.w0
+    ga0 = g * cos(spec.w0 * pre[0].to(acc)) * spec.w0
     ga0_dt = ga0.to(dt)
     gw0 = dot_f32(x.t(), ga0_dt)
     gb[0] = ga0.sum(0)

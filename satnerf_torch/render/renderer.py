@@ -40,7 +40,9 @@ from satnerf_torch.models.field import FieldConfig, field_forward
 from satnerf_torch.ops.composite import composite
 from satnerf_torch.parallel.mesh import gather_flat
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# float64 runs the plain versions only (the kernels take f32 and bf16): the
+# truth the f32 kernels are audited against
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
 
 
 @dataclass(frozen=True)
@@ -56,7 +58,7 @@ class RenderConfig:
     n_importance: int = 0
     use_fine_network: bool = False
     sc_stride: int = 1
-    compute_dtype: str = "float32"  # "float32" | "bfloat16"
+    compute_dtype: str = "float32"  # "float32" | "bfloat16" | "float64"
     # training-memory knobs, under autograd only: recompute the field in the
     # backward (remat), or evaluate it in remat_chunks sequential tiles, each
     # recomputed in the backward (0/1 disables)

@@ -489,6 +489,98 @@ def test_cuda_reduce_block_matches_torch(cuda_device, dtype, k, m, record_proper
     assert err < TOL_BLOCK and db_err < TOL_BLOCK
 
 
+# The f32 sums of K2 and K4 where their terms cancel, as a head's bias
+# gradient does at trained weights (chip_smoke.py trained_audit; k2_audit.py
+# located the excess in the row GEMM and in the reduction's bias sums). The
+# tensor cores add into their accumulator with truncation toward zero, so an
+# error leans the way the running sum points; where the sum then cancels, the
+# leanings stay. Each stage alone, its f32 operands seeded so that every
+# column's sum comes to 1e-2 or less of the sum of its terms' sizes (held
+# below), against f64: the kernel's error, over the largest column sum, at
+# most CANCEL_RATIO times that of torch's f32 product or sum of the same
+# operands (TF32 off). The operands are values that 3xTF32 holds exactly
+# (hi + lo of ops/_bwd.py:split_tf32), so that the test holds the sums: the
+# split keeps 22 of a weight's 24 bits, and rows of one sign summed against a
+# weight whose partner in the cancellation differs (a row GEMM's products
+# taking each other back but for 1e-3) carry that rounding of the weight
+# coherently (25x torch's error on raw f32 operands on an H100, PERF.md).
+N_CANCEL = 65_536
+EPS_CANCEL = 1e-3
+CANCEL_RATIO = 2.0
+
+
+def _paired_rows(dev, g, *blocks):
+    """(block, factor) pairs -> each block stacked on factor * block in
+    another row order, the 2 x rows shuffled by one permutation, f32."""
+    half = blocks[0][0].shape[0]
+    mix, perm = torch.randperm(half, generator=g), torch.randperm(2 * half, generator=g)
+    return [torch.cat([b, f * b[mix]])[perm].contiguous().to(dev) for b, f in blocks]
+
+
+def _split_exact(x):
+    """x rounded to a value 3xTF32 holds exactly: hi + lo of its split."""
+    from satnerf_torch.ops import _bwd
+
+    return sum(_bwd.split_tf32(x))
+
+
+def _cancel_err(got, truth) -> float:
+    """max |got - truth| over max |truth|, in f64."""
+    return float((got.double() - truth).abs().max() / truth.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["row_gemm", "reduction"])
+def test_cuda_f32_backward_sums_hold_f64_where_terms_cancel(cuda_device, stage,
+                                                            record_property):
+    """``row_gemm``: the row GEMM at K 1,024, four products of K 256 as K2's
+    g_feats launch has them, where products 1 and 3 take back all but
+    about EPS_CANCEL of products 0 and 2 (positive A, so each running sum
+    first grows); each output column summed over N_CANCEL rows in f64.
+    One accumulator over all of K (each k-step's three passes in turn) read
+    2.5e-3 here against torch's 1.7e-6, on raw operands on an H100.
+    ``reduction``: dW = A^T B and the bias sum of B (folded into the GEMM's
+    pass, as f32 has it) over N_CANCEL rows, half of them the other half's
+    times -(1 - EPS_CANCEL), shuffled."""
+    from satnerf_torch.ops import _bwd
+
+    g = torch.Generator().manual_seed(11)
+    n, k, width = N_CANCEL, 256, 256
+    if stage == "row_gemm":
+        a0, a2 = torch.rand(n, k, generator=g), torch.rand(n, k, generator=g)
+        w0, w2 = (torch.randn(width, k, generator=g) / 16 for _ in range(2))
+        a = [a0, (1.0 - EPS_CANCEL) * a0, a2, (1.0 - EPS_CANCEL) * a2]
+        w = [w0, -w0, w2, EPS_CANCEL * torch.randn(width, k, generator=g) / 16 - w2]
+        a = [_split_exact(x).to(cuda_device) for x in a]
+        w = [_split_exact(x).to(cuda_device) for x in w]
+        got = torch.empty((n, width), dtype=torch.float32, device=cuda_device)
+        _bwd.row_op("field_bwd", "heads_bwd_row", torch.float32, n, width,
+                    prods=list(zip(a, w)), mode=_bwd.PLAIN, out_f32=got)
+        lib = torch.cat(a, dim=1) @ torch.cat(w, dim=1).t()
+        truth = torch.cat(a, dim=1).double() @ torch.cat(w, dim=1).double().t()
+        terms = torch.cat(a, dim=1).double().abs() @ torch.cat(w, dim=1).double().abs().t()
+        sums, terms = truth.sum(0), terms.sum(0)
+        errs = {"row_gemm": (_cancel_err(got.double().sum(0), sums),
+                             _cancel_err(lib.double().sum(0), sums))}
+    else:
+        a, b = _paired_rows(cuda_device, g, (torch.rand(n // 2, 64, generator=g), 1.0),
+                            (torch.rand(n // 2, width, generator=g), -(1.0 - EPS_CANCEL)))
+        a, b = _split_exact(a), _split_exact(b)
+        gw = torch.empty((64, width), dtype=torch.float32, device=cuda_device)
+        gb = torch.empty((width,), dtype=torch.float32, device=cuda_device)
+        _bwd.reduce_op("field_bwd", "heads_bwd_reduce", torch.float32, n,
+                       gemms=[(a, b, gw)], sums=[(b, gb)])
+        tw, sums = a.double().t() @ b.double(), b.double().sum(0)
+        terms = b.double().abs().sum(0)
+        errs = {"dW": (_cancel_err(gw, tw), _cancel_err(a.t() @ b, tw)),
+                "bias": (_cancel_err(gb, sums), _cancel_err(b.sum(0), sums))}
+    torch.cuda.synchronize()
+    assert float((sums.abs() / terms).max()) <= 1e-2  # the terms cancel
+    record_property("errors", errs)
+    for name, (kernel, plain) in errs.items():
+        assert kernel <= CANCEL_RATIO * plain, (name, kernel, plain)
+
+
 # -- the tensor-core forward (csrc/trunk_tc.cuh) -------------------------------------
 
 

@@ -11,8 +11,9 @@ mode on the CPU (loaded by path: ``tools/`` is no package; its module-level
   prepares (``tc_trunk_weights``, in f32 split into tf32 hi + lo by
   ``tc_split_weights``): each warpgroup's 128 columns of a pass, in the
   ping-pong order (layer i: warpgroup 0 pass 0, warpgroup 1 pass 0, then
-  pass 1), a fresh sum per 16 columns of K (f32: two tf32 k-steps of
-  lo*hi + hi*lo + hi*hi; bf16: one k-step) added into an f32 total, then
+  pass 1), a fresh sum per 16 columns of K (f32: two tf32 k-steps, the
+  cross terms lo*hi + hi*lo of both, then hi*hi of both; bf16: one k-step)
+  added into an f32 total, then
   bias, sine and the store in the compute dtype. Held against the prototype
   at the bars above, and bitwise against K3's order (both warpgroups' 256
   columns of a pass at once), which K6 keeps.
@@ -89,16 +90,18 @@ def _case(n: int, dtype: str):
 
 
 def _group(a, wh, wl):
-    """One fresh sum of 16 columns of K: f32 as two tf32 k-steps of lo*hi +
-    hi*lo + hi*hi (the weights' parts as the wrapper split them), bf16 as
-    one k-step, f32 sums."""
+    """One fresh sum of 16 columns of K: f32 as two tf32 k-steps, the cross
+    terms lo*hi and hi*lo of both first, then hi*hi of both (the weights'
+    parts as the wrapper split them); bf16 as one k-step; f32 sums."""
     if wl is None:
         return a.float() @ wh.float().t()
-    acc = None
-    for k in (slice(0, 8), slice(8, 16)):
-        ah, al = _bwd.split_tf32(a[:, k])
-        for term in (al @ wh[:, k].t(), ah @ wl[:, k].t(), ah @ wh[:, k].t()):
-            acc = term if acc is None else acc + term
+    steps = (slice(0, 8), slice(8, 16))
+    ah, al = _bwd.split_tf32(a)
+    terms = [t for k in steps for t in (al[:, k] @ wh[:, k].t(), ah[:, k] @ wl[:, k].t())]
+    terms += [ah[:, k] @ wh[:, k].t() for k in steps]
+    acc = terms[0]
+    for t in terms[1:]:
+        acc = acc + t
     return acc
 
 

@@ -200,7 +200,8 @@ def _imported_modules(fp: str) -> set:
 
 
 def test_port_sources_import_no_jax():
-    files = [os.path.join(REPO, name) for name in ("chip_smoke.py", "rung_audit.py")]
+    files = [os.path.join(REPO, name)
+             for name in ("chip_smoke.py", "rung_audit.py", "k2_audit.py")]
     for dp, _, fns in os.walk(os.path.join(REPO, "satnerf_torch")):
         files += [os.path.join(dp, fn) for fn in fns if fn.endswith(".py")]
     assert len(files) > 15
