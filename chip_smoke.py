@@ -147,7 +147,26 @@ JSON line per phase:
    versions and the layer-by-layer field from the plain f32 step, how far
    the layer-by-layer f32 step is from it, and (the float64 column, no bar)
    how far the f32 kernels and their f32 plain versions lie from the plain
-   step in f64 on the same batch.
+   step in f64 on the same batch;
+23. ``bench``: ``satnerf_torch.bench.main()`` at the JAX bench's default
+   configuration in full (8,192 + 1,024 depth rays, bf16, ``sc_stride`` 2,
+   a warm window and three of 50 steps), in this process: its line, K1
+   (both head variants), K2, K4, K5 and K5's backward launched as
+   ``PER_STEP`` on every step, no plain version; one step of it at its own
+   8,192 + 1,024 rays against the plain versions at ``TOL_AUDIT``'s bf16
+   bars, with each side's peak device memory; and
+   ``python -m satnerf_torch.bench`` as a user runs it;
+24. ``bench_variants``: ``SATNERF_BENCH_HIER=128``, ``BWD=stored`` and
+   ``SC_STRIDE=1`` at three steps a window, with the same checks at each
+   one's own batch; the hierarchical one, whose fine points follow the
+   coarse weights, call by call: each field evaluation and composite of
+   one kernels' step replayed alone on its recorded inputs and upstream
+   gradients through the kernels and the plain versions (and, no bar, the
+   plain versions in f64);
+25. ``tools``: ``tools.render_bench``, ``tools.speed_of_light`` (five passes
+   a row, ``sc_stride`` 2) and ``tools.feed_rate`` through their ``main``:
+   each line finite, the kernels launched by their renders and steps, none
+   by the feed; then each phase group's seconds (``phase_seconds``).
 
 K1's and K3's bounds are given three ways: f32 products as 3xTF32 on the
 tensor cores (bound_ms in f32), on the f32 FMA units, and bf16 on the
@@ -309,6 +328,21 @@ TOL_AUDIT = {
                  "grad": TOL_FIELD_BWD["bfloat16"]},
 }
 
+# bench: the port's training-throughput bench (satnerf_torch/bench.py) at the JAX
+# bench's default configuration in full (batch 8,192 + 1,024 depth rays, bf16,
+# sc_stride 2: K1, K2, K4, K5 and its backward as PER_STEP, the solar-correction
+# half on K1's heads-off variant) and, at BENCH_VARIANT_STEPS steps a window, three
+# variants; each held against the plain versions at TOL_AUDIT["bfloat16"] at its
+# own batch (bench_plain_check): a whole step on both sides (the same points), but
+# for the hierarchical variant, whose fine points follow the coarse weights: there
+# each field evaluation and composite of the kernels' step is replayed alone on
+# its recorded inputs (bench_replay_check)
+BENCH_VARIANTS = {"hier128": ({"SATNERF_BENCH_HIER": "128"}, PER_STEP_HIER),
+                  "bwd_stored": ({"SATNERF_BENCH_BWD": "stored"}, PER_STEP),
+                  "sc_stride1": ({"SATNERF_BENCH_SC_STRIDE": "1"}, PER_STEP)}
+BENCH_VARIANT_STEPS = 3
+SOL_ARGS = ["--scan", "5", "--sc-stride", "2"]  # speed_of_light at the bench's stride
+
 
 def op_bounds(flops: float, dname: str) -> dict:
     """The ms that ``flops`` of work take at each engine's peak: f32 products
@@ -331,11 +365,9 @@ def check(cond: bool, msg: str) -> None:
 
 
 def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
+    from satnerf_torch.device import card_line
+
+    return card_line()
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -2839,23 +2871,44 @@ def audit_batch(pipeline, n: int, n_depth: int, seed: int, dev) -> dict:
     return batch
 
 
+def _upstream_hooks(out, store: dict) -> None:
+    """Under autograd: the gradient that reaches each output of ``out`` (a
+    dict, or a sequence keyed by position) in the backward lands in
+    ``store``."""
+    import torch
+
+    if not torch.is_grad_enabled():
+        return
+    for k, v in (out.items() if isinstance(out, dict) else enumerate(out)):
+        if v.requires_grad:
+            v.register_hook(lambda g, k=k: None if g is None
+                            else store.__setitem__(k, g.detach()))
+
+
 @contextlib_contextmanager
 def _audit_hooks():
-    """Within: the renderer's field evaluations (inputs and outputs) and K5's
-    weights of each composite are recorded."""
+    """Within: the renderer's field evaluations (inputs, outputs and the
+    gradients that reach the outputs), and K5's inputs, weights and output
+    gradients of each composite, are recorded."""
     from satnerf_torch.render import renderer
 
-    rec = {"field": [], "weights": []}
+    rec = {"field": [], "field_upstream": [], "weights": [], "composite": [],
+           "composite_upstream": []}
     eval_field, composite = renderer._eval_field, renderer.composite
 
     def eval_recorded(*args):
         out = eval_field(*args)
         rec["field"].append((args, {k: v.detach() for k, v in out.items()}))
+        rec["field_upstream"].append({})
+        _upstream_hooks(out, rec["field_upstream"][-1])
         return out
 
     def composite_recorded(*args):
         out = composite(*args)
         rec["weights"].append(out[0].detach())
+        rec["composite"].append(tuple(a.detach() for a in args))
+        rec["composite_upstream"].append({})
+        _upstream_hooks(out, rec["composite_upstream"][-1])
         return out
 
     renderer._eval_field, renderer.composite = eval_recorded, composite_recorded
@@ -2927,7 +2980,6 @@ def audit_engine(pipeline, params: dict, step: int, batch: dict, dev, dtype: str
     from satnerf_torch.run.training import apply_matmul_precision
     from satnerf_torch.train.data import EpochSampler
     from satnerf_torch.train.state import create_train_state
-    from satnerf_torch.train.step import build_train_step
 
     cfg = pipeline.cfg
     spe = EpochSampler(len(pipeline.datasets["rgb"]), cfg.pipeline.batch_size).steps_per_epoch
@@ -2946,17 +2998,33 @@ def audit_engine(pipeline, params: dict, step: int, batch: dict, dev, dtype: str
                else v.detach().double().requires_grad_(True) for k, v in prm.items()}
     state = create_train_state(prm, cfg.pipeline.learnrate, cfg.pipeline.lr_scheduler, spe)
     state.step = int(step)
-    gen = torch.Generator(device=dev).manual_seed(AUDIT_SEED)
     if not plain:
         precision = precision or cfg.run.matmul_precision
         apply_matmul_precision(precision)
         # as a fresh process of the run has it, whatever this one set before
         torch.backends.cuda.matmul.allow_tf32 = precision != "highest"
+    return recorded_step(scfg, state, batch, dev, plain)
+
+
+def recorded_step(scfg, state, batch: dict, dev, plain: bool) -> dict:
+    """One training step of ``state`` under ``scfg``, its jitter drawn from
+    AUDIT_SEED, through the kernels or, with ``plain``, their plain versions
+    (``plain_versions``) -> loss terms, every gradient, the field evaluations
+    (inputs, outputs, output gradients), and K5's inputs, weights and output
+    gradients."""
+    import torch
+
+    from satnerf_torch.train.step import build_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(AUDIT_SEED)
     with plain_versions() if plain else contextlib_nullcontext(), _audit_hooks() as rec:
         state, metrics = build_train_step(scfg)(state, batch, gen)
     torch.cuda.synchronize()
-    return {"loss": {k: float(v) for k, v in metrics.items()}, "grad": _named_grads(prm),
-            "field": rec["field"], "weights": rec["weights"], "fcfg": rcfg.field}
+    return {"loss": {k: float(v) for k, v in metrics.items()},
+            "grad": _named_grads(state.params), "field": rec["field"],
+            "weights": rec["weights"], "composite": rec["composite"],
+            "field_upstream": rec["field_upstream"],
+            "composite_upstream": rec["composite_upstream"], "fcfg": scfg.render.field}
 
 
 def _audit_errors(got: dict, ref: dict) -> dict:
@@ -3095,6 +3163,325 @@ def trained_audit_phase(dev, quality: dict, work: str) -> dict:
     return line
 
 
+@contextlib_contextmanager
+def tool_env(env: dict):
+    """Within: ``env`` set and every other SATNERF_BENCH_* / SATNERF_RENDER_*
+    variable unset; the environment as it was after."""
+    saved = {k: v for k, v in os.environ.items() if k.startswith(("SATNERF_BENCH_",
+                                                                   "SATNERF_RENDER_"))}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+
+
+@contextlib_contextmanager
+def k1_variants():
+    """Within: K1's launches counted by head variant -> {"heads_on": n,
+    "heads_off": n}."""
+    from satnerf_torch.ops import field_fused as ff
+
+    counts = {"heads_on": 0, "heads_off": 0}
+    forward = ff._forward
+
+    def counted(spec, *args, **kwargs):
+        out = forward(spec, *args, **kwargs)
+        counts["heads_on" if spec.heads_on else "heads_off"] += 1
+        return out
+
+    ff._forward = counted
+    try:
+        yield counts
+    finally:
+        ff._forward = forward
+
+
+def counted_run(fn):
+    """``fn()`` between reset and read launch counters -> (its result,
+    launches, plain calls, K1 launches by head variant, seconds)."""
+    t0 = time.monotonic()
+    reset_counters()
+    with k1_variants() as heads:
+        out = fn()
+    launches, plain = read_counters()
+    return out, launches, plain, heads, time.monotonic() - t0
+
+
+def bench_plain_check(dev, env: dict) -> dict:
+    """The bench's configuration under ``env`` at its own batch (its
+    synthetic rays and depth rays, seed-0 parameters) through the kernels
+    and through their plain versions, held to TOL_AUDIT["bfloat16"]: one
+    whole step on each side (``_audit_errors``), or for the hierarchical
+    pass ``bench_replay_check`` on the recorded upstream gradients -> the
+    worst error of each group, the rays, and the peak device GB of the
+    kernels' step and of the plain one (or the replay). For the
+    hierarchical pass, unbarred beside them: both engines against f64, and
+    the replay under seeded upstream gradients, where a head's bias
+    gradient is a sum that cancels and both bf16 engines stray from f64 by
+    up to a tenth of it."""
+    import torch
+
+    from satnerf_torch import bench
+    from satnerf_torch.train.state import create_train_state, init_params
+
+    s = bench.settings(env)
+    _, _, scfg = bench.configs(s, dev)
+    params = init_params(torch.Generator().manual_seed(0), scfg.render.field, t_vocab=50,
+                         device=dev, use_fine_network=s.hier > 0)
+    batch = bench.synthetic_batch(s.batch, depth=bench.DEPTH_RAYS, device=dev)
+    runs, peak_gb = {}, {}
+    for plain in (False, True) if s.hier == 0 else (False,):
+        state = create_train_state(copy_params(params, dev), 5e-4, steps_per_epoch=1000)
+        torch.cuda.reset_peak_memory_stats()
+        runs[plain] = recorded_step(scfg, state, batch, dev, plain)
+        peak_gb["plain" if plain else "kernels"] = torch.cuda.max_memory_allocated() / 1e9
+        runs[plain]["params"] = state.params
+    if s.hier == 0:
+        errs = _audit_errors(runs[False], runs[True])
+    else:
+        torch.cuda.reset_peak_memory_stats()
+        replay = bench_replay_check(runs[False], params, dev)
+        peak_gb["replay"] = torch.cuda.max_memory_allocated() / 1e9
+        errs = replay["vs_plain"]
+        seeded = bench_replay_check(runs[False], params, dev, upstream="seeded")
+    bad = [f"{g} {k}: {e}" for g, bar in TOL_AUDIT["bfloat16"].items()
+           for k, e in errs[g].items() if not e <= bar]
+    check(not bad, f"bench {s.config_desc} against the plain versions: {bad}")
+    out = {"worst": {g: max(v.values()) for g, v in errs.items() if v},
+           "checked": {g: len(v) for g, v in errs.items()},
+           "rays": [s.batch, bench.DEPTH_RAYS], "peak_gb": peak_gb,
+           "mode": "step" if s.hier == 0 else "replay"}
+    if s.hier:
+        # unbarred: each engine's distance from the plain versions in f64, and
+        # the replay under seeded upstream gradients, with its worst gradient
+        def worst(r):
+            return {g: max(v.values()) for g, v in r.items() if v}
+
+        out.update({k: worst(replay[k]) for k in ("kernels_vs_float64", "plain_vs_float64")})
+        name = max(seeded["vs_plain"]["grad"], key=seeded["vs_plain"]["grad"].get)
+        out["seeded_upstream"] = {**{k: worst(v) for k, v in seeded.items()},
+                                  "worst_grad": {k: {name: v["grad"][name]}
+                                                 for k, v in seeded.items()}}
+    return out
+
+
+COMPOSITE_IO = (("sigmas", "albedo", "sun", "sky"),
+                ("weights", "transparency", "depth", "rgb"))
+
+
+def bench_replay_check(run: dict, params: dict, dev, upstream: str = "recorded") -> dict:
+    """Each field evaluation of a recorded kernels' step (``recorded_step``)
+    and each of its composites, replayed alone on its recorded inputs at the
+    weights of the step (copies of ``params``), forward and backward: through
+    the kernels (K1, K2, K4; K5 and its backward), through their plain
+    versions, and through the plain versions in f64 (inputs and weights
+    cast). The upstream gradients are the ones the step gave each output
+    (``upstream="recorded"``: K2's and K5's backward inputs on the main
+    path) or seeded normals (``"seeded"``). A field evaluation that the
+    backward recomputes (remat) is replayed once. -> {"vs_plain": errors of
+    the kernels against the plain versions (``rel_err``; "field" K1's
+    outputs, "weights" K5's outputs, "grad" the field's parameter and
+    embedding gradients (K2, K4) and K5's input gradients),
+    "kernels_vs_float64", "plain_vs_float64": the same against f64}."""
+    import torch
+
+    from satnerf_torch.render import renderer
+
+    weights = copy_params(params, dev)
+    w64 = {k: v.double() for k, v in copy_params(params, dev).items() if k in ("field", "fine")}
+    pairs = {"vs_plain": ("kernels", "plain"), "kernels_vs_float64": ("kernels", "float64"),
+             "plain_vs_float64": ("plain", "float64")}
+    errs = {name: {"loss": {}, "field": {}, "weights": {}, "grad": {}} for name in pairs}
+
+    def compare(group, prefix, got):
+        for name, (a, b) in pairs.items():
+            errs[name][group].update({f"{prefix}.{k}": rel_err(v, got[b][k])
+                                      for k, v in got[a].items()
+                                      if got[b][k] is not None and got[b][k].numel()})
+
+    def cast(a, f64):
+        return None if a is None else (a.detach().double() if f64 else a.detach())
+
+    def seeded(i, shapes):
+        gen = torch.Generator(device=dev).manual_seed(AUDIT_SEED + i)
+        return {k: torch.randn(shape, generator=gen, device=dev) for k, shape in shapes}
+
+    seen = []
+    for i, (args, _) in enumerate(run["field"]):
+        if any(args[4] is a[4] for a in seen):
+            continue
+        seen.append(args)
+        key = next(k for k in ("field", "fine") if run["params"].get(k) is args[0])
+        fcfg, dt, n_full = args[1:4]
+        out, grads, g_out = {}, {}, None
+        for engine in ("kernels", "plain", "float64"):
+            f64 = engine == "float64"
+            field = w64[key] if f64 else weights[key]
+            emb = [None if a is None else cast(a, f64).clone().requires_grad_(True)
+                   for a in args[7:9]]
+            names = [n for n, _ in field.named_parameters()] + [
+                n for n, e in zip(("t_emb", "t_s_emb"), emb) if e is not None]
+            wrt = [p for _, p in field.named_parameters()] + [e for e in emb if e is not None]
+            with plain_versions() if engine != "kernels" else contextlib_nullcontext():
+                o = renderer._eval_field(field, fcfg, torch.float64 if f64 else dt, n_full,
+                                         *(cast(a, f64) for a in args[4:7]), *emb)
+                keys = [k for k, v in o.items() if v.requires_grad]
+                if g_out is None:
+                    rec = run["field_upstream"][i]
+                    g_out = (seeded(i, [(k, o[k].shape) for k in keys]) if upstream == "seeded"
+                             else {k: rec[k] if k in rec else torch.zeros_like(o[k])
+                                   for k in keys})
+                g = torch.autograd.grad([o[k] for k in keys], wrt,
+                                        [g_out[k].to(o[k].dtype) for k in keys],
+                                        allow_unused=True)
+            out[engine] = {k: v.detach() for k, v in o.items()}
+            grads[engine] = {f"{key}.{n}": v for n, v in zip(names, g)}
+        compare("field", f"eval{i}", out)
+        compare("grad", f"eval{i}", grads)
+    for i, args in enumerate(run["composite"]):
+        out, grads, g_out = {}, {}, None
+        for engine in ("kernels", "plain", "float64"):
+            f64 = engine == "float64"
+            z_vals = cast(args[1], f64)
+            ins = [cast(a, f64).clone().requires_grad_(True)
+                   for j, a in enumerate(args) if j != 1]
+            with plain_versions() if engine != "kernels" else contextlib_nullcontext():
+                o = dict(zip(COMPOSITE_IO[1], renderer.composite(ins[0], z_vals, *ins[1:])))
+                keys = [k for k, v in o.items() if v.requires_grad]
+                if g_out is None:
+                    rec = run["composite_upstream"][i]
+                    g_out = (seeded(1000 + i, [(k, o[k].shape) for k in keys])
+                             if upstream == "seeded" else
+                             {k: rec[j] if j in rec else torch.zeros_like(o[k])
+                              for j, k in enumerate(COMPOSITE_IO[1]) if k in keys})
+                g = torch.autograd.grad([o[k] for k in keys], ins,
+                                        [g_out[k].to(o[k].dtype) for k in keys])
+            out[engine] = {k: v.detach() for k, v in o.items()}
+            grads[engine] = dict(zip(COMPOSITE_IO[0], g))
+        compare("weights", f"composite{i}", out)
+        compare("grad", f"composite{i}", grads)
+    torch.cuda.synchronize()
+    return errs
+
+
+def _check_bench_run(name: str, line: dict, launches: dict, plain: dict, heads: dict,
+                     per_step: dict, steps: int) -> None:
+    want = {k: v * steps for k, v in per_step.items()}
+    check(launches == want, f"{name} launches {launches}, expected {want}")
+    check(not any(plain.values()), f"{name}: a plain version ran: {plain}")
+    check(heads["heads_off"] > 0 and 3 * heads["heads_off"] == launches["field_fused"],
+          f"{name}: K1 by head variant {heads}")
+    check(all(math.isfinite(line[k]) and line[k] > 0
+              for k in ("value", "rays_per_sec_all_windows")), f"{name} value {line}")
+    check(line["config"].split("/")[1] == "kernels", f"{name} config {line['config']}")
+
+
+def bench_phase(dev) -> dict:
+    """``satnerf_torch.bench.main()`` at the default configuration in full, in
+    this process (launch counters around it), one step of it against the
+    plain versions, and ``python -m satnerf_torch.bench`` as a user runs it."""
+    from satnerf_torch import bench
+
+    t_phase = time.monotonic()
+    with tool_env({}):
+        line, launches, plain, heads, secs = counted_run(bench.main)
+        steps = (1 + bench.WINDOWS) * bench.SCAN_STEPS
+        _check_bench_run("bench", line, launches, plain, heads, PER_STEP, steps)
+        check(line["config"] == "batch8192/kernels/chunks0/bf16/sc2",
+              f"bench config {line['config']}")
+        plain_err = bench_plain_check(dev, {})
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("SATNERF_BENCH_", "SATNERF_RENDER_"))}
+        t0 = time.monotonic()
+        proc = subprocess.run([sys.executable, "-m", "satnerf_torch.bench"], cwd=REPO,
+                              env=env, capture_output=True, text=True, timeout=600)
+        cli_s = time.monotonic() - t0
+    check(proc.returncode == 0, f"python -m satnerf_torch.bench exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(cli["metric"] == "train_rays_per_sec_per_chip" and math.isfinite(cli["value"])
+          and cli["value"] > 0 and cli["config"] == line["config"],
+          f"bench CLI line {cli}")
+    out = {"phase": "bench", "line": line, "steps": steps, "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "k1_by_heads": heads, "plain_calls": plain, "main_seconds": secs,
+           "plain_check": plain_err, "plain_check_tol": TOL_AUDIT["bfloat16"], "cli_line": cli, "cli_seconds": cli_s,
+           "seconds": time.monotonic() - t_phase}
+    emit(out)
+    return out
+
+
+def bench_variants_phase(dev) -> dict:
+    """Each of BENCH_VARIANTS through ``bench.main`` at BENCH_VARIANT_STEPS
+    steps a window, with the checks of ``bench_phase``."""
+    from satnerf_torch import bench
+
+    t_phase = time.monotonic()
+    out = {"phase": "bench_variants", "steps_per_window": BENCH_VARIANT_STEPS, "runs": {}}
+    steps = (1 + bench.WINDOWS) * BENCH_VARIANT_STEPS
+    for name, (env, per_step) in BENCH_VARIANTS.items():
+        with tool_env(env):
+            line, launches, plain, heads, secs = counted_run(
+                lambda: bench.main(BENCH_VARIANT_STEPS))
+        _check_bench_run(f"bench {name}", line, launches, plain, heads, per_step, steps)
+        out["runs"][name] = {"line": line, "launches": launches, "k1_by_heads": heads,
+                             "seconds": secs, "plain_check": bench_plain_check(dev, env)}
+    out["launches"] = {name: r["launches"] for name, r in out["runs"].items()}
+    out["seconds"] = time.monotonic() - t_phase
+    emit(out)
+    return out
+
+
+def tools_phase(dev) -> dict:
+    """render_bench, speed_of_light and feed_rate through their ``main``s:
+    each line finite and positive, the kernels launched as their renders and
+    steps call them, no plain version."""
+    from satnerf_torch.tools import feed_rate, render_bench, speed_of_light
+
+    t_phase = time.monotonic()
+    out = {}
+    with tool_env({}):
+        line, launches, plain, heads, secs = counted_run(render_bench.main)
+    chunks = (1 + render_bench.WINDOWS) * render_bench.settings({}).scan
+    want = dict.fromkeys(launches, 0)
+    want.update(field_fused=chunks, composite=chunks)
+    check(launches == want and heads["heads_off"] == 0,
+          f"render_bench launches {launches} {heads}, expected {want}")
+    check(not any(plain.values()), f"render_bench: a plain version ran: {plain}")
+    check(math.isfinite(line["value"]) and line["value"] > 0, f"render_bench {line}")
+    out["render_bench"] = {"line": line, "launches": launches, "seconds": secs}
+
+    with tool_env({}):
+        sol, launches, plain, heads, secs = counted_run(lambda: speed_of_light.main(SOL_ARGS))
+    n = (1 + speed_of_light.TRIALS) * int(SOL_ARGS[SOL_ARGS.index("--scan") + 1])
+    # fwd: a render of the main (heads on) and solar-correction (heads off)
+    # halves, K5 on the main half; step: PER_STEP
+    want = {k: v * n for k, v in PER_STEP.items()}
+    want["field_fused"] += 2 * n
+    want["composite"] += n
+    check(launches == want, f"speed_of_light launches {launches}, expected {want}")
+    check(not any(plain.values()), f"speed_of_light: a plain version ran: {plain}")
+    check(all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in sol["rows"])
+          and all(0 < r["mfu_vs_peak"] < 1 for r in sol["rows"] if "mfu_vs_peak" in r),
+          f"speed_of_light rows {sol['rows']}")
+    out["speed_of_light"] = {"line": sol, "args": SOL_ARGS, "launches": launches,
+                             "k1_by_heads": heads, "seconds": secs}
+
+    feed, launches, plain, _, secs = counted_run(feed_rate.main)
+    check(not any(launches.values()) and not any(plain.values()),
+          f"feed_rate ran a kernel: {launches} {plain}")
+    check(math.isfinite(feed["rays_per_s"]) and feed["rays_per_s"] > 0, f"feed_rate {feed}")
+    out["feed_rate"] = {"line": feed, "launches": launches, "seconds": secs}
+    line = {"phase": "tools", **out, "seconds": time.monotonic() - t_phase}
+    emit(line)
+    return line
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if "--tree" in argv:
@@ -3129,6 +3516,7 @@ def main() -> int:
 
     disable_tf32()
     dev = torch.device("cuda")
+    marks = [("start", time.monotonic())]
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
@@ -3141,6 +3529,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 2),
           "per_source_seconds": {k: round(v, 2) for k, v in per_lib.items()},
           "build_dir": os.path.relpath(_build.build_dir(), REPO)})
+    marks.append(("build", time.monotonic()))
     # the libraries on the tensor cores: HGMMA (wgmma) instructions in each
     # kernel's SASS, and ptxas's registers and spills
     tc_libs = {"field_bwd": ("tc_row_kernel", "reduce_kernel"),
@@ -3395,6 +3784,7 @@ def main() -> int:
     # ---- 8. backward kernels -----------------------------------------------------
     bwd_err = field_backward_phase(field, fcfg, enc, sun_d, t_emb)
     comp_bwd_err = composite_backward_phase(dev)
+    marks.append(("kernel_checks_serve_times", time.monotonic()))
 
     # ---- 9. training ------------------------------------------------------------------
     train = train_phase(dev, vocab)
@@ -3409,6 +3799,7 @@ def main() -> int:
     train_t = train_times_phase(dev, train["scfg"], train["params"], turns, k5)
     k5_line = composite_device_phase(turns, k5)
     profile_phase(dev, train["scfg"], train["params"], vocab)
+    marks.append(("train_times_profile", time.monotonic()))
 
     # ---- 10. the trunk-only kernel K3 and its interleaved variant K6 ------------------
     rcfg_b = load_render_config(PIPELINE_TOML, device=dev, trunk_impl="pallas", **BETA_S)
@@ -3436,6 +3827,7 @@ def main() -> int:
 
     # ---- 13. K3 and K6 times -----------------------------------------------------------
     trunk_t = trunk_times_phase(dev, field_b, spec_b, lambda n: field_inputs(n, 3)[0], turns)
+    marks.append(("k3_k6_paths_a_b", time.monotonic()))
 
     # ---- 14-20. the training CLI on a generated scene, resume, serving its best;
     # the eval battery on that run; the run served by view name over HTTP; its
@@ -3461,6 +3853,17 @@ def main() -> int:
         del quality["fit"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    marks.append(("scene_to_trained_audit", time.monotonic()))
+
+    # ---- 23-25. the measurement scripts: the bench, its variants, the tools ----
+    bench_line = bench_phase(dev)
+    marks.append(("bench", time.monotonic()))
+    variants = bench_variants_phase(dev)
+    marks.append(("bench_variants", time.monotonic()))
+    tools = tools_phase(dev)
+    marks.append(("tools", time.monotonic()))
+    emit({"phase": "phase_seconds", "total": marks[-1][1] - marks[0][1],
+          **{name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}})
 
     def by_path(kernel):
         return {"train": train["launches"][kernel], "train_beta_s": beta_s["launches"][kernel],
@@ -3476,7 +3879,11 @@ def main() -> int:
                 "sweep": sweep["launches"][kernel], "prep_scene": prep["launches"][kernel],
                 "prep_scene_eval": prep["eval_launches"][kernel],
                 "quality_tools": quality["launches"][kernel],
-                "quality_tools_sin_swap": quality["sin_swap_launches"][kernel]}
+                "quality_tools_sin_swap": quality["sin_swap_launches"][kernel],
+                "bench": bench_line["launches"][kernel],
+                **{f"bench_{name}": v[kernel] for name, v in variants["launches"].items()},
+                **{name: tools[name]["launches"][kernel]
+                   for name in ("render_bench", "speed_of_light", "feed_rate")}}
 
     f32 = times["float32"]
     k1t = train_t["field_fused"]

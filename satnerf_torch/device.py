@@ -17,6 +17,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them: every
+    measurement is reported beside them, since a card set below its full
+    power limit runs slower under load."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
 def disable_tf32() -> None:
     """Keep f32 matmuls and convolutions in full f32 on the card.
 

@@ -8,4 +8,8 @@ module with ``main(argv=None) -> int``:
 
 ``--device`` defaults to ``cuda`` and raises without a GPU
 (``satnerf_torch.device.resolve_device``); the table tools read JSON only.
+
+The measurement tools (``render_bench``, ``speed_of_light``, ``feed_rate``,
+beside ``satnerf_torch.bench``) have no ``--device``: they measure the card
+and raise without one. Their ``main`` returns the numbers it prints.
 """

@@ -1086,3 +1086,54 @@ def test_cuda_kernels_match_plain_at_trained_weights(cuda_device, tmp_path, reco
     assert audit["rays"] == 512 and audit["depth_rays"] > 0
     failures = smoke.audit_failures(audit)
     assert not failures, (failures, worst)
+
+
+# each measurement script at a small window: (its module, its call)
+TOOL_RUNS = {
+    "bench": ({"SATNERF_BENCH_BATCH": "1024"}, lambda mod: mod.main(2)),
+    "render_bench": ({"SATNERF_RENDER_CHUNK": "1024", "SATNERF_RENDER_SCAN": "2"},
+                     lambda mod: mod.main()),
+    "speed_of_light": ({}, lambda mod: mod.main(["--batch", "1024", "--scan", "2",
+                                                 "--sc-stride", "2"])),
+    "feed_rate": ({}, lambda mod: mod.main(["--rays", "1000000", "--steps", "50"])),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tool", sorted(TOOL_RUNS))
+def test_cuda_measurement_scripts_run_the_kernels(cuda_device, tool, monkeypatch):
+    """``satnerf_torch.bench`` and the three measurement tools at a small
+    window: a finite positive rate or time, the kernels launched (none by
+    feed_rate, which copies indices only) and no plain version."""
+    import importlib
+    import math
+    import os
+
+    from satnerf_torch.models import field as field_mod
+    from satnerf_torch.ops import composite as comp
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    env, run = TOOL_RUNS[tool]
+    for k in list(os.environ):
+        if k.startswith(("SATNERF_BENCH_", "SATNERF_RENDER_")):
+            monkeypatch.delenv(k)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    mod = importlib.import_module("satnerf_torch.bench" if tool == "bench"
+                                  else f"satnerf_torch.tools.{tool}")
+    counters = ((ff, "LAUNCHES"), (comp, "LAUNCHES"), (ff, "PLAIN_CALLS"),
+                (trunk, "PLAIN_CALLS"), (comp, "PLAIN_CALLS"), (field_mod, "PLAIN_CALLS"))
+    before = [getattr(m, n) for m, n in counters]
+    out = run(mod)
+    k1, k5, *plain = (getattr(m, n) - b for (m, n), b in zip(counters, before))
+    if tool == "speed_of_light":
+        values = [r["ms"] for r in out["rows"]]
+    else:
+        values = [out["rays_per_s" if tool == "feed_rate" else "value"]]
+    assert all(math.isfinite(v) and v > 0 for v in values), out
+    assert not any(plain), plain
+    if tool == "feed_rate":
+        assert k1 == k5 == 0
+    else:
+        assert k1 > 0 and k5 > 0, (k1, k5)

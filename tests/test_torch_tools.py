@@ -114,7 +114,7 @@ def test_no_tool_or_example_imports_jax():
     code = (
         "import sys, importlib, pkgutil\n"
         "for name in ('jax', 'satnerf_tpu', 'flax', 'optax', 'tools', 'examples', "
-        "'_common'):\n"
+        "'_common', 'bench', '__graft_entry__'):\n"
         "    sys.modules[name] = None\n"
         "import satnerf_torch.tools as t, satnerf_torch.examples as e\n"
         "mods = [f'{p.__name__}.{m.name}' for p in (t, e) for m in pkgutil.iter_modules(p.__path__)]\n"
@@ -126,4 +126,4 @@ def test_no_tool_or_example_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) == 12  # 7 tools, _common and 4 examples
+    assert int(out.stdout.split()[-1]) == 15  # 10 tools, _common and 4 examples
