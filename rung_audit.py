@@ -3,7 +3,8 @@
 the kernels against their plain versions at its trained states, on one card.
 
     python3 rung_audit.py <out_root> --variant kernels_bf16|kernels_f32|plain_f32
-        [--seed S] [--stop-at N] [--audit-at N,N] [--eval-at N,N]
+        [--seed S] [--stop-at N] [--audit-at N,N] [--eval-at N,N] [--render-at N,N]
+        [--gate] [--resume]
 
 The run is ``python -m satnerf_torch.tools.syn_long_run <out_root>
 --img-size 256 --n-train 8 --n-test 2 --batch 4096 --steps 8000`` (the rung
@@ -22,10 +23,20 @@ point with the variant applied to the pipeline it builds:
 ``--eval-at`` evaluates the test split (``evaluate_ours``) into
 ``<out_root>/results_step<N>.json``; ``--audit-at`` (``kernels_*`` only) runs
 ``chip_smoke.trained_audit`` on one 4,096 + 4,096 batch of the scene at the
-live state into ``<out_root>/audit_step<N>.json``; ``--stop-at`` ends the
-run after that step with ``ckpoints/last`` written (the schedule and the
-depth drop stay those of the 8,000-step run). Then ``python -m
-satnerf_torch.eval.eval <run_dp> --splits test`` evaluates a finished run.
+live state into ``<out_root>/audit_step<N>.json``; ``--render-at`` saves the
+render of the first test view (rgb, depth, semantic logits and labels, and
+beta composited along each ray, as ``evaluate_ours`` renders it) into
+``<out_root>/render_step<N>.npz``;
+``--stop-at`` ends the run after that step with ``ckpoints/last`` written
+(the schedule and the depth drop stay those of the 8,000-step run). Then
+``python -m satnerf_torch.eval.eval <run_dp> --splits test [--ckpt last]``
+evaluates a finished run.
+
+``--gate`` trains the JAX package's quality gate in place of the rung:
+``syn_long_run <out_root> --steps 8000 --sc-stride 1`` with the launcher's
+defaults (batch 8,192, 8 + 3 views of 256², 16,000 tie points;
+``docs/performance.md`` "Strided solar-correction quadrature").
+``--resume`` continues the newest run under ``<out_root>/training``.
 It needs one card and exits with 2 without one; it prints the card's name
 and power limit first.
 """
@@ -41,8 +52,10 @@ import sys
 REPO = os.path.dirname(os.path.abspath(__file__))
 RUNG = ["--img-size", "256", "--n-train", "8", "--n-test", "2", "--batch", "4096",
         "--steps", "8000"]
+GATE = ["--steps", "8000", "--sc-stride", "1"]
 VARIANTS = ("kernels_bf16", "kernels_f32", "plain_f32")
 AUDIT_RAYS = 4096
+RENDER_KEYS = ("rgb", "depth", "semantic_logits", "semantic_label")
 
 
 def _steps(text: str) -> list:
@@ -83,6 +96,9 @@ def _add_callbacks(args, smoke) -> None:
         def at_step(state, step):
             if step in evals:
                 evals[step](state, step)
+            if step in args.render_at:
+                _save_render(trainer.pipeline, state.params,
+                             os.path.join(args.out_root, f"render_step{step}.npz"), step)
             if step in args.audit_at:
                 audit = smoke.trained_audit(trainer.pipeline, state.params, step,
                                             AUDIT_RAYS, AUDIT_RAYS, trainer.device)
@@ -95,10 +111,31 @@ def _add_callbacks(args, smoke) -> None:
             if step == args.stop_at:
                 trainer.request_stop()
 
-        steps = set(evals) | set(args.audit_at) | ({args.stop_at} - {0})
+        steps = set(evals) | set(args.audit_at) | set(args.render_at) | ({args.stop_at} - {0})
         return {s: at_step for s in steps}
 
     syn_long_run._curve_evals = callbacks
+
+
+def _save_render(pipeline, params: dict, fp: str, step: int) -> None:
+    """The first test view rendered as ``evaluate_ours`` renders it -> ``fp``."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from satnerf_torch.render.renderer import render_image_chunked
+
+    dev = next(params["field"].parameters()).device
+    img = pipeline.datasets["rgb_test"].image_item(1)  # 0 is the prepended train view
+    rcfg = replace(pipeline.step_config(1, device=dev).render, solar_correction=False)
+    res = render_image_chunked(params, rcfg, img["rays"], img["extras"], chunk=8192,
+                               device=dev)
+    # the per-ray outputs the image consumers read; beta composited along
+    # the ray (the per-sample tensors are 64 times larger)
+    rays = {k: res[k] for k in RENDER_KEYS if k in res}
+    if "beta" in res:
+        rays["beta_composited"] = (res["weights"][..., None] * res["beta"]).sum(axis=-2)[:, 0]
+    np.savez_compressed(fp, name=img["name"], step=step, h=img["h"], w=img["w"], **rays)
 
 
 def main(argv=None) -> int:
@@ -109,6 +146,9 @@ def main(argv=None) -> int:
     ap.add_argument("--stop-at", type=int, default=0)
     ap.add_argument("--audit-at", type=_steps, default=[])
     ap.add_argument("--eval-at", default="")
+    ap.add_argument("--render-at", type=_steps, default=[])
+    ap.add_argument("--gate", action="store_true")
+    ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
     import torch
 
@@ -126,8 +166,11 @@ def main(argv=None) -> int:
     _apply_variant(args.variant)
     _add_callbacks(args, smoke)
     with smoke.plain_versions() if args.variant == "plain_f32" else contextlib.nullcontext():
-        return syn_long_run.main([args.out_root, "--seed", str(args.seed),
-                                  "--eval-at", args.eval_at, *RUNG])
+        rc = syn_long_run.main([args.out_root, "--seed", str(args.seed),
+                                "--eval-at", args.eval_at, *(GATE if args.gate else RUNG),
+                                *(["--resume"] if args.resume else [])])
+    print(json.dumps({"peak_gb": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
+    return rc
 
 
 if __name__ == "__main__":

@@ -16,7 +16,8 @@ Each partial also records the seconds its image spent in the render and in
 each consumer (``"seconds"``); results.json does not carry them.
 
 CLI: python -m satnerf_torch.eval.eval <run_or_experiment_dp> [output_dp]
-     [--splits test,train] [--epoch N] [--isolate auto|inline|subprocess]
+     [--splits test,train] [--epoch N] [--ckpt best|last|epoch_<n>]
+     [--isolate auto|inline|subprocess]
      [--batch-images N] [--stall-timeout-s S] [--chunk N] [--device cuda|cpu]
      output_dp defaults to $SATNERF_TPU_EVAL_DP, else
      <run_or_experiment_dp>/eval_battery.
@@ -175,18 +176,20 @@ def _eval_split(pipeline, params, rcfg, step, run_dp, output_dp, split, chunk: i
     return True
 
 
-def _worker(run_dp, output_dp, split, epoch=-1, chunk=16384, max_images=0, device=None):
+def _worker(run_dp, output_dp, split, epoch=-1, chunk=16384, max_images=0, device=None,
+            ckpt=None):
     """Fresh-process worker: evaluate up to max_images not-yet-done images
     of one split, then exit (0 = split complete, EXIT_MORE_REMAIN = call
     again). Resume comes from the on-disk partials."""
-    pipeline, params, rcfg, step = load_run(run_dp, epoch, device=device)
+    pipeline, params, rcfg, step = load_run(run_dp, epoch, device=device, ckpt=ckpt)
     done = _eval_split(pipeline, params, rcfg, step, run_dp, output_dp, split, chunk=chunk,
                        max_images=max_images, device=device)
     return 0 if done else EXIT_MORE_REMAIN
 
 
 def _run_split_isolated(run_dp, output_dp, split, epoch, chunk, batch_images, stall_timeout_s,
-                        max_respawns: int = 25, max_failures: int = 3, device="cuda"):
+                        max_respawns: int = 25, max_failures: int = 3, device="cuda",
+                        ckpt=None):
     """Parent side: spawn fresh worker processes for one split until it
     reports complete; SIGTERM a worker whose heartbeat goes stale (stalled
     inside a device call) and respawn it. Finished images are never
@@ -199,6 +202,8 @@ def _run_split_isolated(run_dp, output_dp, split, epoch, chunk, batch_images, st
     cmd = [sys.executable, "-m", "satnerf_torch.eval.eval", run_dp, output_dp,
            "--worker", "true", "--split", split, "--epoch", str(epoch), "--chunk", str(chunk),
            "--batch-images", str(batch_images), "--device", str(device)]
+    if ckpt:
+        cmd += ["--ckpt", ckpt]
     failures = 0
     while True:
         t_start = time.time()
@@ -240,9 +245,11 @@ def _run_split_isolated(run_dp, output_dp, split, epoch, chunk, batch_images, st
 
 def eval_all(input_dp: str, output_dp: str | None = None, splits=("train", "test"),
              epoch: int = -1, chunk: int = 16384, isolate: str = "auto", batch_images: int = 0,
-             stall_timeout_s: float = 900.0, device=None):
+             stall_timeout_s: float = 900.0, device=None, ckpt: str | None = None):
     """Evaluate every run under ``input_dp`` (one run dir or an experiment
-    dir) on ``splits`` and write the gathered tables."""
+    dir) on ``splits`` and write the gathered tables. ``ckpt`` names the
+    checkpoint ("last": the state a run ended at); by default an epoch
+    snapshot, else ``best``, else ``last``."""
     dev = resolve_device(device)  # no GPU, no battery: before any output
     # validate the input before creating any output tree, so a typo'd run
     # path fails fast instead of scattering empty directories
@@ -278,9 +285,9 @@ def eval_all(input_dp: str, output_dp: str | None = None, splits=("train", "test
                                    f"stall timeout {stall_timeout_s:.0f}s)")
             for split in splits:
                 _run_split_isolated(run_dp, output_dp, split, epoch, chunk, batch_images,
-                                    stall_timeout_s, device=dev)
+                                    stall_timeout_s, device=dev, ckpt=ckpt)
             continue
-        pipeline, params, rcfg, step = load_run(run_dp, epoch, device=dev)
+        pipeline, params, rcfg, step = load_run(run_dp, epoch, device=dev, ckpt=ckpt)
         for split in splits:
             logger.info("EvalAll", f"{run_name} [{split}]")
             _eval_split(pipeline, params, rcfg, step, run_dp, output_dp, split, chunk=chunk,
@@ -299,7 +306,8 @@ def main(argv=None):
     if kwargs.pop("worker", False):
         return _worker(os.path.abspath(args[0]), os.path.abspath(args[1]), kwargs["split"],
                        epoch=kwargs.get("epoch", -1), chunk=kwargs.get("chunk", 16384),
-                       max_images=kwargs.get("batch_images", 0), device=kwargs.get("device"))
+                       max_images=kwargs.get("batch_images", 0), device=kwargs.get("device"),
+                       ckpt=kwargs.get("ckpt"))
     eval_all(*args, **kwargs)
     return 0
 

@@ -23,7 +23,7 @@ from satnerf_torch.train.checkpoint import find_ckpoint_fp
 
 
 def load_run(run_dp: str, epoch: int | None = None, load_datasets: bool = True,
-             device=None):
+             device=None, ckpt: str | None = None):
     """-> (pipeline, params, rcfg, step).
 
     ``params`` holds ``Field`` modules and tables on ``device`` (None: the
@@ -37,7 +37,7 @@ def load_run(run_dp: str, epoch: int | None = None, load_datasets: bool = True,
     # evaluate at the run's matmul precision, as its validation rendered
     apply_matmul_precision(cfgs.run.matmul_precision)
 
-    ckpt_fp = find_ckpoint_fp(run_dp, epoch if (epoch or 0) > 0 else None)
+    ckpt_fp = find_ckpoint_fp(run_dp, epoch if (epoch or 0) > 0 else None, ckpt)
     raw = torch.load(ckpt_fp, map_location="cpu", weights_only=True)  # read once
     step = int(raw.get("step", 0))
     logger.info("Eval", f"restored {os.path.basename(ckpt_fp)} (step {step}) from {run_dp}")

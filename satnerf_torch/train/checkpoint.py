@@ -242,9 +242,15 @@ def load_warm_start_params(params: dict, ckpt_fp: str) -> dict:
     return params
 
 
-def find_ckpoint_fp(run_dp: str, epoch: int | None = None) -> str:
-    """A checkpoint file by epoch, else best, else last."""
+def find_ckpoint_fp(run_dp: str, epoch: int | None = None, name: str | None = None) -> str:
+    """A checkpoint file by ``name`` ("best", "last", "epoch_<n>"; it must
+    exist), else by epoch, else best, else last."""
     dp = os.path.join(run_dp, "ckpoints")
+    if name:
+        cand = os.path.join(dp, name + SUFFIX)
+        if not os.path.isfile(cand):
+            raise FileNotFoundError(f"no checkpoint {name!r} in {dp}")
+        return cand
     if epoch is not None:
         cand = os.path.join(dp, f"epoch_{epoch}{SUFFIX}")
         if os.path.isfile(cand):

@@ -12,8 +12,9 @@ within 1e-3, the PLY point counts are equal and the points within 1e-3 m.
 Also: the subprocess workers give the inline results.json byte for byte,
 a healthy batch boundary uses up no respawn while failures still raise,
 the render-view CLI, the study tools, the gathered tables, the
-confusion-matrix figure, and the eval CLI refusing to run on the CPU
-unasked."""
+confusion-matrix figure, the eval CLI refusing to run on the CPU unasked,
+``ckpt`` naming the checkpoint the battery restores, and ``rung_audit.py``
+saving the first test view as ``evaluate_ours`` renders it."""
 
 from __future__ import annotations
 
@@ -188,6 +189,54 @@ def test_subprocess_workers_give_the_inline_results_byte_for_byte(run, tmp_path)
         got, want = (open(fp).read() for fp in fps)
         assert got == want, kind
     assert os.path.isfile(os.path.join(out, "gathered.txt"))
+
+
+def test_ckpt_names_the_checkpoint_the_battery_restores(run, tmp_path):
+    from satnerf_torch.eval.loader import load_run
+    from satnerf_torch.train.checkpoint import find_ckpoint_fp
+
+    steps = {name: torch.load(os.path.join(run["run_dp"], "ckpoints", f"{name}.ckpt"),
+                              weights_only=True)["step"] for name in ("best", "last")}
+    assert load_run(run["run_dp"], ckpt="last", device="cpu")[3] == steps["last"]
+    with pytest.raises(FileNotFoundError, match="epoch_99"):
+        find_ckpoint_fp(run["run_dp"], name="epoch_99")
+    for name, isolate in (("last", "inline"), ("best", "subprocess")):
+        out = str(tmp_path / name)
+        eval_mod.eval_all(run["run_dp"], out, splits="test", chunk=CHUNK, isolate=isolate,
+                          device="cpu", ckpt=name)
+        partial_dp = os.path.join(out, run["name"], "partial", "test")
+        for fn in (f for f in os.listdir(partial_dp) if f.endswith(".json")):
+            with open(os.path.join(partial_dp, fn)) as f:
+                assert json.load(f)["step"] == steps[name], (name, fn)
+    # best is what the battery restores unasked
+    fps = [os.path.join(d, run["name"], "eval", "test", "results.json")
+           for d in (str(tmp_path / "best"), run["out"])]
+    got, want = (open(fp).read() for fp in fps)
+    assert got == want
+
+
+def test_rung_audit_saves_the_first_test_view_as_evaluate_ours_renders_it(run, tmp_path):
+    import importlib.util
+
+    from satnerf_torch.eval.loader import load_run
+    from satnerf_torch.render.renderer import render_image_chunked
+
+    spec = importlib.util.spec_from_file_location(
+        "rung_audit", os.path.join(os.path.dirname(os.path.dirname(__file__)), "rung_audit.py"))
+    rung_audit = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rung_audit)
+    pipeline, params, rcfg, step = load_run(run["run_dp"], device="cpu")
+    fp = str(tmp_path / "render.npz")
+    rung_audit._save_render(pipeline, params, fp, step)
+    saved = np.load(fp)
+    img = pipeline.datasets["rgb_test"].image_item(1)
+    want = render_image_chunked(params, rcfg, img["rays"], img["extras"], chunk=8192,
+                                device="cpu")
+    assert str(saved["name"]) == img["name"] and int(saved["step"]) == step
+    for key in rung_audit.RENDER_KEYS:
+        np.testing.assert_array_equal(saved[key], want[key])
+    beta = (want["weights"][..., None] * want["beta"]).sum(axis=-2)[:, 0]
+    np.testing.assert_array_equal(saved["beta_composited"], beta)
 
 
 def _fake_workers(monkeypatch, codes):

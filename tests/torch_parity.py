@@ -5,10 +5,12 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from satnerf_tpu.models import field as jfield
@@ -19,6 +21,37 @@ from satnerf_torch.ops.fastmath import COSINE_ENGINES, SIN_MODES, SINE_ENGINES
 
 # tier-1 runs several xdist workers on one machine: keep torch to few threads
 torch.set_num_threads(2)
+
+
+# how long a test waits for the JAX package's native library: make's own
+# limit for one build (satnerf_tpu/ops/native.py) and a second build's worth
+JAX_NATIVE_WAIT_S = 240.0
+
+
+def jax_native_lib(monkeypatch, wait_s: float = JAX_NATIVE_WAIT_S):
+    """The JAX package's native host library, loaded, for a test that holds
+    the port's C++ against the JAX package's bit for bit.
+
+    ``satnerf_tpu.ops.native.get_lib`` runs ``make`` in every process, and
+    the Makefile links the library in place. A process that loads it while
+    another is still linking finds a fresh, half-written file: ``make`` does
+    nothing and ``ctypes`` fails, ``get_lib`` returns None for the rest of
+    that process, and the JAX functions quietly take their numpy path, whose
+    last bits differ from the C++. Here a failed load is retried every half
+    second (``_lib`` and ``_tried`` reset through ``monkeypatch``) until the
+    build in flight has finished, for at most ``wait_s``; past that the case
+    fails with this message, never with a mismatch of C++ against numpy."""
+    from satnerf_tpu.ops import native as jnative
+
+    deadline = time.monotonic() + wait_s
+    while jnative.get_lib() is None:
+        if time.monotonic() > deadline:
+            pytest.fail(f"the JAX package's native library {jnative._LIB_FP} did not load "
+                        f"within {wait_s:.0f} s; not comparing the port's C++ with numpy")
+        time.sleep(0.5)
+        monkeypatch.setattr(jnative, "_lib", None)
+        monkeypatch.setattr(jnative, "_tried", False)
+    return jnative.get_lib()
 
 
 def field_pair(seed: int = 0, **cfg):
