@@ -1088,6 +1088,51 @@ def test_cuda_kernels_match_plain_at_trained_weights(cuda_device, tmp_path, reco
     assert not failures, (failures, worst)
 
 
+@pytest.mark.cuda
+def test_cuda_trained_audit_holds_each_field_against_its_own(cuda_device, tmp_path,
+                                                            record_property):
+    """``chip_smoke.trained_audit`` on a hierarchical state (2 x 512 in bf16,
+    32 + 32 samples, a fine field apart, ``remat_chunks`` 2; 60 steps on a
+    2 + 1-view 32x32 scene through the beta gate, car-reg and the depth
+    drop), whose fine field differs from the coarse one: both fields
+    evaluated, and each K1 output of each within TOL_AUDIT's field bar in
+    f32 and in bf16, held against the plain version of its own field."""
+    from satnerf_torch.configs import MainConfig, RSSemanticConfig, RunConfig
+    from satnerf_torch.datasets.synthetic import generate_scene
+    from satnerf_torch.pipelines import load_pipeline
+    from satnerf_torch.train.loop import Trainer
+
+    smoke = _chip_smoke()
+    generate_scene(str(tmp_path / "datasets" / "SYN"), n_train=2, n_test=1, img_size=32,
+                   n_tie_points=300)
+    run = RunConfig(dataset_name="SYN", datasets_dp=str(tmp_path / "datasets"),
+                    cache_dp=str(tmp_path / "cache"), workspace_dp=str(tmp_path / "training"),
+                    max_train_steps=60, check_val_every_n_epoch=1000, num_sanity_val_steps=0,
+                    seed=0)
+    pipe = RSSemanticConfig(n_samples=32, n_importance=32, use_fine_network=True,
+                            remat_chunks=2, fc_layers=2, fc_units=512, fc_skips=[1],
+                            batch_size=512, ignore_car_index=False, use_car_reg_loss=True,
+                            car_reg_loss_start=3, lambda_c=1.0, compute_dtype="bfloat16")
+    pipeline = load_pipeline(MainConfig(run, pipe))
+    pipeline.prepare_run()
+    pipeline.load_datasets()
+    state = Trainer(pipeline, device=cuda_device).fit(validate_every_epoch=False)
+    assert state.step == 60 > pipeline.ds_drop_step
+    coarse, fine = state.params["field"].fc_net[0].weight, state.params["fine"].fc_net[0].weight
+    assert float((coarse - fine).abs().max()) > 1e-2 * float(coarse.abs().max())
+    audit = smoke.trained_audit(pipeline, state.params, state.step, 512, 512, cuda_device)
+    record_property("worst", smoke.audit_worst(audit))
+    assert audit["field_evaluations"]["field"] > 0 and audit["field_evaluations"]["fine"] > 0
+    for engine in ("float32", "bfloat16"):
+        bar = smoke.TOL_AUDIT[engine]["field"]
+        errs = audit[engine]["field"]
+        for key in ("field", "fine"):
+            mine = {k: e for k, e in errs.items() if k.split(".")[1] == key}
+            assert mine, (engine, key)
+            beyond = {k: e for k, e in mine.items() if not e <= bar}
+            assert not beyond, (engine, key, beyond)
+
+
 # each measurement script at a small window: (its module, its call)
 TOOL_RUNS = {
     "bench": ({"SATNERF_BENCH_BATCH": "1024"}, lambda mod: mod.main(2)),

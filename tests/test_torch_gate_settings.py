@@ -1,16 +1,22 @@
 """The port's ``tools.syn_long_run`` and the JAX package's
-``tools/syn_long_run.py`` launch the same quality-gate run.
+``tools/syn_long_run.py`` launch the same run, for the two runs that
+``rung_audit.py`` resolves: the quality gate (``--gate``) and the
+hierarchical production run (``--hier``).
 
 At the gate's flags (``--steps 8000 --seed 0 --sc-stride 1``,
-``docs/performance.md`` "Strided solar-correction quadrature") each launcher
-runs up to its ``Trainer``, which is stubbed here, as is the loading of the
-datasets (about 20 s a package for the RPC rays): nothing trains. Both must
-resolve equal run and pipeline settings, call ``generate_scene`` with equal
-arguments and write the same scene, byte for byte (the full 8 + 3 views of
-256², 16,000 tie points), and give for its training rays (the train views'
-pixels) the same steps per epoch from their own samplers, the same depth
-drop step, beta and car-reg epochs from their own step configs, and the
-same learning rate at steps 0, 2,000 and 8,000 from their own schedules.
+``docs/performance.md`` "Strided solar-correction quadrature") and at the
+hierarchical run's (``--n-importance 128 --use-fine-network --steps 30000
+--seed 7``, ``docs/validation_run.md`` "Hierarchical (coarse-to-fine)
+production run") each launcher runs up to its ``Trainer``, which is stubbed
+here, as is the loading of the datasets (about 20 s a package for the RPC
+rays): nothing trains. ``rung_audit.py`` must resolve those flags, and
+``--hier`` its stop at step 12,900. Both launchers must resolve equal run
+and pipeline settings, call ``generate_scene`` with equal arguments and
+write the same scene, byte for byte (the full 8 + 3 views of 256², 16,000
+tie points), and give for its training rays (the train views' pixels) the
+same steps per epoch from their own samplers, the same depth drop step,
+beta and car-reg epochs from their own step configs, and the same learning
+rate at the case's steps from their own schedules.
 """
 
 from __future__ import annotations
@@ -26,7 +32,18 @@ import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GATE = ["--steps", "8000", "--seed", "0", "--sc-stride", "1"]
+# per run: rung_audit.py's flags, the launchers' flags it must resolve, the
+# steps whose learning rate is compared, and (rays, steps per epoch, depth drop
+# step, first beta epoch, car-reg), the pipeline's (batch, remat_chunks,
+# n_importance, use_fine_network) and rung_audit's stop step
+RUNS = {
+    "gate": (["--gate", "--seed", "0"], ["--steps", "8000", "--seed", "0", "--sc-stride", "1"],
+             (0, 2000, 8000), (8 * 256**2, 64, 2000, 2, (True, 3)), (8192, 0, 0, False), 0),
+    "hier": (["--hier"], ["--n-importance", "128", "--use-fine-network", "--steps", "30000",
+                          "--seed", "7"],
+             (0, 7500, 12900), (8 * 256**2, 128, 7500, 2, (True, 3)), (4096, 2, 128, True),
+             12900),
+}
 
 
 def _launch(monkeypatch, pkg: str, root: str, main) -> dict:
@@ -80,7 +97,7 @@ def _train_rays(scene_dp: str) -> int:
     return sum(m["width"] * m["height"] for m in metas)
 
 
-def _resolved(pkg: str, pipeline, sampler_cls, schedule) -> dict:
+def _resolved(pkg: str, pipeline, sampler_cls, schedule, lr_steps) -> dict:
     cfg = pipeline.cfg
     rays = _train_rays(os.path.join(cfg.run.datasets_dp, cfg.run.dataset_name))
     subsample = (cfg.pipeline.epoch_subsampling
@@ -96,24 +113,50 @@ def _resolved(pkg: str, pipeline, sampler_cls, schedule) -> dict:
             "first_beta_epoch": scfg.first_beta_epoch,
             "car_reg": (scfg.use_car_reg_loss, scfg.car_reg_loss_start),
             "sc_stride": scfg.render.sc_stride,
-            "lr": [float(lr(s)) for s in (0, 2000, 8000)]}
+            "lr": [float(lr(s)) for s in lr_steps]}
 
 
-def test_both_launchers_resolve_the_same_gate_run(tmp_path, monkeypatch):
+def _flags(argv: list) -> dict:
+    """A command line -> {flag: its value, or True for a flag alone}."""
+    out, i = {}, 0
+    while i < len(argv):
+        alone = i + 1 == len(argv) or argv[i + 1].startswith("--")
+        out[argv[i]] = True if alone else argv[i + 1]
+        i += 1 if alone else 2
+    return out
+
+
+def _rung_audit():
+    spec = importlib.util.spec_from_file_location("rung_audit",
+                                                  os.path.join(REPO, "rung_audit.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("run", sorted(RUNS))
+def test_both_launchers_resolve_the_same_gate_run(run, tmp_path, monkeypatch):
     from satnerf_torch.tools import syn_long_run as tlaunch
     from satnerf_torch.train import data as tdata
     from satnerf_torch.train.schedule import make_lr_schedule as tschedule
     from satnerf_tpu.train import data as jdata
     from satnerf_tpu.train.schedule import make_lr_schedule as jschedule
 
+    audit_flags, flags, lr_steps, want, pipe_want, stop = RUNS[run]
     spec = importlib.util.spec_from_file_location(
         "jax_tools_syn_long_run", os.path.join(REPO, "tools", "syn_long_run.py"))
     jlaunch = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(jlaunch)
     jroot, troot = str(tmp_path / "jax"), str(tmp_path / "port")
-    j = _launch(monkeypatch, "satnerf_tpu", jroot, lambda: jlaunch.main([jroot, *GATE]))
+    # rung_audit.py resolves the launcher's flags (and --hier its stop)
+    audit = _rung_audit()
+    audit_args = audit.parse_args([troot, "--variant", "kernels_bf16", *audit_flags])
+    argv = audit.run_argv(audit_args)
+    assert argv[0] == troot and audit_args.stop_at == stop
+    assert _flags(argv[1:]) == _flags(flags) | {"--eval-at": ""}
+    j = _launch(monkeypatch, "satnerf_tpu", jroot, lambda: jlaunch.main([jroot, *flags]))
     t = _launch(monkeypatch, "satnerf_torch", troot,
-                lambda: tlaunch.main([troot, *GATE, "--device", "cpu"]))
+                lambda: tlaunch.main([*argv, "--device", "cpu"]))
 
     assert t["scene"] == j["scene"]
     assert j["scene"][1] == dict(n_train=8, n_test=3, img_size=256, n_tie_points=16000,
@@ -129,17 +172,18 @@ def test_both_launchers_resolve_the_same_gate_run(tmp_path, monkeypatch):
     jcfg, tcfg = j["pipeline"].cfg, t["pipeline"].cfg
     assert _settings(tcfg.run.dump_dict(), troot) == _settings(jcfg.run.model_dump(), jroot)
     assert tcfg.pipeline.dump_dict() == jcfg.pipeline.model_dump()
-    assert (tcfg.pipeline.batch_size, tcfg.pipeline.compute_dtype, tcfg.pipeline.fc_units,
-            tcfg.pipeline.n_samples, tcfg.pipeline.sin_impl) == \
-        (8192, "bfloat16", 512, 64, "poly")
+    assert (tcfg.pipeline.compute_dtype, tcfg.pipeline.fc_units, tcfg.pipeline.n_samples,
+            tcfg.pipeline.sin_impl) == ("bfloat16", 512, 64, "poly")
+    assert (tcfg.pipeline.batch_size, tcfg.pipeline.remat_chunks, tcfg.pipeline.n_importance,
+            tcfg.pipeline.use_fine_network) == pipe_want
 
-    tres = _resolved("satnerf_torch", t["pipeline"], tdata.EpochSampler, tschedule)
-    jres = _resolved("satnerf_tpu", j["pipeline"], jdata.EpochSampler, jschedule)
+    tres = _resolved("satnerf_torch", t["pipeline"], tdata.EpochSampler, tschedule, lr_steps)
+    jres = _resolved("satnerf_tpu", j["pipeline"], jdata.EpochSampler, jschedule, lr_steps)
     lr_t, lr_j = tres.pop("lr"), jres.pop("lr")
     assert tres == jres
     assert (tres["rays"], tres["steps_per_epoch"], tres["depth_drop_step"],
-            tres["first_beta_epoch"], tres["car_reg"]) == (8 * 256**2, 64, 2000, 2, (True, 3))
+            tres["first_beta_epoch"], tres["car_reg"]) == want
     # the JAX schedule raises 0.9 to the epoch in f32 (jnp), the port in f64:
     # 3.3e-6 apart at step 8,000 (epoch 125), f32's rounding over 125 factors
     np.testing.assert_allclose(lr_t, lr_j, rtol=1e-5, atol=0)
-    assert lr_t == [5e-4 * 0.9 ** (s // 64) for s in (0, 2000, 8000)]
+    assert lr_t == [5e-4 * 0.9 ** (s // want[1]) for s in lr_steps]

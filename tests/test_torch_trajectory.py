@@ -5,15 +5,17 @@ over by ``params_from_jax``) and take the same training steps on the same
 batches, on the deterministic ladder (JAX ``key=None``, no generator in the
 port), under the "step" LR schedule. The run crosses every switch of a
 training run: the depth drop, the beta gate (epoch 2) and the car-reg start
-(epoch 3). Cases: rs_semantic, satnerf and rs_semantic with ``sc_stride`` 2
-on a seeded ray pool, batches drawn by one index stream; and rs_semantic on
+(epoch 3). Cases: rs_semantic, satnerf, rs_semantic with ``sc_stride`` 2 and
+rs_semantic with the hierarchical pass (``n_importance`` 8 inverse-CDF depths
+on the deterministic ladder, a fine field apart, ``remat_chunks`` 2) on a
+seeded ray pool, batches drawn by one index stream; and rs_semantic on
 a generated scene whose batches each package draws from its own loaded
 dataset (RPC rays, normalisation, the tie-point depth set) through its own
 ray store and ``EpochSampler``, with its own pipeline's step configs and
 depth-drop step. That case first holds the two loaded datasets equal.
 
 Lengths. rs_semantic on the pool takes 120 steps (12 epochs of 10), the
-other two pool cases 60 (the depth drop and car-reg at step 30, the beta
+other three pool cases 60 (the depth drop and car-reg at step 30, the beta
 gate at 20). The dataset case takes 60 steps (max_train_steps 60: the depth
 drop at 15, the beta gate at 36, car-reg from 54): past about step 75 its
 first trunk layer drifts from the JAX package's faster than a bar can
@@ -24,7 +26,8 @@ tensor's largest element at every step checked.
 Bars. Loss terms: within 1e-5 of their value at every step (each term
 relative to max(|JAX value|, 1e-3); a term that JAX gives as 0 must be 0 in
 the port). Parameters after the last step: every element within 1e-4 of its
-tensor's largest absolute element. Both packages sum in f32 in another
+tensor's largest absolute element, the fine field's too. Both packages sum
+in f32 in another
 order; these runs agree to about 2e-6 of each loss term and 1.1e-5 of each
 tensor's largest element, so the parameter bar stands about 10x above the
 reading.
@@ -70,6 +73,8 @@ N_SAMPLES = 16
 RAYS, DEPTH_RAYS = 64, 32
 POOL, DEPTH_POOL = 640, 96
 TOL_LOSS = 1e-5
+# the hierarchical case: the JAX package's production run's pass, cut to size
+HIER = dict(n_importance=8, use_fine_network=True, remat_chunks=2)
 TOL_PARAM = 1e-4
 # the generated scene: 2 train + 1 test views of 24^2 (an epoch of 18 steps),
 # 60 steps: the depth drop at 0.25 x 60 = 15
@@ -96,8 +101,9 @@ class _Pair:
     """The two packages' train states and step programs (with and without
     depth), stepped on the same batches."""
 
-    def __init__(self, jcfg, tcfg, j_scfgs, t_scfgs, t_vocab, spe, epochs):
-        params = jinit_params(jax.random.PRNGKey(0), jcfg, t_vocab=t_vocab)
+    def __init__(self, jcfg, tcfg, j_scfgs, t_scfgs, t_vocab, spe, epochs, fine=False):
+        params = jinit_params(jax.random.PRNGKey(0), jcfg, t_vocab=t_vocab,
+                              use_fine_network=fine)
         opt = make_optimizer(LR, "step", spe, epochs)
         self.jstate = JTrainState(params=params, opt_state=opt.init(params),
                                   step=jnp.asarray(0, jnp.int32))
@@ -125,8 +131,12 @@ class _Pair:
         assert int(self.tstate.step) == int(self.jstate.step) == steps
         want = params_from_jax(jax.tree.map(np.asarray, self.jstate.params), self.tcfg,
                                device="cpu")
-        got = dict(self.tstate.params["field"].state_dict())
-        ref = dict(want["field"].state_dict())
+        got, ref = {}, {}
+        for key in ("field", "fine"):
+            if want.get(key) is not None:
+                got.update({f"{key}.{k}": v
+                            for k, v in self.tstate.params[key].state_dict().items()})
+                ref.update({f"{key}.{k}": v for k, v in want[key].state_dict().items()})
         for k in ("t", "t_s"):
             if want.get(k) is not None:
                 got[k], ref[k] = self.tstate.params[k].detach(), want[k].detach()
@@ -136,11 +146,11 @@ class _Pair:
             assert err <= TOL_PARAM, (k, err)
 
 
-def _pool_case(variant: str, sc_stride: int, steps: int) -> _Pair:
+def _pool_case(variant: str, sc_stride: int, steps: int, hier: bool) -> _Pair:
     fkw = dict(variant=variant, layers=3, feat=64, skips=(1,),
                mapping=variant == "rs_semantic")
     jcfg, tcfg = JFieldConfig(**fkw), FieldConfig(**fkw)
-    rkw = dict(n_samples=N_SAMPLES, sc_stride=sc_stride)
+    rkw = dict(n_samples=N_SAMPLES, sc_stride=sc_stride, **(HIER if hier else {}))
     semantic = variant == "rs_semantic"
     skw = dict(steps_per_epoch=SPE, sc_lambda=0.05, first_beta_epoch=2, semantic=semantic,
                car_index=4 if semantic else -1, ignore_car_index=False,
@@ -149,16 +159,17 @@ def _pool_case(variant: str, sc_stride: int, steps: int) -> _Pair:
                                    **skw) for d in (True, False)}
     t_scfgs = {d: tstep.StepConfig(render=trender.RenderConfig(field=tcfg, **rkw), depth=d,
                                    **skw) for d in (True, False)}
-    return _Pair(jcfg, tcfg, j_scfgs, t_scfgs, 5, SPE, steps // SPE)
+    return _Pair(jcfg, tcfg, j_scfgs, t_scfgs, 5, SPE, steps // SPE, fine=hier)
 
 
-@pytest.mark.parametrize("variant,sc_stride,steps", [
-    ("rs_semantic", 1, 120), ("satnerf", 1, 60), ("rs_semantic", 2, 60)],
-    ids=["rs_semantic", "satnerf", "rs_semantic-sc_stride2"])
-def test_trajectory_matches_jax(variant, sc_stride, steps):
+@pytest.mark.parametrize("variant,sc_stride,steps,hier", [
+    ("rs_semantic", 1, 120, False), ("satnerf", 1, 60, False), ("rs_semantic", 2, 60, False),
+    ("rs_semantic", 1, 60, True)],
+    ids=["rs_semantic", "satnerf", "rs_semantic-sc_stride2", "rs_semantic-hier"])
+def test_trajectory_matches_jax(variant, sc_stride, steps, hier):
     """On one index stream over a seeded pool: the beta gate at step 20,
     the depth drop and car-reg at 30."""
-    pair = _pool_case(variant, sc_stride, steps)
+    pair = _pool_case(variant, sc_stride, steps, hier)
     pool, depth = _pool()
     sampler = tdata.EpochSampler(POOL, RAYS, seed=0)
     dsampler = tdata.EpochSampler(DEPTH_POOL, DEPTH_RAYS, seed=1)
