@@ -83,6 +83,18 @@ JSON line per phase:
    checkpoint served by ``RenderService.from_checkpoint`` against that
    validation's render; the loop's host-clock ms per step, seconds per
    validation, DSM/MAE and checkpoint save/restore, and peak memory;
+   ``train_dispatch``: ``steps_per_dispatch`` 8 against 1 (blocks of replays
+   of one captured step, ``train/dispatch.py``) through ``Trainer.fit`` at
+   the flagship TOML, Path A and Path B on a 48 x 48 scene across the depth
+   drop, epoch ends and the beta gate: parameters, Adam's moments and count
+   and the last metrics bitwise equal, the same launches and weight
+   preparations, a replayed depth step launching what the path's step
+   launches; the training CLI on the scene for one epoch and its validation
+   at both K, ``last.ckpt`` bitwise equal; ms a step at K = 1 and 8 in turns
+   at the flagship and the bench's configurations, capture seconds, peak
+   memory and each K's idle share over two steps (``torch.profiler``). In
+   every phase a replayed step counts the launches captured for its one step
+   (``count_replays``);
 15. ``eval_scene``: the eval battery (``eval.eval.eval_all``) on run A,
    inline over the train and test splits: K1 and K5 once per chunk of every
    image, one K1 weight preparation, no plain version; every results.json
@@ -113,7 +125,7 @@ JSON line per phase:
 19. ``sweep``: ``run.automated_training.launch`` of a two-experiment TOML,
    8 steps each: both runs leave ``last.ckpt`` and a validation;
 20. ``prep_scene``: a DFC2019 Track-3 distribution of JAX_068 (14 views of
-   512x512 from ``generate_scene``, ``tests/torch_dfc_case.py``) made into a
+   384x384 from ``generate_scene``, ``tests/torch_dfc_case.py``) made into a
    training dataset by ``python -m satnerf_torch.data_prep.create_dataset``
    (the adapter, cropping, the native bundle adjustment, meta extraction,
    root.json, semantic masks on the cropped grid; host seconds per step, the
@@ -155,7 +167,8 @@ JSON line per phase:
    inverse-CDF depths; the phase's seconds, the hierarchical audit's apart;
 23. ``bench``: ``satnerf_torch.bench.main()`` at the JAX bench's default
    configuration in full (8,192 + 1,024 depth rays, bf16, ``sc_stride`` 2,
-   a warm window and three of 50 steps), in this process: its line, K1
+   a warm window and three of 50 steps, each window one dispatch of 50
+   replays of the captured step), in this process: its line, K1
    (both head variants), K2, K4, K5 and K5's backward launched as
    ``PER_STEP`` on every step, no plain version; one step of it at its own
    8,192 + 1,024 rays against the plain versions at ``TOL_AUDIT``'s bf16
@@ -279,6 +292,22 @@ TOL_SCENE_SERVE = 1e-5  # served best vs the validation render of the same view
 SERVE_H = SERVE_W = 128
 N_REQUESTS = 3
 CHUNK = 16_384
+# train_dispatch: steps_per_dispatch K = 8 against K = 1 on the card. Each
+# path's pipeline (the flagship TOML, Path A, Path B) on a 4 + 1-view 48 x 48
+# scene (9 steps an epoch at 1,024 rays, 300 tie points) for 32 steps: the
+# depth drop at 8, epoch ends at 9, 18 and 27, the beta gate at epoch 2
+# (step 18); with log_every 100 the K = 8 blocks start at steps 0, 9 and 18
+# (both variants replayed), the other steps are dispatched one at a time.
+# Then the training CLI on train_scene's scene for one epoch (36 steps, the
+# depth drop at 9, one validation), and K = 1 against K = 8 in turns at the
+# flagship step config, the bench's and Path B's (train and train_hier's)
+DISPATCH_K = 8
+DISPATCH_SCENE = {"n_train": 4, "n_test": 1, "img_size": 48, "n_tie_points": 300}
+DISPATCH_STEPS = 32
+DISPATCH_PATHS = (("flagship", {}, PER_STEP), ("path_a", BETA_S, PER_STEP_BETA_S),
+                  ("path_b", HIER, PER_STEP_HIER))
+# a timed turn: as many eager steps, or one dispatch of replays
+DISPATCH_TURN_STEPS = DISPATCH_K
 # train_dp: one epoch of the scene (36 steps, the depth drop at its end) and
 # its validation, over two gloo ranks on the one card against one process, at
 # the JAX package's bars for its sharded step (tests/test_parallel.py)
@@ -287,10 +316,10 @@ TOL_DP_LOSS, TOL_DP_PARAM = 2e-5, 1e-6
 SWEEP_STEPS = 8  # each of the sweep's two runs, then its one validation
 # prep_scene: a DFC2019 Track-3 distribution of the JAX_068 AOI with the 14
 # views 000-013 (the predefined SatNeRF test views 002 and 012 among them) at
-# 512 x 512, made into a dataset by the port's CLI and trained on for 200
-# steps (the depth drop at 0.25 x 200 = 50; an epoch is ~3,000 steps, so the
+# 384 x 384, made into a dataset by the port's CLI and trained on for 200
+# steps (the depth drop at 0.25 x 200 = 50; an epoch is ~1,700 steps, so the
 # validations are the sanity one and the run's last)
-PREP = {"n_views": 14, "img_size": 512, "n_tie_points": 300}
+PREP = {"n_views": 14, "img_size": 384, "n_tie_points": 300}
 PREP_STEPS = 200
 # quality_tools: ours_train_eval at full width (8 x 512, 64 samples, 1,024
 # rays, bf16, the poly sine) on a 4 + 2-view 64 x 64 scene, QUALITY_STEPS
@@ -887,6 +916,63 @@ def read_counters() -> tuple:
             {k: getattr(mod, name) for k, (mod, name) in plain.items()})
 
 
+OPEN_COUNTS: list = []  # the counts of the k1_variants blocks open now
+
+
+def _count_cells() -> list:
+    """(container, key) of every count that a training step moves: the
+    launch and plain-call counters, TC_PREPARATIONS, K1's launches by
+    SinMode and those of the open k1_variants blocks."""
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    launches, plain = kernel_counters()
+    cells = [(vars(mod), name) for mod, name in list(launches.values()) + list(plain.values())]
+    cells.append((vars(trunk), "TC_PREPARATIONS"))
+    cells += [(ff.LAUNCHES_BY_SIN, k) for k in ff.LAUNCHES_BY_SIN]
+    return cells + [(d, k) for d in OPEN_COUNTS for k in d]
+
+
+def count_replays() -> None:
+    """Count a replayed step (``train/dispatch.py:StepGraph``) as the
+    launches captured for one step, times the replays: the capture gives back
+    what its one step counted (nothing ran), and each replay adds it to every
+    count (``step_counts`` of the graph: {count: per step})."""
+    from satnerf_torch.train import dispatch
+
+    cls = dispatch.StepGraph
+    if getattr(cls, "counted_by_replay", False):
+        return
+    capture, step = cls.capture, cls.step
+
+    def counted_capture(self):
+        cells = _count_cells()
+        before = [c[k] for c, k in cells]
+        capture(self)
+        self.step_counts = [(c, k, c[k] - b) for (c, k), b in zip(cells, before) if c[k] != b]
+        for c, k, d in self.step_counts:
+            c[k] -= d
+
+    def counted_step(self, seed=None):
+        out = step(self, seed)
+        for c, k, d in self.step_counts:
+            c[k] += d
+        return out
+
+    cls.capture, cls.step, cls.counted_by_replay = counted_capture, counted_step, True
+
+
+def captured_launches(graph) -> dict:
+    """A captured step's launches by kernel (count_replays' ``step_counts``)."""
+    from satnerf_torch.ops import trunk
+
+    launches, _ = kernel_counters()
+    by_cell = {(id(c), k): d for c, k, d in graph.step_counts}
+    out = {name: by_cell.get((id(vars(mod)), attr), 0) for name, (mod, attr) in launches.items()}
+    out["preparations"] = by_cell.get((id(vars(trunk)), "TC_PREPARATIONS"), 0)
+    return out
+
+
 def train_phase(dev, vocab: int, name: str = "train", overrides: dict | None = None,
                 per_step: dict = PER_STEP, stored_check: bool = True,
                 preparations: int = 1) -> dict:
@@ -1360,25 +1446,17 @@ def bwd_times(dev, turns: list | None) -> tuple:
     return entries, extra
 
 
-def profile_phase(dev, scfg, params, vocab: int) -> dict:
-    """torch.profiler over two steady flagship steps: the kernels by device
-    time and the device's idle share of the window."""
+def profiled(fn, calls: int) -> tuple:
+    """torch.profiler over ``calls`` calls of ``fn`` after a synchronise ->
+    (host ms of the window, [(kernel, device ms, launches)] by device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from satnerf_torch.train.state import create_train_state
-    from satnerf_torch.train.step import build_train_step
-
-    state = create_train_state(copy_params(params, dev), LR, "step", scfg.steps_per_epoch)
-    step = build_train_step(scfg)
-    batch = train_batch(TRAIN_RAYS, TRAIN_RAYS, 5, vocab, dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    state, _ = step(state, batch, gen)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for _ in range(2):
-            state, _ = step(state, batch, gen)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     kernels = []
@@ -1389,6 +1467,23 @@ def profile_phase(dev, scfg, params, vocab: int) -> dict:
         if dev_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
             kernels.append((ev.key, dev_us / 1e3, ev.count))
     kernels.sort(key=lambda k: -k[1])
+    return wall_ms, kernels
+
+
+def profile_phase(dev, scfg, params, vocab: int) -> dict:
+    """torch.profiler over two steady flagship steps: the kernels by device
+    time and the device's idle share of the window."""
+    import torch
+
+    from satnerf_torch.train.state import create_train_state
+    from satnerf_torch.train.step import build_train_step
+
+    state = create_train_state(copy_params(params, dev), LR, "step", scfg.steps_per_epoch)
+    step = build_train_step(scfg)
+    batch = train_batch(TRAIN_RAYS, TRAIN_RAYS, 5, vocab, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, _ = step(state, batch, gen)
+    wall_ms, kernels = profiled(lambda: step(state, batch, gen), 2)
     busy = sum(k[1] for k in kernels)
     groups = {"bwd row GEMM (K2+K4)": ("tc_row_kernel", "row_kernel<"),
               "bwd reduction (K2+K4)": ("reduce_kernel", "finish_kernel"),
@@ -1920,6 +2015,240 @@ def train_scene_phase(dev, work: str) -> dict:
         return {**line, "run_dp": run_dp, "trainer": trainer_a}
     finally:
         disable_tf32()  # the run's matmul_precision "high" allowed TF32
+
+
+def _tensors_equal(a: dict, b: dict) -> bool:
+    """Two dicts of tensors (nested in dicts) hold the same keys and bits."""
+    import torch
+
+    if set(a) != set(b):
+        return False
+    return all(_tensors_equal(a[k], b[k]) if isinstance(a[k], dict)
+               else torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k])) for k in a)
+
+
+def _dispatch_fit(dev, work: str, name: str, pipe_fp: str, k: int) -> dict:
+    """One Trainer.fit of DISPATCH_STEPS steps on the dispatch scene with
+    steps_per_dispatch ``k`` (no validation) -> its counts and state."""
+    import torch
+
+    from satnerf_torch.configs import load_configs, write_toml
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.ops import trunk
+    from satnerf_torch.run.training import prepare_trainer
+    from satnerf_torch.train.checkpoint import export_params
+
+    run_fp = os.path.join(work, f"{name}_k{k}.toml")
+    write_toml(run_fp, {
+        "max_train_steps": DISPATCH_STEPS, "num_sanity_val_steps": 0, "seed": 0,
+        "steps_per_dispatch": k, "dataset_name": "DISPATCH",
+        "datasets_dp": os.path.join(work, "datasets"), "cache_dp": os.path.join(work, "cache"),
+        "workspace_dp": os.path.join(work, f"training_{name}_k{k}")})
+    cfgs = load_configs(run_fp, pipe_fp)
+    cfgs.create_run_dp()
+    try:
+        trainer = prepare_trainer(cfgs, dev)
+        reset_counters()
+        preps0 = trunk.TC_PREPARATIONS
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        state = trainer.fit(validate_every_epoch=False)
+        seconds = time.monotonic() - t0
+        launches, plain = read_counters()
+        preps = trunk.TC_PREPARATIONS - preps0
+    finally:
+        disable_tf32()  # the run's matmul_precision "high" allowed TF32
+    opt = state.optimizer
+    return {"launches": launches, "plain": plain, "preparations": preps,
+            "params": export_params(state.params),
+            "adam": {"exp_avg": [t.cpu() for t in opt.exp_avg],
+                     "exp_avg_sq": [t.cpu() for t in opt.exp_avg_sq],
+                     "count": opt.count.cpu()},
+            "last": trainer.history[-1], "step": state.step,
+            "drop": trainer.pipeline.ds_drop_step,
+            "spe": len(trainer.pipeline.datasets["rgb"]) // trainer.cfg.pipeline.batch_size,
+            "graphs": trainer.dispatch.graph_stats(),
+            "captured": {("depth" if d else "no_depth"): captured_launches(v.graph)
+                         for d, v in trainer.dispatch.variants.items() if v.graph is not None},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "seconds": seconds}
+
+
+def dispatch_times(dev, scfg, params: dict, batch: dict, turn_steps: int) -> dict:
+    """ms a step at K = 1 (eager steps) and K = DISPATCH_K (dispatches of
+    that many replays) in turns (1, K, K, 1) of ``turn_steps`` steps, CUDA
+    events around each turn, from one state; the capture's seconds, the
+    peak memory of the eager steps (before the capture) and of the replays
+    (the capture on); torch.profiler over two steps at each K (the device's
+    idle share)."""
+    import torch
+
+    from satnerf_torch.train.dispatch import StepGraph
+    from satnerf_torch.train.state import create_train_state
+    from satnerf_torch.train.step import build_train_step
+
+    state = create_train_state(copy_params(params, dev), LR, "step", scfg.steps_per_epoch)
+    step = build_train_step(scfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    graph = StepGraph(state, lambda: step.update(state, batch, gen), gen)
+
+    def eager():
+        return step(state, batch, gen)[1]["loss"]
+
+    def replay():
+        return graph.step()["loss"]
+
+    def turn(fn) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(turn_steps):
+            loss = fn()
+        end.record()
+        torch.cuda.synchronize()
+        check(math.isfinite(float(loss)), f"dispatch turn: loss {float(loss)}")
+        return start.elapsed_time(end) / turn_steps
+
+    eager()  # the warm-up step: what the step builds on first use
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = {1: [turn(eager)], DISPATCH_K: []}
+    peak_k1 = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    graph.capture()
+    ms[DISPATCH_K].append(turn(replay))
+    peak_k8 = torch.cuda.max_memory_allocated() / 1e9
+    ms[DISPATCH_K].append(turn(replay))
+    ms[1].append(turn(eager))
+    idle = {}
+    for k, fn in ((1, eager), (DISPATCH_K, replay)):
+        wall_ms, kernels = profiled(fn, 2)
+        busy = sum(x[1] for x in kernels)
+        idle[k] = ({"wall_ms": wall_ms, "device_busy_ms": busy, "kernels": len(kernels),
+                    "launches": sum(x[2] for x in kernels), "idle_share": 1.0 - busy / wall_ms}
+                   if kernels else {"wall_ms": wall_ms, "note": "key_averages() showed no "
+                                    "device time: no idle share"})
+    return {"turn_steps": turn_steps, "turns_ms": {f"k{k}": v for k, v in ms.items()},
+            "ms_per_step": {f"k{k}": sum(v) / len(v) for k, v in ms.items()},
+            "capture_s": graph.capture_seconds, "peak_gb": {"k1": peak_k1, f"k{DISPATCH_K}": peak_k8},
+            "profile_two_steps": {f"k{k}": v for k, v in idle.items()},
+            "launches_per_replayed_step": captured_launches(graph)}
+
+
+def train_dispatch_phase(dev, work: str, trained: dict, vocab: int) -> dict:
+    """steps_per_dispatch on the card: for each of DISPATCH_PATHS, K = 1 and
+    K = DISPATCH_K from the same seed across the depth drop, epoch ends and
+    the beta gate, bitwise equal (parameters, Adam's moments and count, the
+    last metrics), the same launches and K1/K3 weight preparations, and a
+    replayed depth step's launches those of the path's step; the training
+    CLI on train_scene's scene for one epoch with its validation at both K,
+    ``last.ckpt`` bitwise equal; then ms a step at K = 1 and K = DISPATCH_K
+    in turns (``dispatch_times``) at the step configs of ``trained``
+    (``{"flagship": train_phase's result, "path_b": train_hier's}``, at
+    1,024 + 1,024 rays) and at the bench's configuration."""
+    import torch
+
+    from satnerf_torch import bench
+    from satnerf_torch.configs import load_pipeline_toml, write_toml
+    from satnerf_torch.datasets.synthetic import generate_scene
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.run.training import start_training
+    from satnerf_torch.train.state import init_params
+
+    t_phase = time.monotonic()
+    line = {"phase": "train_dispatch", "k": DISPATCH_K, "scene": DISPATCH_SCENE,
+            "steps": DISPATCH_STEPS,
+            "counting": "a replayed step counts the launches captured for its one step "
+                        "(count_replays)", "paths": {}}
+    generate_scene(os.path.join(work, "datasets", "DISPATCH"), **DISPATCH_SCENE)
+    base = load_pipeline_toml(PIPELINE_TOML)
+    for name, overrides, per_step in DISPATCH_PATHS:
+        pipe_fp = os.path.join(work, f"dispatch_{name}.toml")
+        write_toml(pipe_fp, {**base, **overrides})
+        one = _dispatch_fit(dev, work, name, pipe_fp, 1)
+        many = _dispatch_fit(dev, work, name, pipe_fp, DISPATCH_K)
+        check(one["step"] == many["step"] == DISPATCH_STEPS and (one["drop"], one["spe"]) == (8, 9),
+              f"dispatch {name}: steps {one['step']} {many['step']}, drop {one['drop']}, "
+              f"epoch {one['spe']}")
+        bitwise = {"params": _tensors_equal(one["params"], many["params"]),
+                   "adam": all(torch.equal(a, b) for key in ("exp_avg", "exp_avg_sq")
+                               for a, b in zip(one["adam"][key], many["adam"][key]))
+                   and torch.equal(one["adam"]["count"], many["adam"]["count"]),
+                   "last_metrics": one["last"] == many["last"]}
+        check(all(bitwise.values()), f"dispatch {name}: K = {DISPATCH_K} differs from K = 1: "
+                                     f"{bitwise}")
+        check(many["launches"] == one["launches"] and many["preparations"] == one["preparations"],
+              f"dispatch {name}: launches {many['launches']} ({many['preparations']} "
+              f"preparations), eager {one['launches']} ({one['preparations']})")
+        check(not any(one["plain"].values()) and not any(many["plain"].values()),
+              f"dispatch {name}: a plain version ran: {one['plain']} {many['plain']}")
+        graphs = many["graphs"]
+        check(graphs["depth"]["replays"] == DISPATCH_K - 1 and graphs["no_depth"]["replays"]
+              == DISPATCH_STEPS - DISPATCH_K - 1, f"dispatch {name}: replays {graphs}")
+        depth_step = {k: v for k, v in many["captured"]["depth"].items() if k != "preparations"}
+        check(depth_step == per_step, f"dispatch {name}: a replayed depth step launches "
+                                      f"{depth_step}, expected {per_step}")
+        line["paths"][name] = {
+            "overrides": overrides, "bitwise": bitwise, "launches": many["launches"],
+            "preparations": many["preparations"], "graphs": graphs,
+            "launches_per_replayed_step": many["captured"],
+            "peak_gb": {"k1": one["peak_gb"], f"k{DISPATCH_K}": many["peak_gb"]},
+            "fit_seconds": {"k1": one["seconds"], f"k{DISPATCH_K}": many["seconds"]}}
+        del one, many
+
+    # the training CLI on train_scene's scene: one epoch and its validation
+    cli = {}
+    try:
+        for k in (1, DISPATCH_K):
+            run_fp = _scene_run_toml(work, f"dispatch_cli_k{k}.toml", steps_per_dispatch=k)
+            reset_counters()
+            t0 = time.monotonic()
+            pipeline, state, trainer = start_training(run_fp, SCENE_PIPELINE, device=dev)
+            launches, plain = read_counters()
+            raw = torch.load(os.path.join(pipeline.cfg.run.run_dp, "ckpoints", "last.ckpt"),
+                             map_location="cpu", weights_only=True)
+            cli[k] = {"raw": raw, "launches": launches, "plain": plain,
+                      "val": trainer.val_history, "seconds": time.monotonic() - t0,
+                      "graphs": trainer.dispatch.graph_stats()}
+            del pipeline, state, trainer
+    finally:
+        disable_tf32()
+    a, b = cli[1], cli[DISPATCH_K]
+    ckpt_bitwise = (a["raw"]["step"] == b["raw"]["step"] == DP_STEPS
+                    and _tensors_equal(a["raw"]["state_dict"], b["raw"]["state_dict"])
+                    and _tensors_equal(a["raw"]["optimizer"]["state"],
+                                       b["raw"]["optimizer"]["state"])
+                    and torch.equal(a["raw"]["optimizer"]["count"], b["raw"]["optimizer"]["count"])
+                    and a["raw"]["best_mae"] == b["raw"]["best_mae"])
+    check(ckpt_bitwise and a["val"] == b["val"] and len(a["val"]) == 1,
+          f"dispatch CLI: last.ckpt or the validation differs (bitwise {ckpt_bitwise}): "
+          f"{a['val']} {b['val']}")
+    check(a["launches"] == b["launches"] and not any(b["plain"].values()),
+          f"dispatch CLI launches {b['launches']}, eager {a['launches']}")
+    check(b["graphs"]["no_depth"]["replays"] > 0, f"dispatch CLI graphs {b['graphs']}")
+    line["cli"] = {"steps": DP_STEPS, "last_ckpt_bitwise": ckpt_bitwise,
+                   "validation": b["val"], "launches": b["launches"], "graphs": b["graphs"],
+                   "seconds": {"k1": a["seconds"], f"k{DISPATCH_K}": b["seconds"]}}
+    del cli, a, b
+
+    # ms a step in turns: the flagship step config, the bench's and Path B's
+    batch = train_batch(TRAIN_RAYS, TRAIN_RAYS, 5, vocab, dev)
+    fcfg, _, scfg = bench.configs(bench.settings({}), dev)
+    cases = {"flagship": (trained["flagship"]["scfg"], trained["flagship"]["params"], batch,
+                          PER_STEP),
+             "bench": (scfg, init_params(torch.Generator().manual_seed(0), fcfg, t_vocab=50,
+                                         device=dev),
+                       bench.synthetic_batch(8192, depth=bench.DEPTH_RAYS, device=dev), PER_STEP),
+             "path_b": (trained["path_b"]["scfg"], trained["path_b"]["params"], batch,
+                        PER_STEP_HIER)}
+    line["times"] = {}
+    for name, (scfg, params, batch, per_step) in cases.items():
+        t = line["times"][name] = dispatch_times(dev, scfg, params, batch,
+                                                 DISPATCH_TURN_STEPS)
+        per = {k: v for k, v in t["launches_per_replayed_step"].items() if k != "preparations"}
+        check(per == per_step, f"dispatch times {name}: a replayed step launches {per}")
+    torch.cuda.empty_cache()  # the pools of this phase's graphs, for later phases
+    line["seconds"] = time.monotonic() - t_phase
+    emit(line)
+    return line
 
 
 def _results_values(node, path=""):
@@ -3302,10 +3631,12 @@ def k1_variants():
         return out
 
     ff._forward = counted
+    OPEN_COUNTS.append(counts)  # a replayed step counts here too (count_replays)
     try:
         yield counts
     finally:
         ff._forward = forward
+        OPEN_COUNTS.remove(counts)
 
 
 def counted_run(fn):
@@ -3491,6 +3822,10 @@ def bench_phase(dev) -> dict:
     """``satnerf_torch.bench.main()`` at the default configuration in full, in
     this process (launch counters around it), one step of it against the
     plain versions, and ``python -m satnerf_torch.bench`` as a user runs it."""
+    import gc
+
+    import torch
+
     from satnerf_torch import bench
 
     t_phase = time.monotonic()
@@ -3503,6 +3838,10 @@ def bench_phase(dev) -> dict:
         plain_err = bench_plain_check(dev, {})
         env = {k: v for k, v in os.environ.items()
                if not k.startswith(("SATNERF_BENCH_", "SATNERF_RENDER_"))}
+        # the child needs the card: give back this process's cached blocks and
+        # the pools of the graphs that are gone
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.monotonic()
         proc = subprocess.run([sys.executable, "-m", "satnerf_torch.bench"], cwd=REPO,
                               env=env, capture_output=True, text=True, timeout=600)
@@ -3621,6 +3960,7 @@ def main() -> int:
     from dataclasses import replace
 
     disable_tf32()
+    count_replays()
     dev = torch.device("cuda")
     marks = [("start", time.monotonic())]
     smi = smi_line()
@@ -3946,6 +4286,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="train_scene_")
     try:
         scene = train_scene_phase(dev, work)
+        dispatch = train_dispatch_phase(dev, work, {"flagship": train, "path_b": hier}, vocab)
         eval_scene = eval_scene_phase(dev, scene, work)
         serve_view = serve_view_phase(dev, scene)
         viz_scene = viz_scene_phase(dev, scene, work)
@@ -3974,7 +4315,10 @@ def main() -> int:
     def by_path(kernel):
         return {"train": train["launches"][kernel], "train_beta_s": beta_s["launches"][kernel],
                 "train_hier": hier["launches"][kernel],
-                "train_scene": scene["launches"][kernel], "serve_beta_s":
+                "train_scene": scene["launches"][kernel],
+                **{f"train_dispatch_{name}": p["launches"][kernel]
+                   for name, p in dispatch["paths"].items()},
+                "train_dispatch_cli": dispatch["cli"]["launches"][kernel], "serve_beta_s":
                 serve_b["launches"][kernel], "serve_hier": serve_h["launches"][kernel],
                 "eval_scene": eval_scene["launches"][kernel],
                 "serve_view": serve_view["launches"][kernel],

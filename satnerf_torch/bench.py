@@ -21,15 +21,19 @@ kernels; it is not read. The label names the engine that ran:
 ``SinMode`` and runs the layer-by-layer field (its line carries
 ``plain_field_calls``); there the trunk backward knob does nothing and is
 reset to ``recompute``, as the JAX bench resets it off its Pallas trunk.
-Every other setting holds ``models.field.PLAIN_CALLS`` at 0 over the timed
-windows.
+Every other setting holds ``models.field.PLAIN_CALLS`` at 0 in the
+captured step, which every timed replay runs.
 
-Clock: eager steps timed by CUDA events, one warm window and then three
-windows of ``SCAN_STEPS`` steps; each window ends in a synchronise and a
-finite loss. The line: ``metric``, ``value`` (rays/s of the best window,
-as the JAX bench counts), ``unit``, ``vs_baseline`` (against the JAX
-bench's estimate of the reference's single-GPU rate, 10 it/s x 1,024
-rays), ``config``, ``ms_per_step`` (the best window's),
+Clock: as the JAX bench scans each window of ``SCAN_STEPS`` steps in one
+dispatch, each window here is one dispatch of ``SCAN_STEPS`` replays of one
+captured step (``train/dispatch.py:StepGraph``), timed by CUDA events: a
+warm window (one eager step, the capture, the rest replays), then three
+timed windows; each window ends in a synchronise and a finite loss. The
+line: ``metric``, ``value`` (rays/s of the best window, as the JAX bench
+counts), ``unit``, ``vs_baseline`` (against the JAX bench's estimate of the
+reference's single-GPU rate, 10 it/s x 1,024 rays), ``config``,
+``dispatch`` (the replays a window), ``capture_s``, ``ms_per_step`` (the
+best window's),
 ``rays_per_sec_all_windows`` and ``ms_per_step_all_windows`` (every timed
 step over the three windows' summed time), ``window_ms`` and
 ``window_spread`` ((slowest - fastest) / fastest), the card's name and
@@ -178,6 +182,7 @@ def main(steps: int | None = None) -> dict:
     the card smoke run's variants only."""
     from satnerf_torch.device import card_line, disable_tf32, resolve_device
     from satnerf_torch.models import field as field_mod
+    from satnerf_torch.train.dispatch import StepGraph
     from satnerf_torch.train.state import create_train_state, init_params
     from satnerf_torch.train.step import build_train_step
 
@@ -192,21 +197,28 @@ def main(steps: int | None = None) -> dict:
     step = build_train_step(scfg)
     batch = synthetic_batch(s.batch, depth=DEPTH_RAYS, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
+    graph = StepGraph(state, lambda: step.update(state, batch, gen), gen)
 
-    def one_step():
-        return step(state, batch, gen)[1]["loss"]
+    def replay():
+        return graph.step()["loss"]
 
-    def window():
-        ms, loss = timed_window(one_step, n)
+    def window(steps: int = n):
+        ms, loss = timed_window(replay, steps)
         loss = float(loss)
         if not math.isfinite(loss):
             raise RuntimeError(f"bench: non-finite loss {loss} ({s.config_desc})")
         return ms
 
-    window()  # warm: first launches, allocator, weight preparation
+    # warm: one eager step (first launches, the allocator, what the step makes
+    # on first use), the capture, and the window's other steps as replays
+    step(state, batch, gen)
     plain0 = field_mod.PLAIN_CALLS
+    graph.capture()
+    plain_per_step = field_mod.PLAIN_CALLS - plain0  # what every replay runs
+    if n > 1:
+        window(n - 1)
     window_ms = [window() for _ in range(WINDOWS)]
-    plain = field_mod.PLAIN_CALLS - plain0
+    plain = plain_per_step * WINDOWS * n
     if s.engine == "kernels" and plain:
         raise RuntimeError(f"bench: {plain} plain field calls on the kernels' path")
 
@@ -218,6 +230,8 @@ def main(steps: int | None = None) -> dict:
         "unit": "rays/s",
         "vs_baseline": round(rays_per_sec / REFERENCE_RAYS_PER_SEC, 3),
         "config": s.config_desc,
+        "dispatch": f"{n} replays of one captured step a window",
+        "capture_s": graph.capture_seconds,
         "ms_per_step": best_ms / n,
         "rays_per_sec_all_windows": WINDOWS * n * s.batch / (all_ms * 1e-3),
         "ms_per_step_all_windows": all_ms / (WINDOWS * n),

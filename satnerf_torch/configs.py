@@ -237,9 +237,10 @@ class RunConfig(_Config):
     seed: int = 42
 
     # device / precision
-    data_parallel: int = 1  # > 1 is not ported yet (raises)
-    # the reference's scan blocks; accepted so the same TOMLs load, no effect
-    # (each step is its own call in the port)
+    data_parallel: int = 1  # ranks that split the batch (train/step.py)
+    # K steps per dispatch: on the card K replays of one captured step
+    # (train/dispatch.py); on the CPU K calls; K > 1 with data parallelism
+    # on the card raises
     steps_per_dispatch: int = 1
     matmul_precision: str = "high"  # "highest" | "high" | "default"
     device_req_free: bool = True  # accepted so the same TOMLs load; no effect

@@ -17,13 +17,25 @@ def frequency_bands(n_freqs: int, logscale: bool = True) -> np.ndarray:
     return np.linspace(1.0, 2.0 ** (n_freqs - 1), n_freqs)
 
 
+_BANDS: dict = {}  # (n_freqs, logscale, dtype, device) -> the bands there
+
+
+def _bands(n_freqs: int, logscale: bool, dtype, device) -> torch.Tensor:
+    """The frequency bands as a tensor on ``device``, copied there once: a
+    training step captured in a CUDA graph copies nothing from the host."""
+    key = (n_freqs, logscale, dtype, device)
+    hit = _BANDS.get(key)
+    if hit is None:
+        hit = _BANDS[key] = torch.as_tensor(frequency_bands(n_freqs, logscale),
+                                            dtype=dtype, device=device)
+    return hit
+
+
 def positional_encoding(x: torch.Tensor, n_freqs: int, logscale: bool = True):
     """Encode (..., C) -> (..., 2*n_freqs*C)."""
     if n_freqs == 0:
         return x[..., :0]
-    freqs = torch.as_tensor(
-        frequency_bands(n_freqs, logscale), dtype=x.dtype, device=x.device
-    )
+    freqs = _bands(n_freqs, logscale, x.dtype, x.device)
     xb = x[..., None, :] * freqs[:, None]  # (..., F, C)
     enc = torch.stack([torch.sin(xb), torch.cos(xb)], dim=-2)  # (..., F, 2, C)
     return enc.reshape(*x.shape[:-1], 2 * n_freqs * x.shape[-1])

@@ -16,8 +16,9 @@ Usage:
 
 ``--device`` defaults to ``cuda`` and raises without a GPU. On the card the
 field kernel is built for 512-wide trunks (``--units 512``); the default 256
-is the JAX tool's. ``steps_per_dispatch`` in the run TOML is read and has no
-effect.
+is the JAX tool's. ``steps_per_dispatch`` in the run TOML (8) runs blocks of
+8 replays of one captured step on the card and 8 calls on the CPU
+(``train/dispatch.py``).
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ Usage:
 
 ``--device`` defaults to ``cuda`` and raises without a GPU. On the card the
 field kernel is built for 512-wide trunks (``--units 512``); the default 256
-is the JAX tool's. ``--steps-per-dispatch`` is read and has no effect: each
-step is its own call.
+is the JAX tool's. ``--steps-per-dispatch`` K runs blocks of K replays of one
+captured step on the card and K calls on the CPU (``train/dispatch.py``).
 """
 
 from __future__ import annotations

@@ -9,9 +9,13 @@ Policy as in the reference: track the best ``train/mae`` (minimum), keep
 ``model_t.weight``, ``model_t_s.weight``; :func:`export_params`), so
 ``models/import_params.py:load_lightning_ckpt``, the JAX package's
 ``params_from_lightning_ckpt`` and ``RenderService.from_checkpoint`` all
-read a port checkpoint. ``last`` adds the Adam state, ``step``, ``epoch``
-and the best MAE so far (so a resumed run saves ``best`` where one
+read a port checkpoint. ``last`` adds the Adam state (moments, the update
+count and the learning rate, device tensors in the file), ``step``,
+``epoch`` and the best MAE so far (so a resumed run saves ``best`` where one
 uninterrupted run does); ``best`` and the epoch snapshots are params-only.
+A restore copies into the state's existing tensors and never replaces one,
+so a step captured in a CUDA graph (``train/dispatch.py``) reads what it
+restored.
 """
 
 from __future__ import annotations
@@ -141,9 +145,9 @@ class CheckpointManager:
     # -- restore -------------------------------------------------------------
     def restore(self, state: TrainState, name: str = "last",
                 path: str | None = None) -> TrainState:
-        """Restore params, Adam state, step and the best MAE so far in place,
-        from this run's ``name`` or an explicit checkpoint file; the file is
-        read once."""
+        """Restore params, Adam state (its update count too), the host step
+        and the best MAE so far in place, from this run's ``name`` or an
+        explicit checkpoint file; the file is read once."""
         t0 = time.monotonic()
         path = path or self.path(name)
         raw = torch.load(path, map_location="cpu", weights_only=True)

@@ -28,9 +28,14 @@ the others wait at a barrier; validation renders split each chunk over the
 ranks; the best-MAE decision is rank 0's; a stop request (SIGTERM, SIGINT,
 ``request_stop``) on any rank stops every rank before the same step.
 
-Left out of the port: blocks of ``steps_per_dispatch`` steps: the reference
-compiles a block into one device program, while here each step is its own
-Python call either way, so the key is read and has no effect.
+Blocks of ``RunConfig.steps_per_dispatch`` = K steps, planned as the JAX
+loop plans them: a dispatch is K steps, or one where K would cross a log
+step, an epoch end, the depth drop, a step callback or the run's end. A
+block's indices are drawn and stacked first; on the card with K > 1 its
+steps are replays of one captured step (``train/dispatch.py``), bitwise
+the steps of K = 1; on the CPU each step is its own call. The metrics of a
+block are its last step's. K > 1 under data parallelism on the card raises
+(capture over nccl is not ported).
 """
 
 from __future__ import annotations
@@ -51,13 +56,8 @@ from satnerf_torch.logger import logger
 from satnerf_torch.parallel.mesh import make_mesh, replicated
 from satnerf_torch.render.renderer import render_image_chunked, render_image_sharded
 from satnerf_torch.train.checkpoint import CheckpointManager, load_warm_start_params
-from satnerf_torch.train.data import (
-    DEPTH_KEYS,
-    TRAIN_KEYS,
-    EpochSampler,
-    device_store,
-    gather_batch,
-)
+from satnerf_torch.train.data import DEPTH_KEYS, TRAIN_KEYS, EpochSampler, device_store
+from satnerf_torch.train.dispatch import LoopDispatch
 from satnerf_torch.train.profiling import PhaseProfiler, TraceCapture
 from satnerf_torch.train.state import create_train_state, init_params
 from satnerf_torch.train.step import build_train_step
@@ -99,13 +99,6 @@ def load_datasets(pipeline, layout=None) -> None:
         pipeline.load_datasets(write_cache=False)
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The per-step generator seed: a fixed mix of (seed, step)."""
-    s = np.random.SeedSequence([int(seed) & 0xFFFFFFFF, int(step)])
-    hi, lo = s.generate_state(2, np.uint32)
-    return (int(hi) & 0x7FFFFFFF) << 32 | int(lo)
-
-
 class Trainer:
     def __init__(self, pipeline, writer=None, log_every: int = 100, device=None) -> None:
         self.pipeline = pipeline
@@ -118,6 +111,7 @@ class Trainer:
         self.trace = TraceCapture()
         self.ckpt: CheckpointManager | None = None
         self.layout = None  # the data-parallel rank layout, set by fit
+        self.dispatch: LoopDispatch | None = None  # set by fit
         # host-clock training time and steps, validation and checkpoints excluded
         self.train_seconds = 0.0
         self.steps_timed = 0
@@ -170,6 +164,11 @@ class Trainer:
         n_dp = int(cfg.run.data_parallel)
         if n_dp > 1 and batch_size % n_dp:
             raise ValueError(f"batch_size {batch_size} must divide over {n_dp} devices")
+        spd = max(int(cfg.run.steps_per_dispatch), 1)
+        if spd > 1 and self.device.type == "cuda" and (n_dp > 1 or dist.is_initialized()):
+            raise ValueError(
+                f"steps_per_dispatch {spd} under data parallelism on the card: capturing "
+                "a step with its nccl collectives is not ported; use steps_per_dispatch 1")
         layout = None
         if n_dp > 1 or dist.is_initialized():
             layout = make_mesh(n_dp, self.device)
@@ -244,6 +243,9 @@ class Trainer:
         step_d = build_train_step(scfg_d, layout) if has_depth else None
         step_nd = build_train_step(scfg_nd, layout)
         gen = torch.Generator(device=dev)
+        dispatch = self.dispatch = LoopDispatch(
+            state, {True: step_d, False: step_nd}, store, depth_store, gen, cfg.run.seed,
+            graphs=spd > 1 and dev.type == "cuda")
 
         # sanity validation (one image)
         if cfg.run.num_sanity_val_steps > 0 and validate_every_epoch:
@@ -257,6 +259,7 @@ class Trainer:
                 depth_sampler.fast_forward(min(start_step, ds_drop))
         step_i = start_step
         last_log_step = start_step
+        cb_steps = sorted(s for s in (step_callbacks or {}) if s > start_step)
         last_metrics: dict | None = None
         t_last = time.perf_counter()
 
@@ -282,17 +285,23 @@ class Trainer:
                 if self._stop_requested:
                     break
                 use_depth = has_depth and step_i < ds_drop
-                fn = step_d if use_depth else step_nd
-                self.trace.step(step_i)
+                next_cb = next((s for s in cb_steps if s > step_i), max_steps)
+                # the largest block that crosses no step-accurate boundary (log
+                # step, epoch end, depth drop, callback, run end): K steps or 1
+                block = min(max_steps - step_i,
+                            (step_i // self.log_every + 1) * self.log_every - step_i,
+                            (step_i // steps_per_epoch + 1) * steps_per_epoch - step_i,
+                            (ds_drop - step_i) if use_depth else max_steps,
+                            next_cb - step_i, spd)
+                if block != spd:
+                    block = 1
+                self.trace.step(step_i, block)
                 with self.profiler.phase("train_step"):
-                    idx = torch.from_numpy(sampler.next_batch()).to(dev)
-                    batch = gather_batch(store, idx)
-                    if use_depth:
-                        didx = torch.from_numpy(depth_sampler.next_batch()).to(dev)
-                        batch.update(gather_batch(depth_store, didx, prefix="depth_"))
-                    gen.manual_seed(step_seed(cfg.run.seed, step_i))
-                    state, last_metrics = fn(state, batch, gen)
-                step_i += 1
+                    idx = np.stack([sampler.next_batch() for _ in range(block)])
+                    didx = (np.stack([depth_sampler.next_batch() for _ in range(block)])
+                            if use_depth else None)
+                    last_metrics = dispatch.run(idx, didx)
+                step_i += block
 
                 if step_i % self.log_every == 0 or step_i >= max_steps:
                     names = list(last_metrics)

@@ -5,7 +5,8 @@
 ``torch.profiler`` trace (CPU and CUDA activity) of a window of training
 steps and writes it as a Chrome trace (``trace.json``, open in Perfetto or
 chrome://tracing) beside ``trace_window.json``; it is enabled by the
-``SATNERF_TORCH_PROFILE_DIR`` env var.
+``SATNERF_TORCH_PROFILE_DIR`` env var. With ``steps_per_dispatch`` > 1 the
+window is aligned to the loop's blocks, as in the reference.
 """
 
 from __future__ import annotations
@@ -60,16 +61,21 @@ class TraceCapture:
         self._done = False
         self._covered_first: int | None = None
         self._covered_last: int | None = None
+        self._blocks: set[int] = set()
 
-    def step(self, step: int) -> None:
-        """Called before each step; the covered step range is written to
-        trace_window.json."""
+    def step(self, step: int, block: int = 1) -> None:
+        """Called once per dispatch, which covers steps [step, step + block).
+
+        A dispatch is the finest unit the trace can start or stop at, so the
+        window is aligned to blocks: the trace starts at the first dispatch
+        that overlaps [start, stop), and the covered step range and the
+        block sizes go to trace_window.json beside the trace."""
         if self.dir is None or self._done:
             return
         if self._prof is not None and step >= self.stop:
             self.close()
             return
-        if self._prof is None and self.start <= step < self.stop:
+        if self._prof is None and step + block > self.start and step < self.stop:
             import torch
 
             acts = [torch.profiler.ProfilerActivity.CPU]
@@ -79,14 +85,19 @@ class TraceCapture:
             self._prof.__enter__()
             self._covered_first = step
         if self._prof is not None:
-            self._covered_last = step
+            self._covered_last = step + block - 1
+            self._blocks.add(block)
 
     def _write_window(self) -> None:
         import json
 
         with open(os.path.join(self.dir, "trace_window.json"), "w") as f:
             json.dump({"first_step": self._covered_first,
-                       "last_step": self._covered_last}, f)
+                       "last_step": self._covered_last,
+                       # every dispatch size in the window (blocks shrink to
+                       # 1 at log steps, epoch ends, the depth drop)
+                       "steps_per_dispatch": max(self._blocks or {1}),
+                       "block_sizes": sorted(self._blocks)}, f)
 
     def close(self) -> None:
         if self._prof is not None:

@@ -19,6 +19,13 @@ Randomness (the stratified jitter) comes from an explicit
 ``torch.Generator``; ``None`` renders the deterministic ladder. The update
 runs in place on the parameters in ``state.params``.
 
+The step reads no host value: the gates come from the device step
+``state.step_t`` and Adam's learning rate from ``state.optimizer.lr``, both
+written by ``TrainState.feed`` before the step, so ``train_step.update``
+(the device work of one step) can be captured in a CUDA graph and replayed
+(``train/dispatch.py``). ``train_step`` itself is feed, update, and the
+host's ``state.advance()``.
+
 Data parallelism (``layout``, a ``parallel.mesh.DataParallel``): every rank
 holds the global batch and renders its rows of it, with its rows of the
 global batch's random draws; the per-ray quantities the losses read are
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 
 from satnerf_torch.models.field import shared_packing
@@ -75,8 +83,28 @@ class StepConfig:
         return self.render.field.variant
 
 
-def _f32(value, device) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=device)
+def _f32(value: float, device) -> torch.Tensor:
+    """A 0-d f32 constant made on ``device`` by a fill (no host copy)."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def loss_gates(scfg: StepConfig, step: torch.Tensor) -> tuple:
+    """(beta_active, car_active) at ``step`` (a 0-d integer tensor), f32 0-d
+    tensors on its device, computed as the JAX step computes them from
+    ``state.step``: beta 0/1 at ``first_beta_epoch`` or the linear ramp,
+    car-reg 0/1 at ``car_reg_loss_start``. The ramp's division is a product
+    by the f32 reciprocal, as XLA compiles the JAX step's division by a
+    constant."""
+    epoch = torch.div(step, scfg.steps_per_epoch, rounding_mode="floor")
+    if scfg.beta_ramp_epochs > 0:
+        ramp_steps = float(scfg.beta_ramp_epochs * scfg.steps_per_epoch)
+        start = float(scfg.first_beta_epoch) * float(scfg.steps_per_epoch)
+        inv = float(np.float32(1.0) / np.float32(ramp_steps))
+        beta_active = torch.clamp((step.to(torch.float32) - start) * inv, 0.0, 1.0)
+    else:
+        beta_active = (epoch >= scfg.first_beta_epoch).to(torch.float32)
+    car_active = (epoch >= scfg.car_reg_loss_start).to(torch.float32)
+    return beta_active, car_active
 
 
 # what the losses and metrics read of a render (gathered under data parallelism)
@@ -125,13 +153,16 @@ def _gather_results(layout, passes: list) -> list:
     return out
 
 
-def compute_losses(scfg: StepConfig, params: dict, batch: dict, step: int,
+def compute_losses(scfg: StepConfig, params: dict, batch: dict, step,
                    generator: torch.Generator | None = None, layout=None):
     """Render + every loss term for one batch -> (loss, loss_dict, results).
+    ``step`` is an int or the device step tensor.
 
     Under ``layout`` the batch is the global one, each rank renders its rows
     and ``results`` holds the gathered global LOSS_KEYS."""
     dev = batch["rays"].device
+    if not torch.is_tensor(step):
+        step = torch.full((), int(step), dtype=torch.int64, device=dev)
     results, span = _render_rows(params, scfg.render, batch["rays"], batch["extras"],
                                  generator, layout)
     if scfg.depth:
@@ -144,19 +175,13 @@ def compute_losses(scfg: StepConfig, params: dict, batch: dict, step: int,
         results = gathered[0]
         if scfg.depth:
             d_results = gathered[1]
-    epoch = int(step) // scfg.steps_per_epoch
     loss_dict: dict = {}
     sc_on = scfg.sc_lambda > 0 and scfg.render.solar_correction
 
-    beta_active = _f32(0.0, dev)
-    if scfg.variant not in ("nerf", "snerf"):
-        if scfg.beta_ramp_epochs > 0:
-            ramp_steps = float(scfg.beta_ramp_epochs * scfg.steps_per_epoch)
-            start = float(scfg.first_beta_epoch) * float(scfg.steps_per_epoch)
-            beta_active = torch.clamp((_f32(float(step), dev) - start) / ramp_steps,
-                                      0.0, 1.0)
-        else:
-            beta_active = _f32(float(epoch >= scfg.first_beta_epoch), dev)
+    beta_active, car_active = loss_gates(scfg, step)
+    if scfg.variant in ("nerf", "snerf"):
+        beta_active = _f32(0.0, dev)
+    else:
         loss_dict["beta_loss_activated"] = beta_active
 
     # with the hierarchical pass the fine result is the primary one and the
@@ -226,7 +251,6 @@ def compute_losses(scfg: StepConfig, params: dict, batch: dict, step: int,
 
         # car-reg and the accuracy read the fine (primary) result only
         if scfg.use_car_reg_loss:
-            car_active = _f32(float(epoch >= scfg.car_reg_loss_start), dev)
             l_car, d_car = losses.semantic_car_reg_loss(
                 results, sem, sem_mask, scfg.lambda_c, scfg.car_index)
             loss = loss + car_active * l_car
@@ -256,11 +280,14 @@ def _micro_batches(batch: dict, k: int) -> list:
 def build_train_step(scfg: StepConfig, layout=None):
     """-> ``train_step(state, batch, generator=None) -> (state, metrics)``.
 
-    Under ``layout`` (data parallelism) ``batch`` is the global batch on
-    every rank, and the metrics are the global ones."""
+    ``train_step.update(state, batch, generator) -> metrics`` is the step's
+    device work alone (render, losses, backward, Adam), reading the step and
+    Adam's scalars that ``state.feed()`` wrote; ``train_step`` feeds,
+    updates and advances the host's step. Under ``layout`` (data
+    parallelism) ``batch`` is the global batch on every rank, and the
+    metrics are the global ones."""
 
-    def train_step(state: TrainState, batch: dict,
-                   generator: torch.Generator | None = None):
+    def update(state: TrainState, batch: dict, generator: torch.Generator | None = None):
         params = trainable(state.params)
         for p in params:
             p.grad = None
@@ -268,7 +295,7 @@ def build_train_step(scfg: StepConfig, layout=None):
         loss_sum, dict_sum = None, None
         for mb in (_micro_batches(batch, k) if k > 1 else [batch]):
             with shared_packing():  # each field packed once per forward + backward
-                loss, loss_dict, _ = compute_losses(scfg, state.params, mb, state.step,
+                loss, loss_dict, _ = compute_losses(scfg, state.params, mb, state.step_t,
                                                     generator, layout)
                 loss.backward()
             loss = loss.detach()
@@ -289,11 +316,15 @@ def build_train_step(scfg: StepConfig, layout=None):
         if k > 1:
             loss_sum = loss_sum * (1.0 / k)
             dict_sum = {key: v * (1.0 / k) for key, v in dict_sum.items()}
-        lr = state.schedule(state.step)  # the pre-increment step, as optax
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
         state.optimizer.step()
-        state.step += 1
-        return state, {"loss": loss_sum, **dict_sum}
+        return {"loss": loss_sum, **dict_sum}
 
+    def train_step(state: TrainState, batch: dict,
+                   generator: torch.Generator | None = None):
+        state.feed()  # the pre-increment step and its learning rate, as optax
+        metrics = update(state, batch, generator)
+        state.advance()
+        return state, metrics
+
+    train_step.update = update
     return train_step

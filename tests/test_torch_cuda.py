@@ -1182,3 +1182,142 @@ def test_cuda_measurement_scripts_run_the_kernels(cuda_device, tool, monkeypatch
         assert k1 == k5 == 0
     else:
         assert k1 > 0 and k5 > 0, (k1, k5)
+
+
+def _dispatch_trainer(tmp_path, spd: int, hier: bool, name: str = "", **run):
+    """A Trainer on a generated 40 x 40 scene (2 train views: 3,200 rays, an
+    epoch of 8 steps at 400 rays) at 4 x 512 for 16 steps: the depth drop at
+    8 (``depth_supervision_drop`` 0.5) and the beta gate at epoch 1, so with
+    K = 8 each variant runs one block (a warm-up step, the capture, 7
+    replays); ``hier``: Path B's hierarchical pass."""
+    from satnerf_torch.configs import MainConfig, RSSemanticConfig, RunConfig
+    from satnerf_torch.datasets.synthetic import generate_scene
+    from satnerf_torch.pipelines import load_pipeline
+    from satnerf_torch.train.loop import Trainer
+
+    scene = tmp_path / "datasets" / "SYN"
+    if not scene.exists():
+        generate_scene(str(scene), n_train=2, n_test=1, img_size=40, n_tie_points=80)
+    hier_kw = dict(n_importance=32, use_fine_network=True, remat_chunks=2,
+                   sc_stride=2) if hier else {}
+    cfg = MainConfig(
+        RunConfig(dataset_name="SYN", datasets_dp=str(tmp_path / "datasets"),
+                  cache_dp=str(tmp_path / "cache"),
+                  workspace_dp=str(tmp_path / f"training_k{spd}{name}"), max_train_steps=16,
+                  num_sanity_val_steps=0, seed=0, steps_per_dispatch=spd, **run),
+        RSSemanticConfig(fc_layers=4, fc_units=512, fc_skips=[2], n_samples=32,
+                         batch_size=400, first_beta_epoch=1, use_car_reg_loss=True,
+                         car_reg_loss_start=1, depth_supervision_drop=0.5, **hier_kw))
+    pipeline = load_pipeline(cfg)
+    pipeline.prepare_run()
+    pipeline.load_datasets()
+    return Trainer(pipeline, log_every=8, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hier", [False, True], ids=["flagship", "path_b"])
+def test_cuda_steps_per_dispatch_is_bitwise_per_step(cuda_device, tmp_path, hier):
+    """K = 8 (blocks of replays of one captured step) against K = 1 (eager
+    steps) from the same seed across the depth drop and the beta gate: the
+    parameters, Adam's moments and count and the logged metrics bitwise
+    equal; each variant captured once and replayed 7 times. A K = 8 run
+    stopped at step 4 and resumed lands on the same parameters."""
+    from satnerf_torch.train.checkpoint import export_params
+    from satnerf_torch.train.loop import Trainer
+
+    runs = {}
+    for spd in (1, 8):
+        trainer = _dispatch_trainer(tmp_path, spd, hier)
+        state = trainer.fit(validate_every_epoch=False)
+        runs[spd] = (trainer, state)
+    (t1, s1), (t8, s8) = runs[1], runs[8]
+    assert s1.step == s8.step == 16 and t8.pipeline.ds_drop_step == 8
+    pa, pb = export_params(s1.params), export_params(s8.params)
+    assert all(torch.equal(pa[k], pb[k]) for k in pa)
+    o1, o8 = s1.optimizer, s8.optimizer
+    assert all(torch.equal(a, b) for a, b in zip(o1.exp_avg + o1.exp_avg_sq, o8.exp_avg + o8.exp_avg_sq))
+    assert torch.equal(o1.count, o8.count) and int(o8.count) == 16
+    assert t1.history == t8.history and len(t8.history) == 2
+    assert t8.history[0]["beta_loss_activated"] == 0.0
+    assert t8.history[1]["beta_loss_activated"] == 1.0
+    assert "depth_loss_activated" in t8.history[0] and "depth_loss_activated" not in t8.history[1]
+    stats = t8.dispatch.graph_stats()
+    assert all(v["replays"] == 7 and v["eager_steps"] == 1 for v in stats.values()), stats
+    assert all(v["eager_steps"] == 8 for v in t1.dispatch.graph_stats().values())
+
+    first = _dispatch_trainer(tmp_path, 8, hier, name="_resume")
+    assert first.fit(validate_every_epoch=False,
+                     step_callbacks={4: lambda s, i: first.request_stop()}).step == 4
+    first.cfg.run.resume_from_ckpoint = True
+    again = Trainer(first.pipeline, log_every=8, device=cuda_device)
+    resumed = again.fit(validate_every_epoch=False)
+    pr = export_params(resumed.params)
+    assert resumed.step == 16 and all(torch.equal(pa[k], pr[k]) for k in pa)
+    assert torch.equal(resumed.optimizer.count, o1.count)
+
+
+@pytest.mark.cuda
+def test_cuda_capture_unsafe_step_raises(cuda_device, tmp_path, monkeypatch):
+    """A step that reads a value back to the host (``.item()``) trains
+    eagerly but cannot be captured: with K = 8 ``Trainer.fit`` raises at the
+    capture, after the one warm-up step, and runs no block eagerly."""
+    from satnerf_torch.train import losses
+
+    psnr = losses.psnr
+
+    def reads_back(*args, **kwargs):
+        out = psnr(*args, **kwargs)
+        out.item()
+        return out
+
+    monkeypatch.setattr(losses, "psnr", reads_back)
+    trainer = _dispatch_trainer(tmp_path, 8, hier=False)
+    with pytest.raises(RuntimeError):
+        trainer.fit(validate_every_epoch=False)
+    depth = trainer.dispatch.variants[True]
+    assert depth.eager_steps == 1 and depth.graph.replays == 0 and depth.graph.graph is None
+    assert not trainer.history
+    assert float(torch.ones(4, device=cuda_device).sum()) == 4.0  # the card still works
+
+
+@pytest.mark.cuda
+def test_cuda_steps_per_dispatch_with_data_parallel_raises(cuda_device, tmp_path):
+    trainer = _dispatch_trainer(tmp_path, 8, hier=False, data_parallel=2)
+    with pytest.raises(ValueError, match="steps_per_dispatch 8 under data parallelism"):
+        trainer.fit(validate_every_epoch=False)
+
+
+@pytest.mark.cuda
+def test_cuda_adam_is_torch_adam_bitwise(cuda_device):
+    """The port's Adam, whose step-dependent scalars are device tensors (so a
+    CUDA graph can capture it), against ``torch.optim.Adam`` (foreach, not
+    capturable) on the card: 60 steps on 40 tensors of the flagship field's
+    shapes, gradients of 1e-3 to 1e-1, the learning rate changing every 7
+    steps; every parameter and moment bitwise equal."""
+    from satnerf_torch.train.state import Adam
+
+    g = torch.Generator().manual_seed(0)
+    shapes = [(512, 63), (512,), (512, 512), (512, 575), (256, 512), (4, 256), (1, 256),
+              (50, 4)] * 5
+    start = [torch.randn(s, generator=g) * 0.1 for s in shapes]
+    ref = [p.clone().to(cuda_device).requires_grad_(True) for p in start]
+    mine = [p.clone().to(cuda_device) for p in start]
+    opt_ref = torch.optim.Adam(ref, lr=5e-4, betas=(0.9, 0.999), eps=1e-8)
+    opt = Adam(mine)
+    for step in range(60):
+        grads = [(torch.randn(s, generator=g) * 10 ** (-3 + 2 * torch.rand(1, generator=g))
+                  ).to(cuda_device) for s in shapes]
+        lr = 5e-4 * 0.9 ** (step // 7)
+        for p, q, gr in zip(ref, mine, grads):
+            p.grad, q.grad = gr, gr.clone()
+        opt_ref.param_groups[0]["lr"] = lr
+        opt_ref.step()
+        opt.feed(lr)
+        opt.step()
+        opt.t += 1
+    assert int(opt.count) == 60
+    for i, (p, q) in enumerate(zip(ref, mine)):
+        st = opt_ref.state[p]
+        assert torch.equal(p.detach(), q), i
+        assert torch.equal(st["exp_avg"], opt.exp_avg[i]), i
+        assert torch.equal(st["exp_avg_sq"], opt.exp_avg_sq[i]), i

@@ -131,8 +131,7 @@ def test_two_ranks_step_matches_one_process(ranks, grad_accum):
     _, replay, _ = step_case(grad_accum)
     for name, p in zip(trainable_names(replay.params), trainable(replay.params)):
         p.grad = got[0]["grads"][name].clone()
-    for group in replay.optimizer.param_groups:
-        group["lr"] = replay.schedule(replay.step)
+    replay.feed()
     replay.optimizer.step()
     for k, v in export_params(replay.params).items():
         assert torch.equal(v, got[0]["params"][k]), k

@@ -29,7 +29,8 @@ from satnerf_torch.pipelines import load_pipeline
 from satnerf_torch.run import resume_training, training
 from satnerf_torch.train import checkpoint as ckpt_mod
 from satnerf_torch.train.checkpoint import export_params, load_warm_start_params
-from satnerf_torch.train.loop import Trainer, step_seed, val_chunk_rays
+from satnerf_torch.train.dispatch import step_seed
+from satnerf_torch.train.loop import Trainer, val_chunk_rays
 from satnerf_torch.train.state import init_params
 
 torch.set_num_threads(2)
@@ -219,8 +220,11 @@ def test_resume_equals_the_uninterrupted_run_bitwise(workspace, uninterrupted):
 
 def test_steps_per_dispatch_and_callbacks_leave_the_trajectory_unchanged(workspace,
                                                                          uninterrupted):
-    """``steps_per_dispatch`` loads and has no effect (each step is its own
-    call); step callbacks fire at their exact steps."""
+    """What the JAX package's ``test_steps_per_dispatch_invariance`` and
+    ``test_step_callbacks_fire_at_exact_steps`` check: blocks of 4 steps per
+    dispatch give the per-step run's trajectory exactly, and step callbacks
+    fire at their exact steps (the blocks are cut to land on them; 99 is
+    past the run's end)."""
     state, trainer = uninterrupted
     seen = []
     blocks = _trainer(workspace, log_every=4, num_sanity_val_steps=0, max_train_steps=12,
@@ -231,9 +235,12 @@ def test_steps_per_dispatch_and_callbacks_leave_the_trajectory_unchanged(workspa
                                      7: lambda s, i: seen.append((i, s.step)),
                                      99: lambda s, i: seen.append(i)})
     assert seen == [(5, 5), (7, 7)]
+    assert got.step == 12
     assert _same_params(got, state) == 0.0
     assert [h["loss"] for h in blocks.history] == [h["loss"] for h in trainer.history]
-    assert blocks.profiler.counts["train_step"] == 12
+    # steps 0-7 one a dispatch (the depth drop at 3, log step 4, callbacks at
+    # 5 and 7, log step 8), then one block of 4
+    assert blocks.profiler.counts["train_step"] == 9
 
 
 def test_sigterm_checkpoints_and_the_run_resumes(workspace, uninterrupted):
@@ -356,6 +363,7 @@ def test_trace_capture_writes_a_chrome_trace_of_its_window(tmp_path, monkeypatch
         torch.ones(8).sum()
     trace.close()
     with open(tmp_path / "trace_window.json") as f:
-        assert json.load(f) == {"first_step": 2, "last_step": 3}
+        assert json.load(f) == {"first_step": 2, "last_step": 3, "steps_per_dispatch": 1,
+                                "block_sizes": [1]}
     with open(tmp_path / "trace.json") as f:
         assert json.load(f)["traceEvents"]

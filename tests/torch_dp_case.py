@@ -89,10 +89,13 @@ def record_grads(state) -> dict:
     got = {}
     names, leaves = trainable_names(state.params), trainable(state.params)
 
-    def keep(optimizer, args, kwargs):
-        got.update({n: p.grad.detach().clone() for n, p in zip(names, leaves)})
+    step = state.optimizer.step
 
-    state.optimizer.register_step_pre_hook(keep)
+    def keep():
+        got.update({n: p.grad.detach().clone() for n, p in zip(names, leaves)})
+        step()
+
+    state.optimizer.step = keep
     return got
 
 
