@@ -69,6 +69,21 @@ JSON line per phase:
    1,048,576 points, bf16 at the interleave prototype's 1,048,576 x 63
    (K6 checked there in both dtypes); with ``--parent``, the parent's K6
    at that shape in the same turns;
+13b. ``widths``: every trunk width the JAX kernels take below 512
+   (``WIDTH_PAIRS``: (128, 64), (128, 128), (256, 128), (256, 256),
+   (384, 192), (384, 384) at the rs_semantic TOML's 8 layers): K1 (both
+   head variants) with K2 and K4 (both engines) on its residuals, or K3
+   (with and without the pre-activations) with K4, against their plain
+   versions at 1, 63, 65 and 65,536 points in f32 and bf16 within the bars
+   above, each run twice and bitwise equal; each kernel's device ms at
+   65,536 points beside its bound; the four-scene workflow's training
+   (``tools/four_scenes.py``'s TOMLs: 8 x 256, 32 samples, 2,048 rays, bf16,
+   depth on, ``steps_per_dispatch`` 8) through ``start_training`` for 24
+   steps, with K1, K2, K4, K5 and K5's backward launched by the schedule and
+   no plain version; the examples' 2 x 128 field in the flagship step config
+   (K3, K4 and K5 every step, a 32-ray step against the CPU); with
+   ``--parent``, the parent's build seconds and K1-K4's outputs at 512
+   bitwise equal to the parent build's (``port_times`` saves all four);
 14. ``train_scene``: the training CLI end to end on a generated scene (4 + 1
    views, 96x96, 300 tie points): ``run.training.start_training`` on the
    flagship TOML as it is, 144 steps (the depth drop at step 36, the beta
@@ -244,6 +259,12 @@ TOL_COMPOSITE_BWD = {"sigmas": 1e-6, "albedo": 1e-5, "sun": 1e-6, "sky": 1e-6}
 TOL_STEP_LOSS = 1e-4
 TOL_STEP_PARAM = 2e-5
 TOL_STORED = 1e-4  # "stored" vs "recompute" gradients, relative, f32
+# phase widths: where K2 and its plain version recompute the sky head's ReLU
+# pre-activation on two sides of 0 (its derivative is undefined there), the
+# entry must lie within this share of the tensor's largest |pre-activation|:
+# two f32 sums of the same three products differ by ~1e-7 of it
+TOL_KINK = 1e-5
+TRUNK_GRADS = ("gx", "w0", "w_mid", "w_skip", "b")  # trunk_backward's outputs, in order
 
 # the beta_s ablation step against the CPU: as TOL_STEP_*; its plain heads run
 # torch's own matmuls on both sides, so the same bars hold
@@ -391,6 +412,24 @@ BENCH_VARIANTS = {"hier128": ({"SATNERF_BENCH_HIER": "128"}, PER_STEP_HIER),
                   "sc_stride1": ({"SATNERF_BENCH_SC_STRIDE": "1"}, PER_STEP)}
 BENCH_VARIANT_STEPS = 3
 SOL_ARGS = ["--scan", "5", "--sc-stride", "2"]  # speed_of_light at the bench's stride
+# phase widths: the (feat, feat_last) pairs of every trunk width the JAX kernels
+# take below 512 (512 is the flagship's, checked above), at the rs_semantic TOML's
+# 8 layers with its skip at 4: heads of half the width, or all of it
+# (fc_use_full_features); 64 and 192 are not multiples of 128, so (128, 64) and
+# (384, 192) run K3 and the heads layer by layer, as the JAX package does
+WIDTH_PAIRS = ((128, 64), (128, 128), (256, 128), (256, 256), (384, 192), (384, 384))
+WIDTH_POINTS = (1, 63, 65, 65_536)  # ragged against the 64-row tile, and a render's (timed)
+# the four-scene workflow's training (satnerf_torch/tools/four_scenes.py at its
+# defaults: 8 x 256, 32 samples, 2,048 rays, bf16, depth on, steps_per_dispatch
+# 8) through the training CLI, on one of its scenes at a cut size
+WIDTHS_SCENE = {"n_train": 6, "n_test": 2, "img_size": 64, "n_tie_points": 300}
+WIDTHS_CLI_STEPS = 24
+# the examples' field (satnerf_torch/examples/_common.py, the JAX package's
+# 2 x 128) in the flagship step config: K3, K4 and K5 as on Path A
+EXAMPLES_FIELD = {"fc_layers": 2, "fc_units": 128, "fc_skips": [1]}
+# port_times keys of K1-K4 (at 512), read in turns with the parent's
+PARENT_KERNEL_KEYS = ("field_fused", "field_fused_serve", "heads_bwd", "trunk_bwd_recompute",
+                      "trunk_bwd_stored", "trunk_fwd")
 
 
 def op_bounds(flops: float, dname: str) -> dict:
@@ -685,13 +724,13 @@ def field_backward_phase(field, fcfg, enc, sun_d, t_emb) -> dict:
                         t = trunk.trunk_backward(spec, x, packed, acts, h[0])
                         torch.cuda.synchronize()
                         runs.append({"g_shared": h[0], "g_aux": h[1], **h[2],
-                                     **dict(zip(("gx", "w0", "w_mid", "w_skip", "b"), t))})
+                                     **dict(zip(TRUNK_GRADS, t))})
                     bitwise = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
                     ro, rs, ra = ff._reference_forward(spec, x, aux, packed, True)
                     rh = ff.heads_backward_reference(spec, shared, aux, g_out, packed)
                     rt = trunk.trunk_backward_reference(spec, x, packed, acts, rh[0])
                     ref = {"g_shared": rh[0], "g_aux": rh[1], **rh[2],
-                           **dict(zip(("gx", "w0", "w_mid", "w_skip", "b"), rt))}
+                           **dict(zip(TRUNK_GRADS, rt))}
                     resid = {"out": rel_err(out, ro), "shared": rel_err(shared, rs)}
                     if acts is not None:
                         resid["acts"] = rel_err(acts, ra)
@@ -705,7 +744,7 @@ def field_backward_phase(field, fcfg, enc, sun_d, t_emb) -> dict:
                     for k, e in resid.items():
                         check(e <= TOL_RESID[dname], f"{key} residual {k} err {e}")
                     for k in ref:
-                        part = "trunk" if k in ("gx", "w0", "w_mid", "w_skip", "b") else "heads"
+                        part = "trunk" if k in TRUNK_GRADS else "heads"
                         worst_rel[part] = max(worst_rel[part], errs[k])
                         if dname == "float32":
                             worst_abs[part] = max(
@@ -1230,8 +1269,8 @@ def port_times(dev, save: str | None = None, reps: int = 3) -> dict:
     engines; 65,536 points, f32 and bf16), each with its row-GEMM launches
     and its reductions summed apart, of K1 with residuals (65,536) and K3
     (131,072), and of K1 at the serve chunk (1,048,576 points), f32 and bf16,
-    on a field from seed 0. With ``save``, K1's and K3's
-    outputs go to that file. It calls only entry points that every slice of
+    on a field from seed 0. With ``save``, the outputs of K1, K2, K3 and K4
+    (both engines) go to that file. It calls only entry points that every slice of
     the port has, so ``--tree`` runs it on an older checkout too."""
     import dataclasses
 
@@ -1269,11 +1308,15 @@ def port_times(dev, save: str | None = None, reps: int = 3) -> dict:
                 shared, acts = res[1], res[2]
                 if bwd == "recompute":
                     saved[f"k1/{dname}"] = res[:2]
-                    g_shared = ff.heads_backward(spec, shared, aux, g_out, packed)[0]
+                    h = ff.heads_backward(spec, shared, aux, g_out, packed)
+                    g_shared = h[0]
+                    saved[f"k2/{dname}"] = [h[0], h[1], *h[2].values()]
                     out[f"heads_bwd/{dname}"] = split(
                         lambda: ff.heads_backward(spec, shared, aux, g_out, packed))
                     out[f"field_fused/{dname}"] = {"ms": cuda_ms(
                         lambda: ff._forward(spec, x, aux, packed, True), reps=reps)}
+                saved[f"k4_{bwd}/{dname}"] = list(
+                    trunk.trunk_backward(spec, x, packed, acts, g_shared))
                 out[f"trunk_bwd_{bwd}/{dname}"] = split(
                     lambda: trunk.trunk_backward(spec, x, packed, acts, g_shared,
                                                  need_gx=False))
@@ -1309,8 +1352,10 @@ def run_turns(parent: str) -> list:
                               os.path.abspath(tree), "--save", path],
                              capture_output=True, text=True, timeout=900)
         check(res.returncode == 0, f"turn {i} in {tree}: {res.stderr[-2000:]}")
+        lines = res.stdout.strip().splitlines()
+        build = [json.loads(x)["child_build"] for x in lines if x.startswith('{"child_build"')]
         turns.append({"tree": "parent" if tree == parent else "this",
-                      "times": json.loads(res.stdout.strip().splitlines()[-1])})
+                      "times": json.loads(lines[-1]), "build": build[0] if build else None})
     return turns
 
 
@@ -1816,7 +1861,10 @@ def child_times(tree: str, save: str) -> int:
     from satnerf_torch.ops import _build
 
     disable_tf32()
-    _build.build_all()
+    t0 = time.monotonic()
+    per = _build.build_all()
+    print(json.dumps({"child_build": {"seconds": time.monotonic() - t0,
+                                      "per_source_seconds": per}}), flush=True)
     dev = torch.device("cuda")
     print(json.dumps({**port_times(dev, save), **composite_times(dev), **step_times(dev),
                       **k6_times(dev)}), flush=True)
@@ -3917,13 +3965,390 @@ def tools_phase(dev) -> dict:
     out["speed_of_light"] = {"line": sol, "args": SOL_ARGS, "launches": launches,
                              "k1_by_heads": heads, "seconds": secs}
 
-    feed, launches, plain, _, secs = counted_run(feed_rate.main)
+    # an empty argv: feed_rate's parser would read this script's own flags
+    feed, launches, plain, _, secs = counted_run(lambda: feed_rate.main([]))
     check(not any(launches.values()) and not any(plain.values()),
           f"feed_rate ran a kernel: {launches} {plain}")
     check(math.isfinite(feed["rays_per_s"]) and feed["rays_per_s"] > 0, f"feed_rate {feed}")
     out["feed_rate"] = {"line": feed, "launches": launches, "seconds": secs}
     line = {"phase": "tools", **out, "seconds": time.monotonic() - t_phase}
     emit(line)
+    return line
+
+
+def _width_inputs(fcfg, n: int, seed: int, dev) -> tuple:
+    """(encoded points, sun directions, t embeddings, a gradient of the 16
+    raw columns, a gradient of the trunk output) for ``n`` points, seeded."""
+    import torch
+
+    from satnerf_torch.core.encoding import positional_encoding
+
+    g = torch.Generator().manual_seed(seed)
+    xyz = torch.rand(n, 3, generator=g) * 2 - 1
+    sun = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1)
+    te = torch.randn(n, fcfg.t_embedding_tau, generator=g)
+    g_out = torch.randn(n, 16, generator=g)
+    cot = torch.randn(n, fcfg.feat, generator=g)
+    return tuple(t.to(dev) for t in (positional_encoding(xyz, fcfg.mapping_pos_n_freq), sun,
+                                     te, g_out, cot))
+
+
+def _bwd_check(what: str, got: dict, ref: dict, dname: str, plain_f32, notes: list) -> float:
+    """The largest rel_err of the kernel outputs ``got`` against the plain
+    version's ``ref``, each checked against TOL_FIELD_BWD; in bf16 a tensor
+    beyond that bar passes where the kernel lies no farther from the plain
+    version in f32 on the same inputs (``plain_f32()``) than the plain bf16
+    version does, plus the bar (``audit_failures``' rule: in a tensor that
+    cancels, one-ulp flips of bf16 activations on either side reach past the
+    bar), and is written to ``notes``."""
+    bar, worst, r32 = TOL_FIELD_BWD[dname], 0.0, None
+    for k in ref:
+        e = rel_err(got[k], ref[k])
+        worst = max(worst, e)
+        if e <= bar:
+            continue
+        check(dname == "bfloat16", f"{what} {k} err {e}")
+        r32 = r32 or plain_f32()
+        d_k, d_p = rel_err(got[k], r32[k]), rel_err(ref[k], r32[k])
+        notes.append({"check": f"{what} {k}", "vs_plain": e, "kernel_vs_f32": d_k,
+                      "plain_vs_f32": d_p})
+        check(d_k <= d_p + bar, f"{what} {k}: {e} from the plain version; from f32 "
+                                f"{d_k} against the plain bf16 version's {d_p}")
+    return worst
+
+
+def _relu_agree_rows(what: str, spec, shared, aux, g_out, packed, notes: list):
+    """The rows on which K2 and its plain version recompute the sky head's
+    pre-activation (the one ReLU of the heads) with the same sign in every
+    column; None when that is every row. The ReLU's derivative is undefined
+    at 0, so where the two recomputations fall on two sides of it the two
+    gradients differ by a whole term: each such entry must lie within
+    TOL_KINK of 0, relative to the largest pre-activation, and is written to
+    ``notes``."""
+    from satnerf_torch.ops import field_fused as ff
+
+    if not spec.heads_on:
+        return None
+    tk, tr = {}, {}
+    ff.heads_backward(spec, shared, aux, g_out, packed, trace=tk)
+    ff.heads_backward_reference(spec, shared, aux, g_out, packed, trace=tr)
+    ak, ar = tk["pre"]["sky0"].float(), tr["pre"]["sky0"].float()
+    flip = (ak > 0) != (ar > 0)
+    if not bool(flip.any()):
+        return None
+    near = float(ar[flip].abs().max()) / float(ar.abs().max())
+    notes.append({"check": f"{what} sky ReLU", "entries": int(flip.sum()),
+                  "rows": int(flip.any(1).sum()), "of_rows": int(flip.shape[0]),
+                  "largest_abs_pre_activation_rel": near})
+    check(near <= TOL_KINK, f"{what}: the sky pre-activations differ in sign at {near} "
+                            f"of their largest, beyond {TOL_KINK}")
+    return ~flip.any(1)
+
+
+def width_kernel_checks(key: str, spec, fused: bool, packed, inputs, dname: str,
+                        n: int, notes: list) -> dict:
+    """On the first ``n`` of ``inputs``: K1 (both head variants) with K2 and
+    K4 (both engines) on K1's residuals, or K3 (with and without the
+    pre-activations) with K4 (both engines), each against its plain version
+    within today's bars (_bwd_check, _relu_agree_rows) and run twice,
+    bitwise equal. -> {check: error}."""
+    import dataclasses
+
+    import torch
+
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    enc, sun, te, g_out, cot = (t[:n] for t in inputs)
+    dt = packed["w0"].dtype
+    x = ff.pack_x(spec, enc, dt)
+    p32 = {k: v.float() for k, v in packed.items()}  # the same weights, for f32 yardsticks
+    errs = {}
+
+    def same(a: list, b: list) -> bool:
+        return all((u is None and v is None) or torch.equal(u, v) for u, v in zip(a, b))
+
+    def f32(t):
+        return None if t is None else t.float()
+
+    if not fused:
+        for emit in (False, True):
+            runs = [trunk._forward(spec, x, packed, emit) for _ in range(2)]
+            torch.cuda.synchronize()
+            tag = f"{key} K3 acts={emit}"
+            check(same(*runs), f"{tag}: two runs differ")
+            out, acts = runs[0]
+            ref, ref_acts = trunk.fused_trunk_reference(spec, x, packed, emit)
+            errs[f"k3/acts_{emit}"] = float((out.float() - ref.float()).abs().max())
+            check(errs[f"k3/acts_{emit}"] <= TOL_FIELD[dname], f"{tag} err {errs}")
+            if emit:
+                errs["k3/pre_activations_rel"] = rel_err(acts, ref_acts)
+                check(errs["k3/pre_activations_rel"] <= TOL_RESID[dname], f"{tag} err {errs}")
+        g = cot.to(dt)
+        for bwd in ("recompute", "stored"):
+            sb = dataclasses.replace(spec, trunk_bwd=bwd)
+            acts = trunk._forward(sb, x, packed, True)[1] if bwd == "stored" else None
+            runs = [list(trunk.trunk_backward(sb, x, packed, acts, g)) for _ in range(2)]
+            torch.cuda.synchronize()
+            check(same(*runs), f"{key} K4 {bwd}: two runs differ")
+            ref = trunk.trunk_backward_reference(sb, x, packed, acts, g)
+            errs[f"k4/{bwd}"] = _bwd_check(
+                f"{key} n{n} {dname} K4 {bwd}", dict(zip(TRUNK_GRADS, runs[0])),
+                dict(zip(TRUNK_GRADS, ref)), dname,
+                lambda: dict(zip(TRUNK_GRADS, trunk.trunk_backward_reference(
+                    sb, x.float(), p32, f32(acts), g.float()))), notes)
+        return errs
+
+    aux = ff.pack_aux(spec, sun, te, None, dt)
+    for heads_on in (True, False):
+        sp = dataclasses.replace(spec, heads_on=heads_on)
+        tag = "heads_on" if heads_on else "heads_off"
+        runs = [ff.fused_field(sp, x, aux, packed) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(torch.equal(*runs), f"{key} K1 {tag}: two runs differ")
+        errs[f"k1/{tag}"] = float((runs[0] - ff.fused_field_reference(sp, x, aux, packed))
+                                  .abs().max())
+        check(errs[f"k1/{tag}"] <= TOL_FIELD[dname], f"{key} K1 {tag} err {errs}")
+        for bwd in ("recompute", "stored"):
+            sb = dataclasses.replace(sp, trunk_bwd=bwd)
+            what = f"{key} n{n} {dname} {tag} {bwd}"
+            _, shared, acts = ff._forward(sb, x, aux, packed, resid=True)
+            runs = []
+            for _ in range(2):
+                h = ff.heads_backward(sb, shared, aux, g_out, packed)
+                t = trunk.trunk_backward(sb, x, packed, acts, h[0])
+                runs.append({"g_shared": h[0], "g_aux": h[1], **h[2],
+                             **dict(zip(TRUNK_GRADS, t))})
+            torch.cuda.synchronize()
+            check(all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0]),
+                  f"{what}: K2/K4 two runs differ")
+            _, rs, ra = ff._reference_forward(sb, x, aux, packed, True)
+            rh = ff.heads_backward_reference(sb, shared, aux, g_out, packed)
+            rt = trunk.trunk_backward_reference(sb, x, packed, acts, rh[0])
+            resid = [rel_err(shared, rs)] + ([rel_err(acts, ra)] if acts is not None else [])
+            errs[f"k1_residuals/{tag}/{bwd}"] = max(resid)
+            check(max(resid) <= TOL_RESID[dname], f"{what} K1 residuals err {resid}")
+
+            def k4_f32():
+                r = ff.heads_backward_reference(sb, shared.float(), aux.float(), g_out, p32)
+                return dict(zip(TRUNK_GRADS, trunk.trunk_backward_reference(
+                    sb, x.float(), p32, f32(acts), r[0])))
+
+            errs[f"k4/{tag}/{bwd}"] = _bwd_check(
+                f"{what} K4", {k: runs[0][k] for k in TRUNK_GRADS},
+                dict(zip(TRUNK_GRADS, rt)), dname, k4_f32, notes)
+            # K2 on the rows where both recompute the sky ReLU's decisions alike
+            # (the sky head feeds no trunk gradient, so K4 above took every row)
+            rows = _relu_agree_rows(f"{what} K2", sb, shared, aux, g_out, packed, notes)
+            on = (shared, aux, g_out) if rows is None else (shared[rows], aux[rows], g_out[rows])
+            if rows is None:
+                got2 = {k: v for k, v in runs[0].items() if k not in TRUNK_GRADS}
+            else:
+                h = ff.heads_backward(sb, *on, packed)
+                got2 = {"g_shared": h[0], "g_aux": h[1], **h[2]}
+                rh = ff.heads_backward_reference(sb, *on, packed)
+            ref2 = {"g_shared": rh[0], "g_aux": rh[1], **rh[2]}
+
+            def k2_f32():
+                r = ff.heads_backward_reference(sb, on[0].float(), on[1].float(), on[2], p32)
+                return {"g_shared": r[0], "g_aux": r[1], **r[2]}
+
+            errs[f"k2/{tag}/{bwd}"] = _bwd_check(f"{what} K2", got2, ref2, dname, k2_f32,
+                                                 notes)
+    return errs
+
+
+def width_times(spec, fused: bool, packed, inputs, dname: str) -> dict:
+    """Device ms (``device_time``) at the largest of WIDTH_POINTS of the route's
+    kernels: K1 with residuals, K2 and K4 ("recompute"); or K3 and K4; each
+    beside its bound (``FieldSpec``'s multiply-adds over the guide's peaks, or
+    its bytes, whichever is larger) and the launches the timing made."""
+    import torch
+
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    n = max(WIDTH_POINTS)
+    enc, sun, te, g_out, cot = inputs
+    dt = packed["w0"].dtype
+    esz = 2 if dt == torch.bfloat16 else 4
+    x = ff.pack_x(spec, enc[:n], dt)
+    F, L = spec.feat, spec.layers
+    trunk_macs = spec.c_in * F + (L - 1) * F * F + len(spec.skips) * spec.c_in * F
+    rows = {}
+
+    def row(name, fn, macs, nbytes, reps):
+        before = read_counters()[0]
+        t = device_time(fn, reps=reps, warmup=2, repeats=3)
+        after = read_counters()[0]
+        ops_ms = op_bounds(2.0 * macs * n, dname)["ops_ms"]
+        bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+        rows[name] = {"ms": t["ms"], "host_issue_us": t["host_issue_us"],
+                      "bound_ms": max(ops_ms, bytes_ms),
+                      "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                      "points": n, "timed_launches": {k: after[k] - before[k] for k in after
+                                                      if after[k] != before[k]}}
+
+    if fused:
+        aux = ff.pack_aux(spec, sun[:n], te[:n], None, dt)
+        _, shared, _ = ff._forward(spec, x, aux, packed, resid=True)
+        g_shared = ff.heads_backward(spec, shared, aux, g_out[:n], packed)[0]
+        row("field_fused", lambda: ff._forward(spec, x, aux, packed, True),
+            spec.mac_per_point(), n * ((spec.cx + spec.aux_w + F) * esz + 16 * 4), 10)
+        row("heads_bwd", lambda: ff.heads_backward(spec, shared, aux, g_out[:n], packed),
+            spec.heads_bwd_mac_per_point(), n * ((2 * F + 2 * spec.aux_w) * esz + 16 * 4), 5)
+        row("trunk_bwd", lambda: trunk.trunk_backward(spec, x, packed, None, g_shared,
+                                                       need_gx=False),
+            spec.trunk_bwd_mac_per_point(), n * (spec.cx + F) * esz, 5)
+    else:
+        g = cot[:n].to(dt)
+        row("trunk_fwd", lambda: trunk._forward(spec, x, packed, False), trunk_macs,
+            n * (spec.cx + F) * esz, 10)
+        row("trunk_bwd", lambda: trunk.trunk_backward(spec, x, packed, None, g, need_gx=False),
+            spec.trunk_bwd_mac_per_point(), n * (spec.cx + F) * esz, 5)
+    return rows
+
+
+def widths_cli_run(dev, work: str) -> dict:
+    """The four-scene workflow's training at its defaults through the
+    training CLI (``start_training`` on the TOMLs that
+    satnerf_torch/tools/four_scenes.py writes: 8 x 256, 32 samples, 2,048
+    rays, bf16, depth on, steps_per_dispatch 8) on one of its scenes at
+    WIDTHS_SCENE, WIDTHS_CLI_STEPS steps: K1 (with 128-wide heads), K2, K4, K5
+    and K5's backward launched by the step schedule, no plain version,
+    finite loss terms."""
+    import math
+
+    from satnerf_torch.datasets.synthetic import generate_scene
+    from satnerf_torch.models.field import use_fused_field
+    from satnerf_torch.run.training import start_training
+    from satnerf_torch.tools import four_scenes
+
+    name = "SYN_SUBURB"
+    generate_scene(os.path.join(work, "datasets", name), aoi_name=name, **WIDTHS_SCENE,
+                   **four_scenes.SCENES[name])
+    run_fp, pipe_fp = os.path.join(work, "run.toml"), os.path.join(work, "rs_semantic.toml")
+    with open(run_fp, "w") as f:
+        f.write(four_scenes.RUN_TOML.format(root=work, steps=WIDTHS_CLI_STEPS)
+                .replace('"PLACEHOLDER"', f'"{name}"'))
+    with open(pipe_fp, "w") as f:  # the tool's defaults: --batch 2048 --units 256 --n-samples 32
+        f.write(four_scenes.PIPE_TOML.format(batch=2048, units=256, n_samples=32))
+    reset_counters()
+    t0 = time.monotonic()
+    pipeline, state, trainer = start_training(run_fp, pipe_fp, device=dev, log_every=1)
+    seconds = time.monotonic() - t0
+    got, plain = read_counters()
+    cfg = state.params["field"].cfg
+    check((cfg.layers, cfg.feat, cfg.feat_last) == (8, 256, 128) and use_fused_field(cfg),
+          f"widths CLI field {cfg.layers}x{cfg.feat}, heads {cfg.feat_last}")
+    check(state.step == WIDTHS_CLI_STEPS and trainer.cfg.run.steps_per_dispatch == 8,
+          f"widths CLI ended at step {state.step}")
+    want = scene_expected_launches(trainer, WIDTHS_CLI_STEPS, pipeline.ds_drop_step)
+    check(got == want, f"widths CLI launches {got}, expected {want}")
+    check(not any(plain.values()), f"widths CLI: a plain version ran: {plain}")
+    hist = trainer.history
+    check(len(hist) == WIDTHS_CLI_STEPS
+          and all(math.isfinite(v) for h in hist for v in h.values()),
+          "widths CLI: missing or non-finite loss terms")
+    return {"steps": WIDTHS_CLI_STEPS, "rays": 2048, "n_samples": 32, "field": "8x256",
+            "feat_last": 128, "dtype": "bfloat16", "steps_per_dispatch": 8,
+            "depth_drop_step": pipeline.ds_drop_step, "seconds": seconds,
+            "loop_ms_per_step": trainer.ms_per_step, "launches": got, "plain_calls": plain,
+            "metrics_last": hist[-1]}
+
+
+def widths_phase(dev, vocab: int, turns: list | None, build_s: dict) -> dict:
+    """Every trunk width the JAX kernels take below 512 (WIDTH_PAIRS) at the
+    rs_semantic TOML's depth: each route's kernels against their plain
+    versions at WIDTH_POINTS in f32 and bf16 (width_kernel_checks), their
+    device times (width_times), the four-scene workflow's 8 x 256 training
+    through the CLI (widths_cli_run) and the examples' 2 x 128 field in the
+    flagship step config (train_phase: K3, K4 and K5 on every step, a 32-ray
+    step against the CPU). With ``turns``, the parent's build seconds and
+    K1-K4's outputs at 512 against the parent build's: bitwise equal."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from satnerf_torch.configs import load_render_config
+    from satnerf_torch.models.field import (Field, fused_field_spec, use_fused_field,
+                                            use_fused_trunk)
+
+    t_phase = time.monotonic()
+    pairs, notes = {}, []
+    for feat, fl in WIDTH_PAIRS:
+        key = f"{feat}x{fl}"
+        rcfg = load_render_config(PIPELINE_TOML, device=dev, trunk_impl="pallas",
+                                  fc_units=feat, fc_use_full_features=fl == feat)
+        fcfg = rcfg.field
+        fused = use_fused_field(fcfg)
+        check(fcfg.feat_last == fl and (fused or use_fused_trunk(fcfg)), f"{key} route")
+        field = Field(fcfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+        spec = fused_field_spec(fcfg)
+        inputs = _width_inputs(fcfg, max(WIDTH_POINTS), feat + fl, dev)
+        entry = {"route": "K1, K2, K4" if fused else "K3, K4, heads layer by layer",
+                 "layers": spec.layers, "skips": list(spec.skips), "errors": {}, "times": {}}
+        before = read_counters()[0]
+        with torch.no_grad():
+            for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                packed = field.packed(dt)
+                worst = entry["errors"][dname] = {}  # each check's largest over WIDTH_POINTS
+                for n in WIDTH_POINTS:
+                    for k, e in width_kernel_checks(key, spec, fused, packed, inputs, dname,
+                                                    n, notes).items():
+                        worst[k] = max(worst.get(k, 0.0), e)
+                entry["times"][dname] = width_times(spec, fused, packed, inputs, dname)
+        after = read_counters()[0]
+        entry["launches"] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        pairs[key] = entry
+        del field, inputs
+        torch.cuda.empty_cache()
+    checks_s = time.monotonic() - t_phase
+
+    work = tempfile.mkdtemp(prefix="widths_")
+    try:
+        cli = widths_cli_run(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    examples = train_phase(dev, vocab, "widths_examples_step", EXAMPLES_FIELD, PER_STEP_BETA_S,
+                           stored_check=False)
+
+    parent = None
+    if turns:
+        a, b = (torch.load(os.path.join(REPO, "build", "turns", f"turn{i}.pt"))
+                for i in (0, 1))
+        bitwise = {k: all(torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a}
+        mine, theirs = turn_means(turns)
+        parent = {"outputs_bitwise_parent_512": bitwise,
+                  "build_seconds": turns[0].get("build"),
+                  "this_ms_512": {k: v for k, v in mine.items()
+                                  if k.split("/")[0] in PARENT_KERNEL_KEYS},
+                  "parent_ms_512": {k: v for k, v in theirs.items()
+                                    if k.split("/")[0] in PARENT_KERNEL_KEYS}}
+        check(all(bitwise.values()), f"K1-K4 at 512 differ from the parent build's: {bitwise}")
+    line = {"phase": "widths", "pairs": pairs, "points": WIDTH_POINTS, "notes": notes,
+            "cli": cli, "examples_step": {"launches": examples["launches"],
+                                          "field": EXAMPLES_FIELD},
+            "build_seconds": build_s, "parent": parent,
+            "checks_seconds": checks_s, "seconds": time.monotonic() - t_phase,
+            "tol": {"forward": TOL_FIELD, "backward": TOL_FIELD_BWD, "residuals": TOL_RESID,
+                    "relu_kink": TOL_KINK}}
+    emit(line)
+    # per kernel and width: device ms and bound in each dtype, the launches of
+    # the checks and timings, and those of the main paths at their widths
+    paths = {"256x128": ("cli_8x256_launches", cli["launches"]),
+             "128x64": ("examples_step_2x128_launches", examples["launches"])}
+    by_kernel = {}
+    for key, entry in pairs.items():
+        for dname, rows in entry["times"].items():
+            for name, r in rows.items():
+                cell = by_kernel.setdefault(name, {}).setdefault(
+                    key, {"check_launches": entry["launches"].get(name, 0)})
+                if key in paths:
+                    cell[paths[key][0]] = paths[key][1][name]
+                cell[dname] = {k: r[k] for k in ("ms", "bound_ms", "bound_by")}
+    line["by_kernel"] = by_kernel
     return line
 
 
@@ -4275,6 +4700,12 @@ def main() -> int:
     trunk_t = trunk_times_phase(dev, field_b, spec_b, lambda n: field_inputs(n, 3)[0], turns)
     marks.append(("k3_k6_paths_a_b", time.monotonic()))
 
+    # ---- 13b. every trunk width below 512: the kernels against their plain
+    # versions, their times, the four-scene training at 8 x 256 through the CLI,
+    # the examples' 2 x 128 step ----
+    widths = widths_phase(dev, vocab, turns, per_lib)
+    marks.append(("widths", time.monotonic()))
+
     # ---- 14-20. the training CLI on a generated scene, resume, serving its best;
     # the eval battery on that run; the run served by view name over HTTP; its
     # visualizers re-rendered; the scene over two data-parallel ranks; a sweep;
@@ -4327,6 +4758,8 @@ def main() -> int:
                 "train_dp_one_process": train_dp["launches_one_process"][kernel],
                 "train_dp_nccl": train_dp["launches_nccl_world_of_one"][kernel],
                 "sweep": sweep["launches"][kernel], "prep_scene": prep["launches"][kernel],
+                "widths_cli_8x256": widths["cli"]["launches"][kernel],
+                "widths_examples_step_2x128": widths["examples_step"]["launches"][kernel],
                 "prep_scene_eval": prep["eval_launches"][kernel],
                 "quality_tools": quality["launches"][kernel],
                 "quality_tools_sin_swap": quality["sin_swap_launches"][kernel],
@@ -4463,6 +4896,9 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in PER_STEP:
             entry["launches_by_path"] = by_path(entry["name"])
+        if entry["name"] in widths["by_kernel"]:
+            # device ms, bound and launches at each width below 512 (phase widths)
+            entry["widths"] = widths["by_kernel"][entry["name"]]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -37,6 +37,13 @@
 // Ceiling of this design: each tile reads every weight from L2 (~11 MB per
 // 64 rows in f32), so L2 bandwidth, not the tensor cores, is the next limit;
 // and the epilogue's sines run beside no MMAs.
+//
+// Widths: the (feat, feat_last) pairs of `admitted` below, every trunk width
+// the TPU kernel takes up to 512 (feat % 128 == 0, field_fused.py:96) with
+// the heads of field.py's rule (feat_last = feat or feat / 2, a multiple of
+// 128). One kernel per dtype takes them all: the widths are run-time values
+// of the pass loop (trunk_tc.cuh), and a 128- or 384-wide layer ends with a
+// 128-column pass.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -85,19 +92,26 @@ using namespace satnerf::fwd;
 // rows of b_heads (satnerf_torch.ops.field_fused.HIDDEN_BIAS_ROWS)
 enum HiddenBias { kRgb0 = 0, kSv0, kSv1, kSv2, kSky0, kB0, kS0 };
 
+// the (feat, feat_last) pairs the kernel admits; keep in sync with
+// satnerf_torch.ops.field_fused.KERNEL_WIDTHS
+bool admitted(const FieldArgs& a) {
+  return (a.feat == 128 && a.fl == 128) || (a.feat == 256 && a.fl == 128) ||
+         (a.feat == 256 && a.fl == 256) || (a.feat == 384 && a.fl == 384) ||
+         (a.feat == 512 && a.fl == 256) || (a.feat == 512 && a.fl == 512);
+}
+
 // the plan of B operands, in the order the kernel consumes them
 template <typename T>
 int build_plan(const FieldArgs& a, Plan& pl) {
   const size_t es = sizeof(T);
   const int F = a.feat, FL = a.fl, kx = round16(a.cx), ka = round16(a.aux_w);
   pl.njobs = 0;
-  // 2 passes per trunk layer, 2 + 2 for sigma and feats, and per pass of the
-  // heads 7 hidden layers and 5 projections
-  if (2 * a.layers + 4 + 12 * (FL / kPassCols) > kMaxJobs)
+  // passes(F) per trunk layer and for each of sigma and feats, and per pass
+  // of the heads 7 hidden layers and 5 projections
+  if (passes(F) * (a.layers + 2) + 12 * passes(FL) > kMaxJobs)
     return static_cast<int>(cudaErrorInvalidValue);
   add_trunk_jobs(pl, es, a.layers, F, kx, a.skip_mask, a.w0, a.w_mid, a.w_skip);
-  add_proj_job(pl, es, a.w2_shared, 0);
-  add_proj_job(pl, es, a.w2_shared, 1);
+  add_proj_jobs(pl, es, F, a.w2_shared);
   add_layer_jobs(pl, es, F, a.w_feats, F);
   if (a.heads_on) {
     add_projected_jobs(pl, es, FL, a.w2_rgb, a.w_rgb0, F);
@@ -113,41 +127,49 @@ int build_plan(const FieldArgs& a, Plan& pl) {
   return check_plan(pl);
 }
 
-template <typename T, int F, int FL>
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     field_fused_kernel(const __grid_constant__ FieldArgs a, const __grid_constant__ Plan pl) {
   extern __shared__ unsigned char smem_raw[];
-  using S = Smem<T, F>;
+  using S = Smem<T>;
+  const int F = a.feat, FL = a.fl, ldh = S::ldh(F);
   unsigned char* smem = align1024(smem_raw);
   T* H = reinterpret_cast<T*>(smem);
-  T* X = H + kRows * S::kLdh;
+  T* X = H + kRows * ldh;
   T* AX = X + kRows * S::kLdx;
   const int row0 = blockIdx.x * kRows;
   const int mode = a.sin_mode;
   const int kx = round16(a.cx), ka = round16(a.aux_w);
 
-  Ring r = make_ring<T, F>(smem);
+  Ring r = make_ring<T>(smem, F);
   produce<T>(pl, r);  // the first two chunks of the stream
   produce<T>(pl, r);
   load_tile(X, S::kLdx, kx, static_cast<const T*>(a.x), a.cx, row0, a.n);
   load_tile(AX, S::kLda, ka, static_cast<const T*>(a.aux), a.aux_w, row0, a.n);
   // (the first layer's barrier publishes the tiles)
 
-  const ATile<T> Xt{X, S::kLdx}, Ht{H, S::kLdh}, At{AX, S::kLda}, none{nullptr, 0};
+  const ATile<T> Xt{X, S::kLdx}, Ht{H, ldh}, At{AX, S::kLda}, none{nullptr, 0};
   // the output accumulators live in the x tile once the trunk is done with it
   float* keep = reinterpret_cast<float*>(X);
-  // the trunk, sigma from h_{L-1} and feats in place in H: jobs 0 .. 2L + 3
-  run_trunk<T, F, true>(a, pl, r, Xt, H, static_cast<T*>(a.acts_out),
-                        static_cast<T*>(a.shared_out), row0, keep,
-                        static_cast<const float*>(a.b_feats));
+  // the trunk, sigma from h_{L-1} and feats in place in H: jobs 0 ..
+  // passes(F) (L + 2) - 1
+  run_trunk<T, true>(a, pl, r, Xt, H, static_cast<T*>(a.acts_out),
+                     static_cast<T*>(a.shared_out), row0, keep,
+                     static_cast<const float*>(a.b_feats));
 
   // the FL-wide hidden layers in plan order: rgb, sky, beta, semantic (each
   // pass projected), then the sun-visibility chain sv0, sv1 in place in H
-  // once feats is dead, and sv2 (projected). One loop, not unrolled.
-  constexpr int kPasses = FL / kPassCols;
+  // once feats is dead, and sv2 (projected). Each layer's passes: full(FL)
+  // of 256 columns, then tail(FL) of 128. One loop, not unrolled.
+  const int full = full_passes(FL), tail = tail_passes(FL);
   const float* bh = static_cast<const float*>(a.b_heads);
-  int q = 2 * a.layers + 4;
-  Held<T> held[kNW / 2];
+  int q = passes(F) * (a.layers + 2);
+  // a two-pass in-place head layer's first pass (FL 384, 512) waits in local
+  // memory in both dtypes: as bf16 registers (Held) it would stay live through
+  // every head layer of every width, and at (512, 256) that cost bf16 K1 5.5%
+  // against a kernel built for one head pass (NVIDIA H100 80GB HBM3, 700 W,
+  // in turns)
+  volatile float held[kNW / 2];
   float total[kNW / 2];
 #pragma unroll 1
   for (int h = 0; h < 7; ++h) {
@@ -157,22 +179,38 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool with_aux = h == 2 || (h == 3 && a.use_s_aux) || h == 4;
     const int row = h == 0 ? kRgb0 : h == 1 ? kSky0 : h == 2 ? kB0 : h == 3 ? kS0
                   : h == 4 ? kSv0 : h == 5 ? kSv1 : kSv2;
+    const ATile<T> a0 = h == 1 ? At : Ht, a1 = with_aux ? At : none;
+    const int act = h == 1 ? kRelu : kSine;
+    const float* hb = bh + row * FL;
 #pragma unroll 1
-    for (int p = 0; p < kPasses; ++p) {
-      pass<T>(pl, r, q++, h == 1 ? At : Ht, with_aux ? At : none, total);
+    for (int p = 0; p < full; ++p) {
+      pass<T>(pl, r, q++, a0, a1, total);
       // in place, after the last pass's barrier (nothing reads H any more):
       // the first pass's values go first, so they are not live in its epilogue
-      if (in_place && kPasses == 2 && p == 1) store_pass<T>(held, H, S::kLdh);
-      epilogue<T>(total, bh + row * FL + p * kPassCols, h == 1 ? kRelu : kSine, 1.0f, mode,
-                  nullptr, 0, nullptr, 0, nullptr, 0, 0, 0);
+      if (in_place && p == 1) store_pass<T>(held, H, ldh);
+      epilogue<T>(total, hb + p * kPassCols, act, 1.0f, mode, nullptr, 0, nullptr, 0, nullptr,
+                  0, 0, 0);
       if (!in_place) {
         project<T>(pl, r, q++, total, keep, false);
-      } else if (kPasses == 2 && p == 0) {
+      } else if (p == 0 && full + tail == 2) {
 #pragma unroll
         for (int i = 0; i < kNW / 2; ++i) held[i] = total[i];
       }
     }
-    if (in_place) store_pass<T>(total, H + (kPasses - 1) * kPassCols, S::kLdh);
+    if (tail != 0) {  // the 128-column pass
+      const int c0 = full * kPassCols;
+      float part[kNW / 4];
+      pass<T>(pl, r, q++, a0, a1, part);
+      if (in_place && full == 1) store_pass<T>(held, H, ldh);
+      epilogue<T>(part, hb + c0, act, 1.0f, mode, nullptr, 0, nullptr, 0, nullptr, 0, 0, 0);
+      if (!in_place) {
+        project<T>(pl, r, q++, part, keep, false);
+      } else {
+        store_pass<T>(part, H + c0, ldh);
+      }
+    } else if (in_place) {
+      store_pass<T>(total, H + (full - 1) * kPassCols, ldh);
+    }
   }
 
   // the two warpgroups' partial outputs (same rows, same columns), kept by
@@ -196,24 +234,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T, int F, int FL>
+template <typename T>
 int launch(const FieldArgs& a, cudaStream_t stream) {
   Plan pl;
   if (const int err = build_plan<T>(a, pl)) return err;
-  constexpr int smem = Smem<T, F>::kBytes;
-  auto kern = field_fused_kernel<T, F, FL>;
+  const int smem = Smem<T>::bytes(a.feat);
+  auto kern = field_fused_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<(a.n + kRows - 1) / kRows, kThreads, smem, stream>>>(a, pl);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_widths(const FieldArgs& a, cudaStream_t stream) {
-  // keep in sync with satnerf_torch.ops.field_fused.KERNEL_WIDTHS
-  if (a.feat == 512 && a.fl == 256) return launch<T, 512, 256>(a, stream);
-  if (a.feat == 512 && a.fl == 512) return launch<T, 512, 512>(a, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -223,7 +253,7 @@ extern "C" int field_fused_forward(const FieldArgs* a, cudaStream_t stream) {
   if (a->cx <= 0 || round16(a->cx) > kMaxK || a->aux_w <= 0 || a->aux_w > 16 ||
       a->layers < 1 || (a->skip_mask & 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (a->acts_out != nullptr && a->shared_out == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return a->bf16 ? dispatch_widths<__nv_bfloat16>(*a, stream) : dispatch_widths<float>(*a, stream);
+  if (a->acts_out != nullptr && a->shared_out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (!admitted(*a)) return static_cast<int>(cudaErrorInvalidValue);
+  return a->bf16 ? launch<__nv_bfloat16>(*a, stream) : launch<float>(*a, stream);
 }

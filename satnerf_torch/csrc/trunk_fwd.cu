@@ -31,7 +31,10 @@
 // bit. It takes the prepared weights of K3 and, in f32, their tf32 hi and lo
 // parts (ops/trunk.py:tc_split_weights). It is off every path.
 //
-// Width instantiated: feat 512 (as K4, satnerf_torch/ops/trunk.py FEAT_WIDTHS).
+// Widths: K3 takes every trunk width the TPU kernel takes up to 512
+// (feat % 128 == 0, trunk.py:82), as run-time values of one kernel per dtype
+// (satnerf_torch/ops/trunk.py FEAT_WIDTHS); K6 is built for feat 512 alone
+// (kIlFeat, ops/trunk.py IL_FEAT_WIDTHS).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -56,28 +59,27 @@ struct TrunkArgs {
 
 namespace {
 
-constexpr int kFeat = 512;
+constexpr int kIlFeat = 512;  // K6's one width
 
 namespace fw = satnerf::fwd;
 namespace tc = satnerf::tc;
 namespace ws = satnerf::ws;
 
-template <typename T, int F>
+template <typename T>
 __global__ void __launch_bounds__(fw::kThreads, 1)
     trunk_fwd_kernel(const __grid_constant__ TrunkArgs a, const __grid_constant__ fw::Plan pl) {
   extern __shared__ unsigned char smem_raw[];
-  using S = fw::Smem<T, F>;
+  using S = fw::Smem<T>;
   unsigned char* smem = fw::align1024(smem_raw);
   T* H = reinterpret_cast<T*>(smem);
-  T* X = H + fw::kRows * S::kLdh;
+  T* X = H + fw::kRows * S::ldh(a.feat);
   const int row0 = blockIdx.x * fw::kRows;
-  fw::Ring r = fw::make_ring<T, F>(smem);
+  fw::Ring r = fw::make_ring<T>(smem, a.feat);
   fw::produce<T>(pl, r);  // the first two chunks of the stream
   fw::produce<T>(pl, r);
   fw::load_tile(X, S::kLdx, fw::round16(a.cx), static_cast<const T*>(a.x), a.cx, row0, a.n);
-  fw::run_trunk<T, F, false>(a, pl, r, fw::ATile<T>{X, S::kLdx}, H,
-                             static_cast<T*>(a.acts_out), static_cast<T*>(a.out), row0,
-                             nullptr, nullptr);
+  fw::run_trunk<T, false>(a, pl, r, fw::ATile<T>{X, S::kLdx}, H, static_cast<T*>(a.acts_out),
+                          static_cast<T*>(a.out), row0, nullptr, nullptr);
 }
 
 // K6: the producer warpgroup (threads 256 .. 383) streams the weights, the
@@ -115,13 +117,14 @@ template <typename T>
 int launch(const TrunkArgs& a, cudaStream_t stream) {
   fw::Plan pl;
   pl.njobs = 0;
-  if (2 * a.layers > fw::kMaxJobs || fw::round16(a.cx) > fw::kMaxK)
+  if (!fw::width_ok(a.feat) || fw::passes(a.feat) * a.layers > fw::kMaxJobs ||
+      fw::round16(a.cx) > fw::kMaxK)
     return static_cast<int>(cudaErrorInvalidValue);
-  fw::add_trunk_jobs(pl, sizeof(T), a.layers, kFeat, fw::round16(a.cx), a.skip_mask, a.w0,
+  fw::add_trunk_jobs(pl, sizeof(T), a.layers, a.feat, fw::round16(a.cx), a.skip_mask, a.w0,
                      a.w_mid, a.w_skip);
   if (const int err = fw::check_plan(pl)) return err;
-  constexpr int smem = fw::Smem<T, kFeat>::kBytes;
-  auto kern = trunk_fwd_kernel<T, kFeat>;
+  const int smem = fw::Smem<T>::bytes(a.feat);
+  auto kern = trunk_fwd_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<(a.n + fw::kRows - 1) / fw::kRows, fw::kThreads, smem, stream>>>(a, pl);
@@ -131,11 +134,11 @@ int launch(const TrunkArgs& a, cudaStream_t stream) {
 template <typename T>
 int launch_il(const TrunkArgs& a, cudaStream_t stream) {
   constexpr bool f32 = sizeof(T) == 4;
-  if (fw::round16(a.cx) > fw::kMaxK ||
+  if (a.feat != kIlFeat || fw::round16(a.cx) > fw::kMaxK ||
       f32 != (a.w0_lo != nullptr && a.w_mid_lo != nullptr && a.w_skip_lo != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = ws::Smem<T, kFeat>::kBytes;
-  auto kern = trunk_fwd_il_kernel<T, kFeat>;
+  constexpr int smem = ws::Smem<T, kIlFeat>::kBytes;
+  auto kern = trunk_fwd_il_kernel<T, kIlFeat>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<(a.n + fw::kRows - 1) / fw::kRows, ws::kThreads, smem, stream>>>(a);
@@ -143,7 +146,7 @@ int launch_il(const TrunkArgs& a, cudaStream_t stream) {
 }
 
 int check(const TrunkArgs& a) {
-  if (a.cx % 4 || a.cx > 128 || a.layers < 1 || a.feat != kFeat || (a.skip_mask & 1))
+  if (a.cx % 4 || a.cx > 128 || a.layers < 1 || (a.skip_mask & 1))
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }

@@ -8,15 +8,20 @@
 // compute dtype, written in place by every layer, beside the x and aux
 // tiles. Every product runs on wgmma, in passes of 256 output columns:
 // warpgroup g computes columns [256 p + 128 g, 256 p + 128 (g + 1)) of pass
-// p for all 64 rows (m64n128), so a 512-wide layer takes two passes. A comes
+// p for all 64 rows (m64n128), so a 512-wide layer takes two passes; a width
+// that is an odd multiple of 128 (128, 384) ends with a pass of 128 columns,
+// 64 per warpgroup (m64n64). Widths are run-time values (one kernel per
+// dtype serves every width in {128, 256, 384, 512}); only the pass's column
+// count per warpgroup is a template (the accumulator's size). A comes
 // from registers: each thread loads its fragment of H (or x, aux) from
 // shared memory and, in f32, splits it into tf32 hi + lo (tc::split_tf32,
 // the rounding of ops/_bwd.py:matmul_3xtf32). B, the weight W^T (N, K)
 // K-major, streams from L2 through a ring of two shared-memory slots: the
 // wrapper lays every weight out as the kernel's 32-byte swizzled tiles
 // (ops/trunk.py:tc_operand; one gather per call, reused while the weights
-// are unchanged), so a chunk (two k-steps of a pass's 256 rows, or the 32
-// k-steps of a 16-row projection: 16 KB) is one cp.async.bulk by one thread,
+// are unchanged), so a chunk (two k-steps of a pass's 256 rows, four of a
+// 128-column pass's, or the 32 k-steps of a 16-row projection: 16 KB) is one
+// cp.async.bulk by one thread,
 // counted on the slot's mbarrier. In f32 the threads split each chunk, once
 // it lands, into the slot's hi and lo parts, so the weights cross L2 once;
 // the head projections' K is permuted (ops/field_fused.py:tc_weights).
@@ -33,9 +38,10 @@
 // of a batch where the points cancel (the loss's gradient of a head bias at
 // trained weights): the running output of every head's projection (K 512 +
 // 6 x 256 in K1) left those gradients 40x farther from f64 than the plain
-// version's, so a projection sums each k-step afresh (project). A 512-wide
-// layer written in place holds its first pass's values until the second
-// pass has read all of H (Held).
+// version's, so a projection sums each k-step afresh (project). A two-pass
+// layer (384, 512) written in place holds its first pass's values until the
+// second pass has read all of H (Held); a one-pass layer (128, 256) writes
+// H after its pass's last barrier, when every warp has read H.
 //
 // The slots carry one stream of chunks through the whole tile, in the order
 // of a plan the host builds from the argument struct (Plan): each job is a
@@ -75,6 +81,7 @@ constexpr int kPart = 16384;    // bytes of one part (hi or lo) of a ring slot
 constexpr int kMaxJobs = 64;
 constexpr int kPassCols = 256;  // output columns of one pass, 128 per warpgroup
 constexpr int kNW = kPassCols / 2;
+constexpr int kTailCols = 128;  // the last pass of an odd multiple of 128: 64 per warpgroup
 constexpr int kMaxK = 64;       // widest x (and aux) tile: K after padding to 16
 
 enum Act { kLinear = 0, kSine = 1, kRelu = 2 };
@@ -94,6 +101,15 @@ template <> struct Tc<__nv_bfloat16> {
 
 __host__ __device__ constexpr int round16(int k) { return (k + 15) / 16 * 16; }
 
+// the passes of an F-wide layer (F a multiple of 128, at most 512): F / 256
+// of 256 columns, then one of 128 when F is an odd multiple of 128
+__host__ __device__ constexpr int full_passes(int F) { return F / kPassCols; }
+__host__ __device__ constexpr int tail_passes(int F) { return (F % kPassCols) / kTailCols; }
+__host__ __device__ constexpr int passes(int F) { return full_passes(F) + tail_passes(F); }
+// host: F is a width the loop takes; keep in sync with
+// satnerf_torch.ops.trunk.FEAT_WIDTHS
+inline bool width_ok(int F) { return F == 128 || F == 256 || F == 384 || F == 512; }
+
 // The B operand of one job (a pass or a projection): one or two products,
 // each the weight W^T (rows, K) in the layout of ops/trunk.py:tc_operand,
 // where k-step s is the (rows, 32-byte) swizzled tile at src + s * rows * 32:
@@ -102,7 +118,7 @@ struct BJob {
   const char* src[2];
   int steps[2];  // k-steps of each product
   int nprod;
-  int rows_log2;  // rows of W^T: 256 (a pass) or 16 (a projection)
+  int rows_log2;  // rows of W^T: 256 or 128 (a pass), 16 (a projection)
 };
 
 struct Plan {
@@ -120,35 +136,45 @@ inline void add_job(Plan& pl, int rows, size_t esz, const void* w0, int k0,
   j.nprod = w1 != nullptr ? 2 : 1;
   j.src[1] = static_cast<const char*>(w1);
   j.steps[1] = static_cast<int>(k1 * esz / 32);
-  j.rows_log2 = rows == 256 ? 8 : 4;
+  j.rows_log2 = rows == 256 ? 8 : rows == 128 ? 7 : 4;
 }
 
-// host: the passes of an N-wide layer (W^T (N, k0) [and (N, k1)]): rows
-// 256 p .. 256 p + 255 of each
+// host: pass p of an N-wide layer: rows 256 p .. of W^T (N, k0) [and (N, k1)],
+// 256 of them or the 128 of a last pass (ops/trunk.py:tc_operand lays the
+// passes out one after the other, so pass p starts at row 256 p)
+inline void add_pass_job(Plan& pl, size_t esz, int n, int p, const void* w0, int k0,
+                         const void* w1, int k1) {
+  const size_t r0 = static_cast<size_t>(p) * kPassCols;
+  add_job(pl, p < full_passes(n) ? kPassCols : kTailCols, esz,
+          static_cast<const char*>(w0) + r0 * k0 * esz, k0,
+          w1 != nullptr ? static_cast<const char*>(w1) + r0 * k1 * esz : nullptr, k1);
+}
+
+// host: the passes of an N-wide layer
 inline void add_layer_jobs(Plan& pl, size_t esz, int n, const void* w0, int k0,
                            const void* w1 = nullptr, int k1 = 0) {
-  for (int p = 0; p < n / kPassCols; ++p) {
-    const size_t r0 = static_cast<size_t>(p) * kPassCols;
-    add_job(pl, kPassCols, esz, static_cast<const char*>(w0) + r0 * k0 * esz, k0,
-            w1 != nullptr ? static_cast<const char*>(w1) + r0 * k1 * esz : nullptr, k1);
-  }
+  for (int p = 0; p < passes(n); ++p) add_pass_job(pl, esz, n, p, w0, k0, w1, k1);
 }
 
-// host: the projection of pass p: columns 256 p .. 256 p + 255 of W2^T (16, k)
-inline void add_proj_job(Plan& pl, size_t esz, const void* w2, int p) {
+// host: the projection of pass p of an n-wide activation: its columns
+// (256 p .. 256 p + 255, or the last pass's 128) of W2^T (16, n)
+inline void add_proj_job(Plan& pl, size_t esz, int n, const void* w2, int p) {
   add_job(pl, 16, esz, static_cast<const char*>(w2) + static_cast<size_t>(p) * kPassCols * 16 * esz,
-          kPassCols);
+          p < full_passes(n) ? kPassCols : kTailCols);
+}
+
+// host: the projections of every pass of an n-wide activation
+inline void add_proj_jobs(Plan& pl, size_t esz, int n, const void* w2) {
+  for (int p = 0; p < passes(n); ++p) add_proj_job(pl, esz, n, w2, p);
 }
 
 // host: an N-wide layer whose passes are each projected right away by W2^T
 // (16, n): pass 0, its projection, pass 1, its projection, ...
 inline void add_projected_jobs(Plan& pl, size_t esz, int n, const void* w2, const void* w0,
                                int k0, const void* w1 = nullptr, int k1 = 0) {
-  for (int p = 0; p < n / kPassCols; ++p) {
-    const size_t r0 = static_cast<size_t>(p) * kPassCols;
-    add_job(pl, kPassCols, esz, static_cast<const char*>(w0) + r0 * k0 * esz, k0,
-            w1 != nullptr ? static_cast<const char*>(w1) + r0 * k1 * esz : nullptr, k1);
-    add_proj_job(pl, esz, w2, p);
+  for (int p = 0; p < passes(n); ++p) {
+    add_pass_job(pl, esz, n, p, w0, k0, w1, k1);
+    add_proj_job(pl, esz, n, w2, p);
   }
 }
 
@@ -162,18 +188,20 @@ inline int check_plan(const Plan& pl) {
   return 0;
 }
 
-// shared memory: H (64, F), the x tile (64, kMaxK), the aux tile
-// (64, 16), the 1,024-byte aligned ring of two slots, their mbarriers
-template <typename T, int F>
+// shared memory of an F-wide trunk: H (64, F), the x tile (64, kMaxK), the
+// aux tile (64, 16), the 1,024-byte aligned ring of two slots, their mbarriers
+template <typename T>
 struct Smem {
-  static constexpr int kLdh = F + Tc<T>::kPad;
   static constexpr int kLdx = kMaxK + Tc<T>::kPad;
   static constexpr int kLda = 16 + Tc<T>::kPad;
   static constexpr int kSlot = Tc<T>::kParts * kPart;
-  static constexpr int kTiles = kRows * (kLdh + kLdx + kLda) * static_cast<int>(sizeof(T));
-  static constexpr int kRing = (kTiles + 1023) / 1024 * 1024;
-  static constexpr int kBars = kRing + 2 * kSlot;  // one mbarrier per slot
-  static constexpr int kBytes = kBars + 16 + 1024;  // + the base's alignment
+  __host__ __device__ static constexpr int ldh(int F) { return F + Tc<T>::kPad; }
+  __host__ __device__ static constexpr int ring(int F) {
+    return (kRows * (ldh(F) + kLdx + kLda) * static_cast<int>(sizeof(T)) + 1023) / 1024 * 1024;
+  }
+  __host__ __device__ static constexpr int bars(int F) { return ring(F) + 2 * kSlot; }
+  // + the base's alignment
+  __host__ __device__ static constexpr int bytes(int F) { return bars(F) + 16 + 1024; }
 };
 
 // p (dynamic shared memory) rounded up to a 1,024-byte shared address, by
@@ -206,12 +234,13 @@ __device__ __forceinline__ unsigned char* slot_ptr(const Ring& r, int i) {
   return r.ptr + (i & 1) * (Tc<T>::kParts * kPart);
 }
 
-// the ring at `smem` (Smem<T, F>::kRing bytes in), its mbarriers initialised
-template <typename T, int F>
-__device__ __forceinline__ Ring make_ring(unsigned char* smem) {
-  using S = Smem<T, F>;
-  Ring r{smem + S::kRing, tc::smem_u32(smem + S::kRing), tc::smem_u32(smem + S::kBars), 0,
-         0, 0, 0};
+// the ring of an F-wide trunk at `smem` (Smem<T>::ring(F) bytes in), its
+// mbarriers initialised
+template <typename T>
+__device__ __forceinline__ Ring make_ring(unsigned char* smem, int F) {
+  using S = Smem<T>;
+  Ring r{smem + S::ring(F), tc::smem_u32(smem + S::ring(F)), tc::smem_u32(smem + S::bars(F)),
+         0, 0, 0, 0};
   if (threadIdx.x == 0) {
     tc::mbar_init(r.bar, 1);
     tc::mbar_init(r.bar + 8, 1);
@@ -288,11 +317,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// one k-step of this warpgroup's 128 columns: A's fragment at column k0 of
-// the tile (rows of this warp), B's tile at shared address b; scale_d 0
-// starts the accumulator afresh
-template <typename T>
-__device__ __forceinline__ void mma_step(float (&acc)[kNW / 2], const T* A, int ld, int k0,
+// one k-step of this warpgroup's 2 R columns (128 or 64): A's fragment at
+// column k0 of the tile (rows of this warp), B's tile at shared address b;
+// scale_d 0 starts the accumulator afresh
+template <typename T, int R>
+__device__ __forceinline__ void mma_step(float (&acc)[R], const T* A, int ld, int k0,
                                          uint32_t b, int scale_d) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int r = warp * 16 + (lane >> 2);
@@ -310,25 +339,25 @@ __device__ __forceinline__ void mma_step(float (&acc)[kNW / 2], const T* A, int 
     }
     const uint64_t bh = tc::desc_sw32(b), bl = tc::desc_sw32(b + kPart);
     tc::wg_fence();
-    tc::mma_rs<T, kNW>(acc, lo, bh, scale_d);
-    tc::mma_rs<T, kNW>(acc, hi, bl, 1);
-    tc::mma_rs<T, kNW>(acc, hi, bh, 1);
+    tc::mma_rs<T, 2 * R>(acc, lo, bh, scale_d);
+    tc::mma_rs<T, 2 * R>(acc, hi, bl, 1);
+    tc::mma_rs<T, 2 * R>(acc, hi, bh, 1);
   } else {
     const int c = k0 + 2 * (lane & 3);
     const uint32_t* A32 = reinterpret_cast<const uint32_t*>(A);
     const uint32_t a[4] = {A32[(r * ld + c) / 2], A32[((r + 8) * ld + c) / 2],
                            A32[(r * ld + c + 8) / 2], A32[((r + 8) * ld + c + 8) / 2]};
     tc::wg_fence();
-    tc::mma_rs<T, kNW>(acc, a, tc::desc_sw32(b), scale_d);
+    tc::mma_rs<T, 2 * R>(acc, a, tc::desc_sw32(b), scale_d);
   }
 }
 
-// one unit (Tc<T>::kSum k-steps from column k0 of A) of this warpgroup's 128
+// one unit (Tc<T>::kSum k-steps from column k0 of A) of this warpgroup's 2 R
 // columns into acc, afresh: f32 the cross terms lo*hi and hi*lo of every
 // step first, then hi*hi of every step; bf16 one product. b: B's tile of the
 // unit's first step, the next step's b + b_step. The caller commits.
-template <typename T>
-__device__ __forceinline__ void mma_unit(float (&acc)[kNW / 2], const T* A, int ld, int k0,
+template <typename T, int R>
+__device__ __forceinline__ void mma_unit(float (&acc)[R], const T* A, int ld, int k0,
                                          uint32_t b, uint32_t b_step) {
   if constexpr (Tc<T>::kParts == 2) {
     const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
@@ -351,12 +380,12 @@ __device__ __forceinline__ void mma_unit(float (&acc)[kNW / 2], const T* A, int 
 #pragma unroll
     for (int s = 0; s < Tc<T>::kSum; ++s) {
       const uint32_t bs = b + s * b_step;
-      tc::mma_rs<T, kNW>(acc, lo[s], tc::desc_sw32(bs), s == 0 ? 0 : 1);
-      tc::mma_rs<T, kNW>(acc, hi[s], tc::desc_sw32(bs + kPart), 1);
+      tc::mma_rs<T, 2 * R>(acc, lo[s], tc::desc_sw32(bs), s == 0 ? 0 : 1);
+      tc::mma_rs<T, 2 * R>(acc, hi[s], tc::desc_sw32(bs + kPart), 1);
     }
 #pragma unroll
     for (int s = 0; s < Tc<T>::kSum; ++s)
-      tc::mma_rs<T, kNW>(acc, hi[s], tc::desc_sw32(b + s * b_step), 1);
+      tc::mma_rs<T, 2 * R>(acc, hi[s], tc::desc_sw32(b + s * b_step), 1);
   } else {
 #pragma unroll
     for (int s = 0; s < Tc<T>::kSum; ++s)
@@ -364,24 +393,25 @@ __device__ __forceinline__ void mma_unit(float (&acc)[kNW / 2], const T* A, int 
   }
 }
 
-// total = A0 W0 [+ A1 W1] for this warpgroup's 128 columns of pass job q,
+// total = A0 W0 [+ A1 W1] for this warpgroup's 2 R columns of pass job q
+// (R = 64: a 256-column pass; R = 32: a 128-column one),
 // each chunk's (bf16: each k-step's) products summed afresh on the tensor
 // cores and added to the f32 total. Chunk c + 1 is received (waited for and split) while chunk c's
 // wgmmas run; one barrier per chunk then frees chunk c's slot for the next
 // copy. Returns after that barrier for the last chunk: every wgmma of the
 // block is done, H may be written.
-template <typename T>
+template <typename T, int R>
 __device__ __forceinline__ void pass(const Plan& pl, Ring& r, int q, ATile<T> a0, ATile<T> a1,
-                                     float (&total)[kNW / 2]) {
+                                     float (&total)[R]) {
   constexpr int kKs = Tc<T>::kKs;
   const BJob& j = pl.jobs[q];
   const int spc = 512 >> j.rows_log2;
   const int steps = job_steps(j), steps0 = j.steps[0];
   const int nch = (steps + spc - 1) / spc;
-  const uint32_t wg_off = (threadIdx.x >> 7) * kNW * 32;
-  float acc[kNW / 2];
+  const uint32_t wg_off = (threadIdx.x >> 7) * (2 * R) * 32;
+  float acc[R];
 #pragma unroll
-  for (int i = 0; i < kNW / 2; ++i) acc[i] = total[i] = 0.0f;
+  for (int i = 0; i < R; ++i) acc[i] = total[i] = 0.0f;
   receive<T>(j, 0, r, r.cons);
   __syncthreads();
   for (int c = 0; c < nch; ++c) {
@@ -403,7 +433,7 @@ __device__ __forceinline__ void pass(const Plan& pl, Ring& r, int q, ATile<T> a0
       tc::wg_wait<0>();
       tc::fence_regs(acc);
 #pragma unroll
-      for (int i = 0; i < kNW / 2; ++i) total[i] += acc[i];
+      for (int i = 0; i < R; ++i) total[i] += acc[i];
     }
     ++r.cons;
     __syncthreads();  // chunk c's wgmmas done by all, chunk c + 1 split by all
@@ -417,17 +447,17 @@ __device__ __forceinline__ void pass(const Plan& pl, Ring& r, int q, ATile<T> a0
 // pre: v rounded to T to global row row0 + row (stride ld_pre) for rows < n;
 // with D: the activation to shared memory (row stride ldd); with G: to
 // global (stride ld_g), rows < n. Value 4i + 2h + e of the accumulator sits
-// at row 16 warp + lane / 4 + 8h, column 128 wg + 8i + 2 (lane % 4) + e.
-template <typename T>
-__device__ __forceinline__ void epilogue(float (&acc)[kNW / 2], const float* __restrict__ bias,
+// at row 16 warp + lane / 4 + 8h, column 2 R wg + 8i + 2 (lane % 4) + e.
+template <typename T, int R>
+__device__ __forceinline__ void epilogue(float (&acc)[R], const float* __restrict__ bias,
                                          int act, float scale, int sin_mode, T* pre,
                                          int ld_pre, T* D, int ldd, T* G, int ld_g, int row0,
                                          int n) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int r = warp * 16 + (lane >> 2);
-  const int cb = (threadIdx.x >> 7) * kNW + 2 * (lane & 3);
+  const int cb = (threadIdx.x >> 7) * (2 * R) + 2 * (lane & 3);
 #pragma unroll
-  for (int i = 0; i < kNW / 8; ++i) {
+  for (int i = 0; i < R / 4; ++i) {
     // keeps the compiler from hoisting every column's bias load (registers)
     asm volatile("" ::: "memory");
     const int col = cb + 8 * i;
@@ -461,16 +491,16 @@ __device__ __forceinline__ void epilogue(float (&acc)[kNW / 2], const float* __r
 
 // The 16 output columns of this warpgroup's rows (an m64n16 accumulator,
 // kept between projections in this thread's 8 floats at `keep` in shared
-// memory, so that no pass holds it in registers) += v (this warpgroup's 128
+// memory, so that no pass holds it in registers) += v (this warpgroup's 2 R
 // columns of a pass, after the epilogue) @ the projection of job q (16 rows,
-// K = 256; in f32 K permuted within groups of 8); `fresh` starts the sum at
+// K = 4 R; in f32 K permuted within groups of 8); `fresh` starts the sum at
 // 0. Its one chunk is in flight; call after a barrier that follows the last
 // wgmma on the other slot (pass's).
-template <typename T>
-__device__ __forceinline__ void project(const Plan& pl, Ring& r, int q, float (&v)[kNW / 2],
+template <typename T, int R>
+__device__ __forceinline__ void project(const Plan& pl, Ring& r, int q, float (&v)[R],
                                        float* keep, bool fresh) {
   constexpr int kKs = Tc<T>::kKs;
-  constexpr int kMine = kNW / kKs;  // this warpgroup's k-steps
+  constexpr int kMine = 2 * R / kKs;  // this warpgroup's k-steps
   // the wgmmas read their A registers asynchronously, so a fragment stays
   // live until its group completes: bf16 waits every kBatch k-steps
   constexpr int kBatch = 2;
@@ -541,25 +571,26 @@ __device__ __forceinline__ void project(const Plan& pl, Ring& r, int q, float (&
   produce<T>(pl, r);
 }
 
-// The first pass's values of a 512-wide layer written in place, held while
+// The first pass's values of a two-pass layer written in place, held while
 // the second pass reads H. bf16: registers. f32: a per-thread local-memory
 // array (volatile, so never promoted to registers; 256 bytes a thread,
 // through L1/L2): beside the m64n128 accumulator and its f32 total they do
 // not fit the 255 registers, ptxas spilled otherwise. It costs 64 KB out and
 // 64 KB back per 512-wide layer and tile, an eighth of the layer's weight
-// bytes (1 MB in f32).
+// bytes (1 MB in f32); a 384-wide layer's second pass is the 128-column one,
+// with half the registers of a full pass.
 template <typename T>
 using Held = std::conditional_t<Tc<T>::kParts == 2, volatile float, float>;
 
 // this thread's values of a pass (after the epilogue) into the shared tile D
 // (offset by the caller to the pass's first column), as epilogue places them
-template <typename T, typename V>
-__device__ __forceinline__ void store_pass(const V (&v)[kNW / 2], T* D, int ldd) {
+template <typename T, typename V, int R>
+__device__ __forceinline__ void store_pass(const V (&v)[R], T* D, int ldd) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int r = warp * 16 + (lane >> 2);
-  const int cb = (threadIdx.x >> 7) * kNW + 2 * (lane & 3);
+  const int cb = (threadIdx.x >> 7) * (2 * R) + 2 * (lane & 3);
 #pragma unroll
-  for (int i = 0; i < kNW / 8; ++i)
+  for (int i = 0; i < R / 4; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       tile::st2(D + (r + 8 * h) * ldd + cb + 8 * i, v[4 * i + 2 * h], v[4 * i + 2 * h + 1]);
@@ -577,13 +608,13 @@ __device__ __forceinline__ void ld2(const __nv_bfloat16* p, float& a, float& b) 
 }
 
 // the inverse of store_pass: this thread's values of a pass from D
-template <typename T>
-__device__ __forceinline__ void load_pass(float (&v)[kNW / 2], const T* D, int ldd) {
+template <typename T, int R>
+__device__ __forceinline__ void load_pass(float (&v)[R], const T* D, int ldd) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int r = warp * 16 + (lane >> 2);
-  const int cb = (threadIdx.x >> 7) * kNW + 2 * (lane & 3);
+  const int cb = (threadIdx.x >> 7) * (2 * R) + 2 * (lane & 3);
 #pragma unroll
-  for (int i = 0; i < kNW / 8; ++i)
+  for (int i = 0; i < R / 4; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       ld2(D + (r + 8 * h) * ldd + cb + 8 * i, v[4 * i + 2 * h], v[4 * i + 2 * h + 1]);
@@ -621,69 +652,84 @@ inline void add_trunk_jobs(Plan& pl, size_t esz, int layers, int F, int kx, int 
   }
 }
 
-// An F-wide layer (F = 512: two passes) from [A0, A1] in place in H: the
-// first pass's values wait in registers until the second pass has read H.
-// pre, G: the pre-activations and activations to global (row stride F, rows
-// < n); then, with project_q >= 0, both passes projected by jobs project_q
-// and project_q + 1 into keep. Jobs q, q + 1.
-template <typename T, int F, typename Args>
-__device__ __forceinline__ void wide_layer(const Args& a, const Plan& pl, Ring& r, int q,
+// An F-wide layer from [A0, A1] in place in H: its passes (full_passes(F)
+// of 256 columns, then tail_passes(F) of 128); in a two-pass layer the
+// first pass's values wait (Held) until the second pass has read H. pre, G:
+// the pre-activations and activations to global (row stride F, rows < n);
+// then, with project_q >= 0, every pass projected by jobs project_q, ...
+// into keep. Jobs q .. q + passes(F) - 1.
+template <typename T, typename Args>
+__device__ __forceinline__ void wide_layer(const Args& a, const Plan& pl, Ring& r, int q, int F,
                                            ATile<T> a0, ATile<T> a1, const float* bias,
                                            int act, float scale, T* pre, T* H, T* G,
                                            int row0, int project_q, float* keep) {
-  static_assert(F == 2 * kPassCols, "two passes");
-  constexpr int kLdh = F + Tc<T>::kPad;
+  const int ldh = Smem<T>::ldh(F), full = full_passes(F), tail = tail_passes(F);
   Held<T> held[kNW / 2];
   float total[kNW / 2];
 #pragma unroll 1
-  for (int p = 0; p < 2; ++p) {
+  for (int p = 0; p < full; ++p) {
     const int c0 = p * kPassCols;
     pass<T>(pl, r, q + p, a0, a1, total);
     // the second pass's last barrier: nothing reads H any more, so the
     // first pass's values go first and are not live in its epilogue
-    if (p == 1) store_pass<T>(held, H, kLdh);
+    if (p == 1) store_pass<T>(held, H, ldh);
     epilogue<T>(total, bias + c0, act, scale, a.sin_mode, pre != nullptr ? pre + c0 : nullptr,
                 F, nullptr, 0, G != nullptr ? G + c0 : nullptr, F, row0, a.n);
-    if (p == 0) {
+    if (p == 0 && full + tail == 2) {
 #pragma unroll
       for (int i = 0; i < kNW / 2; ++i) held[i] = total[i];
     }
   }
-  store_pass<T>(total, H + kPassCols, kLdh);
+  if (tail == 0) {
+    store_pass<T>(total, H + (full - 1) * kPassCols, ldh);
+  } else {  // the 128-column pass, after the full one if any
+    const int c0 = full * kPassCols;
+    float part[kNW / 4];
+    pass<T>(pl, r, q + full, a0, a1, part);
+    if (full == 1) store_pass<T>(held, H, ldh);
+    epilogue<T>(part, bias + c0, act, scale, a.sin_mode, pre != nullptr ? pre + c0 : nullptr,
+                F, nullptr, 0, G != nullptr ? G + c0 : nullptr, F, row0, a.n);
+    store_pass<T>(part, H + c0, ldh);
+  }
   if (project_q >= 0) {  // from H (this thread's own values), so that neither pass's values stay live
 #pragma unroll 1
-    for (int p = 0; p < 2; ++p) {
-      load_pass<T>(total, H + p * kPassCols, kLdh);
+    for (int p = 0; p < full; ++p) {
+      load_pass<T>(total, H + p * kPassCols, ldh);
       project<T>(pl, r, project_q + p, total, keep, p == 0);
+    }
+    if (tail != 0) {
+      float part[kNW / 4];
+      load_pass<T>(part, H + full * kPassCols, ldh);
+      project<T>(pl, r, project_q + full, part, keep, full == 0);
     }
   }
 }
 
-// The trunk over the tile: L layers from the x tile X, in place in H, the
-// residuals as the TPU kernel writes them (pre: layer i's pre-activations at
-// acts + i * n * F, before the w0 scale of layer 0); with G, h_{L-1} also
-// goes to global rows < n (stride F). Jobs 0 .. 2L - 1 of the plan. kField
-// (K1): then the sigma projection of h_{L-1} into `keep` (jobs 2L, 2L + 1)
-// and the linear feats layer with bias b_feats, in place in H (2L + 2,
-// 2L + 3). One loop (not unrolled) runs every layer, so the kernel holds one
-// copy of it.
-template <typename T, int F, bool kField, typename Args>
+// The trunk over the tile: L layers of width a.feat from the x tile X, in
+// place in H, the residuals as the TPU kernel writes them (pre: layer i's
+// pre-activations at acts + i * n * F, before the w0 scale of layer 0); with
+// G, h_{L-1} also goes to global rows < n (stride F). With P = passes(F):
+// jobs 0 .. P L - 1 of the plan. kField (K1): then the sigma projection of
+// h_{L-1} into `keep` (jobs P L ..) and the linear feats layer with bias
+// b_feats, in place in H (P (L + 1) ..). One loop (not unrolled) runs every
+// layer, so the kernel holds one copy of it.
+template <typename T, bool kField, typename Args>
 __device__ __forceinline__ void run_trunk(const Args& a, const Plan& pl, Ring& r, ATile<T> X,
                                           T* H, T* acts, T* G, int row0, float* keep,
                                           const float* b_feats) {
-  constexpr int kLdh = F + Tc<T>::kPad;
+  const int F = a.feat, P = passes(F);
   const float* b = static_cast<const float*>(a.b);
-  const ATile<T> Ht{H, kLdh}, none{nullptr, 0};
+  const ATile<T> Ht{H, Smem<T>::ldh(F)}, none{nullptr, 0};
 #pragma unroll 1
   for (int i = 0; i < a.layers + (kField ? 1 : 0); ++i) {
     const bool feats = kField && i == a.layers;
     const bool skip = i > 0 && !feats && ((a.skip_mask >> i) & 1);
     const bool last = i == a.layers - 1;
     T* pre = acts != nullptr && !feats ? acts + static_cast<size_t>(i) * a.n * F : nullptr;
-    wide_layer<T, F>(a, pl, r, feats ? 2 * i + 2 : 2 * i, i == 0 ? X : Ht, skip ? X : none,
-                     feats ? b_feats : b + i * F, feats ? kLinear : kSine,
-                     i == 0 ? a.w0_scale : 1.0f, pre, H, last ? G : nullptr, row0,
-                     kField && last ? 2 * a.layers : -1, keep);
+    wide_layer<T>(a, pl, r, feats ? P * (i + 1) : P * i, F, i == 0 ? X : Ht, skip ? X : none,
+                  feats ? b_feats : b + i * F, feats ? kLinear : kSine,
+                  i == 0 ? a.w0_scale : 1.0f, pre, H, last ? G : nullptr, row0,
+                  kField && last ? P * a.layers : -1, keep);
   }
 }
 

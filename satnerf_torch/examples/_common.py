@@ -7,8 +7,10 @@ and later examples reuse the run directory. The workspace is
 ``SATNERF_EXAMPLES_STEPS`` / ``SATNERF_EXAMPLES_IMG`` shrink the run (the
 test suite's examples smoke test does).
 
-The field is 2 x 512 (the JAX package's example trains 2 x 128): on the card
-the field kernel is built for 512-wide trunks.
+The field is the JAX package's example's 2 x 128: its 64-wide heads are not a
+multiple of 128, so on the card the trunk runs K3 (and K4 backward) and the
+heads run layer by layer, as the JAX package runs its trunk kernel and XLA
+heads.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ def get_or_train_run(steps: int | None = None, device=None) -> str:
         seed=0,
     )
     pipe = RSSemanticConfig(
-        n_samples=8, fc_layers=2, fc_units=512, fc_skips=[1],
+        n_samples=8, fc_layers=2, fc_units=128, fc_skips=[1],
         batch_size=512, render_chunk_size=4096, first_beta_epoch=1,
     )
     cfg = MainConfig(run, pipe)

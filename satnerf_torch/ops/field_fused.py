@@ -66,16 +66,20 @@ OUT_W = 16
 
 # rows of the hidden-bias stack ``b_heads`` (absent heads keep zero rows)
 HIDDEN_BIAS_ROWS = ("rgb0", "sv0", "sv1", "sv2", "sky0", "b0", "s0")
-# (feat, feat_last) pairs the kernel is instantiated for (csrc/field_fused.cu):
-# every pipeline config's 512-wide trunk, with fc_use_full_features off and on
-KERNEL_WIDTHS = ((512, 256), (512, 512))
+# (feat, feat_last) pairs K1 takes (csrc/field_fused.cu ``admitted``): every
+# trunk width the TPU kernel takes up to 512 (feat % 128 == 0) with the heads
+# models/field.py sends to it (feat_last = feat / 2 or, with
+# fc_use_full_features, feat; a multiple of 128). (128, 64) and (384, 192)
+# take K3 and the plain heads, as in the JAX package.
+KERNEL_WIDTHS = ((128, 128), (256, 128), (256, 256), (384, 384), (512, 256), (512, 512))
 
 LAUNCHES = 0  # K1 launches made by fused_field (CUDA tensors only)
 LAUNCHES_BY_SIN = {m: 0 for m in SIN_MODES}  # the same launches, by the kernel's SinMode
 HEADS_BWD_LAUNCHES = 0  # heads_backward calls that launched K2 (CUDA only)
 PLAIN_CALLS = 0  # fused_field_reference and heads_backward_reference calls
-# widths the heads backward kernels are instantiated for (csrc/field_bwd.cu)
-HEADS_BWD_FL = (256, 512)
+# head widths K2 takes (csrc/field_bwd.cu: the row GEMM's tiles cover every
+# multiple of 64, the reduction's every width); with trunk.FEAT_WIDTHS
+HEADS_BWD_FL = (128, 256, 384, 512)
 G_AUX_W = 16  # the g_aux launch's padded width
 
 
@@ -776,18 +780,20 @@ def _heads_backward_cuda(spec: FieldSpec, shared, aux, g_out, packed, need_aux, 
     return g_shared, g_aux, g_heads
 
 
-def heads_backward(spec: FieldSpec, shared, aux, g_out, packed, need_aux: bool = True):
+def heads_backward(spec: FieldSpec, shared, aux, g_out, packed, need_aux: bool = True,
+                   trace=None):
     """Heads backward: the trunk output ``shared`` (N, F), ``aux``
     (N, aux_w) and the gradient ``g_out`` of the raw (N, 16) columns ->
     (g_shared (N, F), g_aux (N, aux_w) or None, {head key: gradient}).
 
     CPU tensors run :func:`heads_backward_reference` (which always returns
     g_aux); CUDA tensors launch K2 (counted in ``HEADS_BWD_LAUNCHES``) or
-    raise.
+    raise. A ``trace`` dict receives the intermediates (the head layers'
+    pre-activations under ``pre``, ...) by the plain version's names.
     """
     global HEADS_BWD_LAUNCHES
     if shared.device.type == "cpu":
-        return heads_backward_reference(spec, shared, aux, g_out, packed)
+        return heads_backward_reference(spec, shared, aux, g_out, packed, trace)
     if shared.device.type != "cuda":
         raise ValueError(f"heads_backward: unsupported device {shared.device}")
     n = shared.shape[0]
@@ -801,7 +807,7 @@ def heads_backward(spec: FieldSpec, shared, aux, g_out, packed, need_aux: bool =
             or not aux.is_contiguous() or aux.dtype != shared.dtype):
         raise ValueError(f"heads_backward: shared {tuple(shared.shape)}, aux "
                          f"{tuple(aux.shape)} {aux.dtype}, g {tuple(g_out.shape)}")
-    out = _heads_backward_cuda(spec, shared, aux, g_out, packed, need_aux)
+    out = _heads_backward_cuda(spec, shared, aux, g_out, packed, need_aux, trace)
     HEADS_BWD_LAUNCHES += 1
     return out
 

@@ -53,7 +53,11 @@ FWD_LAUNCHES = 0  # K3 launches made by fused_trunk (CUDA tensors only)
 FWD_PLAIN_CALLS = 0  # fused_trunk_reference calls
 INTERLEAVED_LAUNCHES = 0  # K6 launches made by fused_trunk_interleaved
 TC_PREPARATIONS = 0  # tc_gather calls: K1/K3 weight preparations (tc_cached misses)
-FEAT_WIDTHS = (512,)  # trunk widths the kernels are instantiated for
+# trunk widths K3 and K4 take: every multiple of 128 up to 512, as the TPU
+# kernels (satnerf_tpu/ops/pallas/trunk.py:82); csrc/trunk_tc.cuh runs them
+# as run-time widths of one kernel per dtype
+FEAT_WIDTHS = (128, 256, 384, 512)
+IL_FEAT_WIDTHS = (512,)  # K6's one width (csrc/trunk_fwd.cu kIlFeat)
 GX_WIDTHS = (64, 128)  # padded input widths of the gx launch (csrc/trunk_bwd.cu)
 TRUNK_KEYS = ("w0", "w_mid", "w_skip", "b")
 TC_MAX_K = 64  # widest padded input the tensor-core forward kernels take
@@ -117,6 +121,7 @@ def pack_trunk(field, spec, dtype: torch.dtype) -> dict:
 
 
 TC_PASS_ROWS = 256  # output columns of one tensor-core pass (csrc/trunk_tc.cuh)
+TC_TAIL_ROWS = 128  # the last pass of a width that is an odd multiple of 128
 
 
 def tc_operand(wt: torch.Tensor, rows: int = TC_PASS_ROWS, ks: int | None = None) -> torch.Tensor:
@@ -126,13 +131,24 @@ def tc_operand(wt: torch.Tensor, rows: int = TC_PASS_ROWS, ks: int | None = None
     (..., N / rows, K / ks, rows, ks) for ks = 32 bytes of K (8 f32, 16
     bf16), each row's two 16-byte halves swapped where (row / 4) is odd (the
     32-byte swizzle of ``csrc/wgmma.cuh`` desc_sw32). A pass of ``rows``
-    output columns and one k-step of it is a (rows, 32-byte) tile. (In f32
-    the kernels split the weights into tf32 hi + lo themselves.) ``ks``
-    overrides the element count per k-step (for an index tensor standing in
-    for the weight, :func:`tc_gather`)."""
+    output columns and one k-step of it is a (rows, 32-byte) tile. Where N
+    is not a multiple of ``rows`` (a 128- or 384-wide layer's last pass of
+    :data:`TC_TAIL_ROWS`), the whole passes are followed by the last one in
+    its own tiles, in the order the kernel stages them, and the result is
+    flat: (..., N * K). (In f32 the kernels split the weights into tf32 hi +
+    lo themselves.) ``ks`` overrides the element count per k-step (for an
+    index tensor standing in for the weight, :func:`tc_gather`)."""
     wt = _bwd.pad_cols(wt, _bwd.padded_k(wt.shape[-1]))
     *lead, n, k = wt.shape
     ks = ks or 32 // wt.element_size()
+    whole = n - n % rows
+    if whole != n:
+        if n - whole != TC_TAIL_ROWS:
+            raise ValueError(f"tc_operand: {n} rows are not passes of {rows} and "
+                             f"{TC_TAIL_ROWS}")
+        parts = [tc_operand(wt[..., :whole, :], rows, ks)] if whole else []
+        parts.append(tc_operand(wt[..., whole:, :], TC_TAIL_ROWS, ks))
+        return torch.cat([t.reshape(*lead, -1) for t in parts], -1)
     x = wt.reshape(*lead, n // rows, rows, k // ks, 2, ks // 2)
     swap = ((torch.arange(rows, device=wt.device) >> 2) & 1).bool()
     x = torch.where(swap.view(rows, 1, 1, 1), x.flip(-2), x)
@@ -385,8 +401,9 @@ def fused_trunk_interleaved(spec, x: torch.Tensor, packed: dict,
     name = "fused_trunk_interleaved"
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if spec.feat not in FEAT_WIDTHS:
-        raise ValueError(f"{name} kernel is built for feat in {FEAT_WIDTHS}, got {spec.feat}")
+    if spec.feat not in IL_FEAT_WIDTHS:
+        raise ValueError(f"{name} kernel is built for feat in {IL_FEAT_WIDTHS}, "
+                         f"got {spec.feat}")
     if _bwd.padded_k(spec.cx) > TC_MAX_K:
         raise ValueError(f"{name} kernel takes at most {TC_MAX_K} inputs, got {spec.cx}")
     if emit_acts:

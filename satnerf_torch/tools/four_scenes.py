@@ -14,9 +14,9 @@ Usage:
   python -m satnerf_torch.tools.four_scenes <out_root> [--steps N] [--img-size S]
       [--scenes A,B,C,D] [--skip-train] [--batch B] [--device cuda|cpu]
 
-``--device`` defaults to ``cuda`` and raises without a GPU. On the card the
-field kernel is built for 512-wide trunks (``--units 512``); the default 256
-is the JAX tool's. ``steps_per_dispatch`` in the run TOML (8) runs blocks of
+``--device`` defaults to ``cuda`` and raises without a GPU. The default 8x256
+field (the JAX tool's) runs K1 with 128-wide heads on the card.
+``steps_per_dispatch`` in the run TOML (8) runs blocks of
 8 replays of one captured step on the card and 8 calls on the CPU
 (``train/dispatch.py``).
 """

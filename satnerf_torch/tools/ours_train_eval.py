@@ -14,9 +14,9 @@ Usage:
       [--dtype bfloat16|float32] [--sin-impl poly|poly5|poly7f|exact]
       [--eval-at N,N] [--device cuda|cpu]
 
-``--device`` defaults to ``cuda`` and raises without a GPU. On the card the
-field kernel is built for 512-wide trunks (``--units 512``); the default 256
-is the JAX tool's. ``--steps-per-dispatch`` K runs blocks of K replays of one
+``--device`` defaults to ``cuda`` and raises without a GPU. The default 8x256
+field (the JAX tool's) runs K1 with 128-wide heads on the card.
+``--steps-per-dispatch`` K runs blocks of K replays of one
 captured step on the card and K calls on the CPU (``train/dispatch.py``).
 """
 

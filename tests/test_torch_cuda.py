@@ -17,6 +17,9 @@ import dataclasses
 import pytest
 import torch
 
+from satnerf_torch.ops.field_fused import KERNEL_WIDTHS as K1_WIDTHS  # K1's (feat, feat_last)
+from satnerf_torch.ops.trunk import FEAT_WIDTHS as TRUNK_WIDTHS  # K3's and K4's feat
+
 
 @pytest.fixture
 def cuda_device():
@@ -31,17 +34,19 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("heads_on", [True, False])
-@pytest.mark.parametrize("full_features", [False, True])
-def test_cuda_field_kernel_matches_plain(cuda_device, dtype, heads_on, full_features,
+@pytest.mark.parametrize("feat,fl", K1_WIDTHS)
+def test_cuda_field_kernel_matches_plain(cuda_device, dtype, heads_on, feat, fl,
                                          record_property):
     from satnerf_torch.core.encoding import positional_encoding
     from satnerf_torch.models.field import Field, FieldConfig, fused_field_spec
     from satnerf_torch.ops import field_fused as ff
 
-    # both instantiated widths: (512, 256) and, with full features, (512, 512)
-    cfg = FieldConfig(variant="rs_semantic", layers=4, feat=512, skips=(2,),
+    # every width pair K1 takes: heads of half the trunk's width or, with
+    # full features, all of it
+    cfg = FieldConfig(variant="rs_semantic", layers=4, feat=feat, skips=(2,),
                       mapping=True, use_tj_for_s=True, trunk_impl="pallas",
-                      fc_use_full_features=full_features)
+                      fc_use_full_features=fl == feat)
+    assert cfg.feat_last == fl
     field = Field(cfg, generator=torch.Generator().manual_seed(0)).to(cuda_device)
     spec = dataclasses.replace(fused_field_spec(cfg), heads_on=heads_on)
     g = torch.Generator().manual_seed(1)
@@ -117,18 +122,20 @@ def _rel(a, b) -> float:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("heads_on", [True, False])
 @pytest.mark.parametrize("bwd", ["recompute", "stored"])
-def test_cuda_backward_kernels_match_plain(cuda_device, dtype, heads_on, bwd,
+@pytest.mark.parametrize("feat,fl", K1_WIDTHS)
+def test_cuda_backward_kernels_match_plain(cuda_device, dtype, heads_on, bwd, feat, fl,
                                            record_property):
-    """K1's residuals, K2 and K4 against their plain versions at 4x512 on
-    1,001 points, and two runs bit for bit equal (no atomics)."""
+    """K1's residuals, K2 and K4 against their plain versions at 4 layers of
+    every width pair K1 takes on 1,001 points, and two runs bit for bit equal
+    (no atomics)."""
     from satnerf_torch.core.encoding import positional_encoding
     from satnerf_torch.models.field import Field, FieldConfig, fused_field_spec
     from satnerf_torch.ops import field_fused as ff
     from satnerf_torch.ops import trunk
 
-    cfg = FieldConfig(variant="rs_semantic", layers=4, feat=512, skips=(2,),
+    cfg = FieldConfig(variant="rs_semantic", layers=4, feat=feat, skips=(2,),
                       mapping=True, use_tj_for_s=True, trunk_impl="pallas",
-                      trunk_bwd=bwd)
+                      trunk_bwd=bwd, fc_use_full_features=fl == feat)
     field = Field(cfg, generator=torch.Generator().manual_seed(0)).to(cuda_device)
     spec = dataclasses.replace(fused_field_spec(cfg), heads_on=heads_on)
     g = torch.Generator().manual_seed(2)
@@ -282,11 +289,11 @@ def test_cuda_hierarchical_render_prepares_each_field_once(cuda_device):
     assert trunk.TC_PREPARATIONS - preps == 2
 
 
-def _trunk_case(cuda_device, n=1001, **cfg_kw):
+def _trunk_case(cuda_device, n=1001, feat=512, **cfg_kw):
     from satnerf_torch.core.encoding import positional_encoding
     from satnerf_torch.models.field import Field, FieldConfig, fused_field_spec
 
-    cfg = FieldConfig(variant="rs_semantic", layers=4, feat=512, skips=(2,), mapping=True,
+    cfg = FieldConfig(variant="rs_semantic", layers=4, feat=feat, skips=(2,), mapping=True,
                       trunk_impl="pallas", use_separate_beta_for_s=True, **cfg_kw)
     field = Field(cfg, generator=torch.Generator().manual_seed(0)).to(cuda_device)
     g = torch.Generator().manual_seed(4)
@@ -297,40 +304,46 @@ def _trunk_case(cuda_device, n=1001, **cfg_kw):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("emit_acts", [False, True])
-def test_cuda_trunk_kernel_matches_plain(cuda_device, dtype, emit_acts, record_property):
-    """K3 against its plain version at feat 512 on 1,001 points (ragged
-    against the 64-row tile), bitwise repeatable; K6 (the warp-specialised
-    ping-pong loop of csrc/trunk_ws.cuh, which keeps K3's order of sums and
-    its epilogue) bitwise equal to K3 and so within the same bar of the
-    plain version."""
+@pytest.mark.parametrize("feat", TRUNK_WIDTHS)
+def test_cuda_trunk_kernel_matches_plain(cuda_device, dtype, emit_acts, feat, record_property):
+    """K3 against its plain version at every trunk width it takes on 1,001
+    points (ragged against the 64-row tile), bitwise repeatable; at 512, K6
+    (the warp-specialised ping-pong loop of csrc/trunk_ws.cuh, which keeps
+    K3's order of sums and its epilogue) bitwise equal to K3 and so within
+    the same bar of the plain version."""
     from satnerf_torch.ops import field_fused as ff
     from satnerf_torch.ops import trunk
 
-    _, field, spec, enc = _trunk_case(cuda_device)
+    _, field, spec, enc = _trunk_case(cuda_device, feat=feat)
+    with_il = feat in trunk.IL_FEAT_WIDTHS
     with torch.no_grad():
         packed = field.packed(dtype)
         x = ff.pack_x(spec, enc, dtype)
         before = (trunk.FWD_LAUNCHES, trunk.INTERLEAVED_LAUNCHES)
         out, acts = trunk._forward(spec, x, packed, emit_acts)
         again, acts2 = trunk._forward(spec, x, packed, emit_acts)
-        il = trunk.fused_trunk_interleaved(spec, x, packed)
-        il2 = trunk.fused_trunk_interleaved(spec, x, packed)
+        if with_il:
+            il = trunk.fused_trunk_interleaved(spec, x, packed)
+            il2 = trunk.fused_trunk_interleaved(spec, x, packed)
         torch.cuda.synchronize()
-        assert (trunk.FWD_LAUNCHES, trunk.INTERLEAVED_LAUNCHES) == (before[0] + 2, before[1] + 2)
+        assert (trunk.FWD_LAUNCHES, trunk.INTERLEAVED_LAUNCHES) == (
+            before[0] + 2, before[1] + (2 if with_il else 0))
         ref, ref_acts = trunk.fused_trunk_reference(spec, x, packed, emit_acts)
-    assert out.dtype == dtype and out.shape == (x.shape[0], 512)
+    assert out.dtype == dtype and out.shape == (x.shape[0], feat)
     # each bitwise repeatable; K6 bitwise K3 (whose output does not depend
     # on emit_acts)
-    assert torch.equal(out, again) and torch.equal(il, il2)
-    assert torch.equal(il, out)
+    assert torch.equal(out, again)
+    if with_il:
+        assert torch.equal(il, il2) and torch.equal(il, out)
     # chip_smoke.py TOL_FIELD / TOL_RESID say why bf16 has its own bar
     tol = 5e-5 if dtype == torch.float32 else 2e-2
     err = float((out.float() - ref.float()).abs().max())
     record_property("max_abs_err", err)
     assert err < tol
-    assert float((il.float() - ref.float()).abs().max()) < tol
+    if with_il:
+        assert float((il.float() - ref.float()).abs().max()) < tol
     if emit_acts:
-        assert acts.shape == (spec.layers, x.shape[0], 512) and torch.equal(acts, acts2)
+        assert acts.shape == (spec.layers, x.shape[0], feat) and torch.equal(acts, acts2)
         assert _rel(acts, ref_acts) < (5e-5 if dtype == torch.float32 else 4e-2)
     else:
         assert acts is None
@@ -366,16 +379,17 @@ def test_cuda_interleaved_trunk_ragged(cuda_device, n, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bwd", ["recompute", "stored"])
-def test_cuda_fused_trunk_backward_matches_plain(cuda_device, bwd):
+@pytest.mark.parametrize("feat", TRUNK_WIDTHS)
+def test_cuda_fused_trunk_backward_matches_plain(cuda_device, bwd, feat):
     """FusedTrunk (K3 forward, K4 backward) against the plain forward and
-    backward on the same inputs, f32."""
+    backward on the same inputs, f32, at every trunk width they take."""
     from satnerf_torch.ops import field_fused as ff
     from satnerf_torch.ops import trunk
 
-    _, field, spec, enc = _trunk_case(cuda_device, trunk_bwd=bwd)
+    _, field, spec, enc = _trunk_case(cuda_device, feat=feat, trunk_bwd=bwd)
     packed = {k: v.clone().requires_grad_(True) for k, v in field.packed(torch.float32).items()}
     x = ff.pack_x(spec, enc, torch.float32).requires_grad_(True)
-    cot = torch.randn(x.shape[0], 512, generator=torch.Generator().manual_seed(5))
+    cot = torch.randn(x.shape[0], feat, generator=torch.Generator().manual_seed(5))
     cot = cot.to(cuda_device)
     before = (trunk.FWD_LAUNCHES, trunk.LAUNCHES)
     grads = torch.autograd.grad(trunk.fused_trunk(spec, x, packed),
@@ -733,8 +747,9 @@ def test_cuda_trainer_runs_the_kernels_and_resumes_bitwise(cuda_device, tmp_path
 
 @pytest.mark.cuda
 def test_cuda_unbuilt_width_raises(cuda_device):
-    """A pipeline TOML at a width the field kernel is not built for (256
-    wide) resolves to the kernels on the card and raises at their launch,
+    """A pipeline TOML at a width the kernels are not built for (640 wide:
+    the JAX kernels admit it, the port's stop at 512) resolves to the kernels
+    on the card and raises at their launch with the widths that are built,
     rather than running the layer-by-layer field."""
     import os
 
@@ -745,8 +760,8 @@ def test_cuda_unbuilt_width_raises(cuda_device):
 
     toml = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "configs", "pipelines", "rs_semantic.toml")
-    rcfg = load_render_config(toml, device=cuda_device, fc_units=256)
-    assert rcfg.field.trunk_impl == "pallas" and rcfg.field.feat == 256
+    rcfg = load_render_config(toml, device=cuda_device, fc_units=640)
+    assert rcfg.field.trunk_impl == "pallas" and rcfg.field.feat == 640
     params = init_params(torch.Generator().manual_seed(0), rcfg.field, t_vocab=4,
                          device=cuda_device)
     n = 64
@@ -757,7 +772,7 @@ def test_cuda_unbuilt_width_raises(cuda_device):
     sun = torch.nn.functional.normalize(torch.tensor([0.2, -0.1, 0.8]), dim=0)
     extras = torch.cat([sun.expand(n, 3), torch.full((n, 1), 3.0)], 1).to(cuda_device)
     before = fld.PLAIN_CALLS
-    with pytest.raises(ValueError, match="built for"):
+    with pytest.raises(ValueError, match=r"built for .*\(128, 256, 384, 512\)"):
         render_rays(params, rcfg, rays, extras)
     assert fld.PLAIN_CALLS == before
 
@@ -953,9 +968,15 @@ def test_cuda_trains_on_a_dataset_the_port_prepared(cuda_device, tmp_path):
     assert all(np.isfinite(v) for h in trainer.history for v in h.values())
 
 
-def _trained_through_the_kernels(got: dict) -> None:
-    assert got["k1"] > 0 and got["k2"] == got["k4"] > 0, got
-    assert got["k5"] > 0 and got["k5_bwd"] > 0 and got["k3"] == got["k6"] == 0, got
+def _trained_through_the_kernels(got: dict, trunk_only: bool = False) -> None:
+    """K1, K2, K4, K5 and K5's backward launched; with ``trunk_only`` (heads
+    narrower than 128, as the examples' 2 x 128) K3 and K4 and the heads
+    layer by layer, with no K1 or K2."""
+    if trunk_only:
+        assert got["k3"] > 0 and got["k4"] > 0 and got["k1"] == got["k2"] == 0, got
+    else:
+        assert got["k1"] > 0 and got["k2"] == got["k4"] > 0 and got["k3"] == 0, got
+    assert got["k5"] > 0 and got["k5_bwd"] > 0 and got["k6"] == 0, got
     assert not any(v for k, v in got.items() if k.startswith("plain")), got
 
 
@@ -963,9 +984,10 @@ def _trained_through_the_kernels(got: dict) -> None:
 def test_cuda_examples_run_on_the_card(cuda_device, tmp_path, monkeypatch, capsys):
     """The four examples on the card, as ``python -m
     satnerf_torch.examples.<name>`` runs them (their ``main``, in this
-    process): 01 trains through K1, K2, K4, K5 and K5's backward with no plain
-    version; 02's battery and 03's three views render through K1 and K5 once
-    per chunk; 04's checkpoint round trip is exact."""
+    process), at the JAX package's 2 x 128: 01 trains through K3, K4, K5 and
+    K5's backward (heads 64 wide: layer by layer) with no plain version; 02's
+    battery and 03's three views render through K3 and K5 once per chunk;
+    04's checkpoint round trip is exact."""
     import glob
     import importlib
     import os
@@ -986,12 +1008,12 @@ def test_cuda_examples_run_on_the_card(cuda_device, tmp_path, monkeypatch, capsy
     finally:
         disable_tf32()  # the eval loader applied the run's matmul precision
     out = capsys.readouterr().out
-    _trained_through_the_kernels(launches["01_train_synthetic"])
+    _trained_through_the_kernels(launches["01_train_synthetic"], trunk_only=True)
     # 02: the test split (a prepended train view and one test view of 32 x 32,
     # one 16,384-ray chunk each); 03: three views of 32 x 32 at chunk 4,096
     for name, chunks in (("02_eval_battery", 2), ("03_relight_views", 3)):
         got = launches[name]
-        assert got["k1"] == got["k5"] == chunks, (name, got)
+        assert got["k3"] == got["k5"] == chunks and got["k1"] == 0, (name, got)
         assert not any(v for k, v in got.items() if k.startswith("plain")), (name, got)
     assert "PSNR" in out and out.count(" wrote ") == 3 and "round trip exact" in out
     assert len(glob.glob(os.path.join(str(tmp_path), "relight", "*.png"))) == 3

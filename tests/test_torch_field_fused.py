@@ -110,19 +110,69 @@ def test_field_spec_counts_flagship_work():
         dataclasses.replace(spec, n_classes=8)
 
 
-def test_kernel_widths_match_the_cuda_instantiations():
-    # the wrapper admits exactly the (feat, feat_last) pairs the CUDA source
-    # dispatches to; every pipeline config's widths are among them
+def _csrc(name: str) -> str:
+    import os
+
+    with open(os.path.join(os.path.dirname(tff.__file__), "..", "csrc", name)) as f:
+        return f.read()
+
+
+def _width_users() -> dict:
+    """{where: (feat, fc_use_full_features)} of every width the JAX package's
+    tools default to, its examples train and its pipeline TOMLs set, and the
+    port's copies of the tools and examples."""
+    import glob
     import os
     import re
+    import tomllib
 
-    src = os.path.join(os.path.dirname(tff.__file__), "..", "csrc", "field_fused.cu")
-    with open(src) as f:
-        pairs = re.findall(r"a\.feat == (\d+) && a\.fl == (\d+)", f.read())
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    users = {}
+    for fp in sorted(glob.glob(os.path.join(root, "configs", "pipelines", "*.toml"))):
+        with open(fp, "rb") as f:
+            p = tomllib.load(f)
+        users[os.path.basename(fp)] = (p.get("fc_units", 512),
+                                       p.get("fc_use_full_features", False))
+    for rel in ("tools/four_scenes.py", "tools/ours_train_eval.py",
+                "satnerf_torch/tools/four_scenes.py", "satnerf_torch/tools/ours_train_eval.py"):
+        with open(os.path.join(root, rel)) as f:
+            m = re.search(r'"--units", type=int, default=(\d+)', f.read())
+        users[rel] = (int(m.group(1)), False)
+    for rel in ("examples/_common.py", "satnerf_torch/examples/_common.py"):
+        with open(os.path.join(root, rel)) as f:
+            users[rel] = (int(re.search(r"fc_units=(\d+)", f.read()).group(1)), False)
+    return users
+
+
+def test_kernel_widths_match_the_cuda_instantiations():
+    # the wrappers admit exactly the widths the CUDA sources take: K1's
+    # (feat, feat_last) pairs, K3's trunk widths, K6's one width
+    import re
+
+    from satnerf_torch.ops import trunk as ttrunk
+
+    pairs = re.findall(r"a\.feat == (\d+) && a\.fl == (\d+)", _csrc("field_fused.cu"))
     assert sorted((int(a), int(b)) for a, b in pairs) == sorted(tff.KERNEL_WIDTHS)
-    for full in (False, True):
-        cfg = tfield.FieldConfig(feat=512, fc_use_full_features=full)
-        assert (cfg.feat, cfg.feat_last) in tff.KERNEL_WIDTHS
+    ok = re.search(r"inline bool width_ok\(int F\) \{ return ([^;]*);", _csrc("trunk_tc.cuh"))
+    feats = sorted(int(w) for w in re.findall(r"F == (\d+)", ok.group(1)))
+    assert feats == sorted(ttrunk.FEAT_WIDTHS)
+    il = re.search(r"constexpr int kIlFeat = (\d+);", _csrc("trunk_fwd.cu"))
+    assert (int(il.group(1)),) == ttrunk.IL_FEAT_WIDTHS
+    # K1's heads (K2) and trunk (K4) widths are among the backward's
+    assert {fl for _, fl in tff.KERNEL_WIDTHS} <= set(tff.HEADS_BWD_FL)
+    assert {f for f, _ in tff.KERNEL_WIDTHS} <= set(ttrunk.FEAT_WIDTHS)
+    # every width the JAX tools' defaults, its examples and its pipeline
+    # TOMLs use (and the port's copies) reaches a kernel built for it
+    users = _width_users()
+    assert users["tools/four_scenes.py"] == users["satnerf_torch/tools/four_scenes.py"]
+    assert users["examples/_common.py"] == users["satnerf_torch/examples/_common.py"]
+    for where, (feat, full) in users.items():
+        cfg = tfield.FieldConfig(variant="rs_semantic", feat=feat, mapping=True,
+                                 fc_use_full_features=full, trunk_impl="pallas")
+        if tfield.use_fused_field(cfg):
+            assert (cfg.feat, cfg.feat_last) in tff.KERNEL_WIDTHS, where
+        else:
+            assert tfield.use_fused_trunk(cfg) and cfg.feat in ttrunk.FEAT_WIDTHS, where
 
 
 # -- module layout and weight import -------------------------------------------

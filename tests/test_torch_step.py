@@ -11,6 +11,8 @@ lr 5e-4). So: every element within 2 lr, and at most 0.1% of the elements
 of any tensor beyond 2e-5.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -58,8 +60,11 @@ def _field_kw(variant, impl):
 
 
 def _one_step(variant="rs_semantic", impl="xla", depth=True, sc_stride=1,
-              step=0, **step_kw):
-    fkw = _field_kw(variant, impl)
+              step=0, field_kw=None, jit=False, **step_kw):
+    """(JAX metrics, port metrics, port state, JAX params in the port's
+    layout) after one step of each package; ``field_kw`` replaces the
+    field of ``_field_kw``, ``jit`` runs JAX's step under ``jax.jit``."""
+    fkw = field_kw or _field_kw(variant, impl)
     jf, tf = JFieldConfig(**fkw), FieldConfig(**fkw)
     accum = step_kw.get("grad_accum", 1) > 1
     rkw = dict(n_samples=N_SAMPLES, sc_stride=sc_stride, perturb=0.0 if accum else 1.0)
@@ -80,9 +85,9 @@ def _one_step(variant="rs_semantic", impl="xla", depth=True, sc_stride=1,
         k: v._replace(count=count) for k, v in opt_state.hyperparams_states.items()})
     state = JTrainState(params=params, opt_state=opt_state,
                         step=jnp.asarray(step, jnp.int32))
-    with jax.disable_jit():
-        new_state, jm = jstep.build_train_step(
-            jstep.StepConfig(render=jr, **skw), opt)(
+    step_fn = jstep.build_train_step(jstep.StepConfig(render=jr, **skw), opt)
+    with contextlib.nullcontext() if jit else jax.disable_jit():
+        new_state, jm = (jax.jit(step_fn) if jit else step_fn)(
             state, {k: jnp.asarray(v) for k, v in batch.items()},
             jax.random.PRNGKey(3) if accum else None)
 
