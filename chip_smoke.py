@@ -84,6 +84,18 @@ JSON line per phase:
    (K3, K4 and K5 every step, a 32-ray step against the CPU); with
    ``--parent``, the parent's build seconds and K1-K4's outputs at 512
    bitwise equal to the parent build's (``port_times`` saves all four);
+13c. ``input_widths``: encoded inputs past 64 wide (``INPUT_FREQS``: 11,
+   12, 16 and 21 frequencies, c_in 66, 72, 96 and 126, 80 to 128 after
+   padding) at every trunk width (128, 256, 384, 512; 8 layers, heads K1
+   takes) in f32 and bf16 at 65,536 points: K1 (both head variants, with the
+   "stored" residuals), K3 (with and without the pre-activations) and K4
+   (both engines, gx included) against their plain versions within the bars
+   above, each run twice and bitwise equal; K1's, K3's and K4's device ms
+   beside their bounds at 512 wide and c_in 60, 72 and 126; the rs_semantic TOML at 12
+   frequencies trained five flagship steps (K1, K2, K4, K5 and K5's backward
+   every step, no plain version, a 32-ray step against the CPU) and served
+   one 128x128 request; with ``--parent``, K1-K4's outputs at c_in 60
+   bitwise equal to the parent build's, and their times in turns;
 14. ``train_scene``: the training CLI end to end on a generated scene (4 + 1
    views, 96x96, 300 tie points): ``run.training.start_training`` on the
    flagship TOML as it is, 144 steps (the depth drop at step 36, the beta
@@ -427,6 +439,15 @@ WIDTHS_CLI_STEPS = 24
 # the examples' field (satnerf_torch/examples/_common.py, the JAX package's
 # 2 x 128) in the flagship step config: K3, K4 and K5 as on Path A
 EXAMPLES_FIELD = {"fc_layers": 2, "fc_units": 128, "fc_skips": [1]}
+# phase input_widths: encoded inputs past 64 wide at every trunk width, the
+# rs_semantic TOML's 8 layers with its skip at 4 and heads K1 takes (half the
+# width where that is a multiple of 128, else all of it): mapping_pos_n_freq 11,
+# 12, 16 and 21 give c_in 66, 72, 96 and 126 (80, 80, 96 and 128 after padding
+# to 16), every one inside the JAX kernels' c_in <= 128
+INPUT_FREQS = (11, 12, 16, 21)
+INPUT_POINTS = 65_536  # a training step's points
+INPUT_TIME_FREQS = (10, 12, 21)  # device ms at 512 wide: c_in 60 beside 72 and 126
+POSENC_FREQ = 12  # the JAX package's --posenc-freq lever (tools/syn_long_run.py:60-64)
 # port_times keys of K1-K4 (at 512), read in turns with the parent's
 PARENT_KERNEL_KEYS = ("field_fused", "field_fused_serve", "heads_bwd", "trunk_bwd_recompute",
                       "trunk_bwd_stored", "trunk_fwd")
@@ -1848,10 +1869,25 @@ def step_times(dev, steps: int = 5) -> dict:
     return out
 
 
+def forward_builds(build) -> dict:
+    """{library: {kernel: ptxas's registers and spills, and its SASS
+    instruction count}} of K1's and K3's libraries as the ``_build`` module
+    given (this tree's, or an older checkout's in child_times) built them."""
+    out = {}
+    for lib in ("field_fused", "trunk_fwd"):
+        rows = build.ptxas_report(lib)
+        sass = build.sass_counts(lib, " ;")  # cuobjdump -sass ends each instruction so
+        for k, row in rows.items():
+            row["sass_instructions"] = sass.get(k) if isinstance(sass, dict) else sass
+        out[lib] = rows
+    return out
+
+
 def child_times(tree: str, save: str) -> int:
     """``--tree DIR --save FILE``: port_times, composite_times, step_times
     and k6_times on the checkout at DIR (its own package and kernels),
-    printing the times as the last line."""
+    printing its build (seconds, forward_builds) and the times as the last
+    line."""
     sys.path.insert(0, tree)
     import torch
 
@@ -1864,7 +1900,8 @@ def child_times(tree: str, save: str) -> int:
     t0 = time.monotonic()
     per = _build.build_all()
     print(json.dumps({"child_build": {"seconds": time.monotonic() - t0,
-                                      "per_source_seconds": per}}), flush=True)
+                                      "per_source_seconds": per,
+                                      "forward_kernels": forward_builds(_build)}}), flush=True)
     dev = torch.device("cuda")
     print(json.dumps({**port_times(dev, save), **composite_times(dev), **step_times(dev),
                       **k6_times(dev)}), flush=True)
@@ -4158,11 +4195,12 @@ def width_kernel_checks(key: str, spec, fused: bool, packed, inputs, dname: str,
     return errs
 
 
-def width_times(spec, fused: bool, packed, inputs, dname: str) -> dict:
+def width_times(spec, fused: bool, packed, inputs, dname: str, only=None) -> dict:
     """Device ms (``device_time``) at the largest of WIDTH_POINTS of the route's
-    kernels: K1 with residuals, K2 and K4 ("recompute"); or K3 and K4; each
-    beside its bound (``FieldSpec``'s multiply-adds over the guide's peaks, or
-    its bytes, whichever is larger) and the launches the timing made."""
+    kernels (those named in ``only``, if given): K1 with residuals, K2 and K4
+    ("recompute"); or K3 and K4; each beside its bound (``FieldSpec``'s
+    multiply-adds over the guide's peaks, or its bytes, whichever is larger)
+    and the launches the timing made."""
     import torch
 
     from satnerf_torch.ops import field_fused as ff
@@ -4178,6 +4216,8 @@ def width_times(spec, fused: bool, packed, inputs, dname: str) -> dict:
     rows = {}
 
     def row(name, fn, macs, nbytes, reps):
+        if only is not None and name not in only:
+            return
         before = read_counters()[0]
         t = device_time(fn, reps=reps, warmup=2, repeats=3)
         after = read_counters()[0]
@@ -4220,6 +4260,7 @@ def widths_cli_run(dev, work: str) -> dict:
     import math
 
     from satnerf_torch.datasets.synthetic import generate_scene
+    from satnerf_torch.device import disable_tf32
     from satnerf_torch.models.field import use_fused_field
     from satnerf_torch.run.training import start_training
     from satnerf_torch.tools import four_scenes
@@ -4235,7 +4276,10 @@ def widths_cli_run(dev, work: str) -> dict:
         f.write(four_scenes.PIPE_TOML.format(batch=2048, units=256, n_samples=32))
     reset_counters()
     t0 = time.monotonic()
-    pipeline, state, trainer = start_training(run_fp, pipe_fp, device=dev, log_every=1)
+    try:
+        pipeline, state, trainer = start_training(run_fp, pipe_fp, device=dev, log_every=1)
+    finally:
+        disable_tf32()  # the run's matmul_precision "high" allowed TF32
     seconds = time.monotonic() - t0
     got, plain = read_counters()
     cfg = state.params["field"].cfg
@@ -4316,12 +4360,11 @@ def widths_phase(dev, vocab: int, turns: list | None, build_s: dict) -> dict:
 
     parent = None
     if turns:
-        a, b = (torch.load(os.path.join(REPO, "build", "turns", f"turn{i}.pt"))
-                for i in (0, 1))
-        bitwise = {k: all(torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a}
+        bitwise = parent_outputs_bitwise()
         mine, theirs = turn_means(turns)
         parent = {"outputs_bitwise_parent_512": bitwise,
-                  "build_seconds": turns[0].get("build"),
+                  "build_seconds": {k: v for k, v in (turns[0].get("build") or {}).items()
+                                    if k != "forward_kernels"},
                   "this_ms_512": {k: v for k, v in mine.items()
                                   if k.split("/")[0] in PARENT_KERNEL_KEYS},
                   "parent_ms_512": {k: v for k, v in theirs.items()
@@ -4349,6 +4392,133 @@ def widths_phase(dev, vocab: int, turns: list | None, build_s: dict) -> dict:
                     cell[paths[key][0]] = paths[key][1][name]
                 cell[dname] = {k: r[k] for k in ("ms", "bound_ms", "bound_by")}
     line["by_kernel"] = by_kernel
+    return line
+
+
+def parent_outputs_bitwise() -> dict:
+    """{kernel/dtype: whether this tree's K1-K4 outputs at the flagship (512
+    wide, c_in 60) equal the parent build's bit for bit}: port_times' saved
+    outputs of the first two turns (parent, this)."""
+    import torch
+
+    a, b = (torch.load(os.path.join(REPO, "build", "turns", f"turn{i}.pt")) for i in (0, 1))
+    return {k: all(torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a}
+
+
+def k1_input_checks(key: str, spec, packed, inputs, dname: str) -> dict:
+    """K1 (both head variants, with the "stored" residuals) on ``inputs``
+    against its plain version: outputs within TOL_FIELD, residuals within
+    TOL_RESID, two runs bitwise equal. -> {check: error}."""
+    import dataclasses
+
+    import torch
+
+    from satnerf_torch.ops import field_fused as ff
+
+    enc, sun, te = inputs[:3]
+    dt = packed["w0"].dtype
+    x, errs = ff.pack_x(spec, enc, dt), {}
+    for heads_on in (True, False):
+        sp = dataclasses.replace(spec, heads_on=heads_on, trunk_bwd="stored")
+        tag = "heads_on" if heads_on else "heads_off"
+        aux = ff.pack_aux(sp, sun, te, None, dt)
+        runs = [ff._forward(sp, x, aux, packed, resid=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(all(torch.equal(u, v) for u, v in zip(*runs)), f"{key} K1 {tag}: two runs differ")
+        out, shared, acts = runs[0]
+        ref, ref_shared, ref_acts = ff._reference_forward(sp, x, aux, packed, True)
+        errs[f"k1/{tag}"] = float((out - ref).abs().max())
+        check(errs[f"k1/{tag}"] <= TOL_FIELD[dname], f"{key} K1 {tag} err {errs}")
+        errs[f"k1_residuals/{tag}"] = max(rel_err(shared, ref_shared), rel_err(acts, ref_acts))
+        check(errs[f"k1_residuals/{tag}"] <= TOL_RESID[dname], f"{key} K1 residuals {errs}")
+    return errs
+
+
+def input_widths_phase(dev, vocab: int, turns: list | None) -> dict:
+    """Encoded inputs past 64 wide (INPUT_FREQS: c_in 66, 72, 96, 126) at
+    every trunk width (FEAT_WIDTHS) in f32 and bf16, INPUT_POINTS points:
+    K1 (k1_input_checks), K3 (with and without the pre-activations) and K4
+    (both engines, gx included; width_kernel_checks) against their plain
+    versions within today's bars; K1's, K3's and K4's device ms beside their
+    bounds at 512 wide and INPUT_TIME_FREQS; then the rs_semantic TOML at
+    POSENC_FREQ frequencies: five flagship training steps (train_phase: K1,
+    K2, K4, K5 and its backward every step, no plain version, a 32-ray step
+    against the CPU) and one 128 x 128 request (serve_variant_phase). With
+    ``turns``, K1-K4's outputs at c_in 60 against the parent build's: bitwise
+    equal."""
+    import torch
+
+    from satnerf_torch.configs import load_render_config
+    from satnerf_torch.models.field import Field, fused_field_spec, use_fused_field
+    from satnerf_torch.ops import _bwd, trunk
+    from satnerf_torch.ops.field_fused import KERNEL_WIDTHS
+
+    t_phase = time.monotonic()
+    cells, notes, times = {}, [], {}
+    before = read_counters()[0]
+    cases = [(f, w) for f in INPUT_FREQS for w in trunk.FEAT_WIDTHS]
+    cases += [(f, 512) for f in INPUT_TIME_FREQS if f not in INPUT_FREQS]
+    for n_freq, feat in cases:
+        fl = feat // 2 if (feat, feat // 2) in KERNEL_WIDTHS else feat
+        key = f"c{6 * n_freq}/{feat}x{fl}"
+        rcfg = load_render_config(PIPELINE_TOML, device=dev, trunk_impl="pallas", fc_units=feat,
+                                  fc_use_full_features=fl == feat, mapping_pos_n_freq=n_freq)
+        fcfg = rcfg.field
+        spec = fused_field_spec(fcfg)
+        check(use_fused_field(fcfg) and fcfg.feat_last == fl and spec.c_in == 6 * n_freq
+              and _bwd.padded_k(spec.cx) <= trunk.TC_MAX_K, f"{key} route")
+        field = Field(fcfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+        inputs = _width_inputs(fcfg, INPUT_POINTS, n_freq + feat, dev)
+        with torch.no_grad():
+            for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                packed = field.packed(dt)
+                if n_freq in INPUT_FREQS:
+                    cells.setdefault(key, {})[dname] = {
+                        **k1_input_checks(key, spec, packed, inputs, dname),
+                        **width_kernel_checks(key, spec, False, packed, inputs, dname,
+                                              INPUT_POINTS, notes)}
+                if feat == 512 and n_freq in INPUT_TIME_FREQS:
+                    times.setdefault(f"c{6 * n_freq}", {})[dname] = {
+                        **width_times(spec, True, packed, inputs, dname,
+                                      only=("field_fused", "trunk_bwd")),
+                        **width_times(spec, False, packed, inputs, dname, only=("trunk_fwd",))}
+        del field, inputs
+        torch.cuda.empty_cache()
+    after = read_counters()[0]
+    check_launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    checks_s = time.monotonic() - t_phase
+
+    step = train_phase(dev, vocab, f"train_posenc{POSENC_FREQ}",
+                       {"mapping_pos_n_freq": POSENC_FREQ}, PER_STEP, stored_check=False)
+    fcfg = step["scfg"].render.field
+    check(fcfg.xyz_in == 6 * POSENC_FREQ and use_fused_field(fcfg),
+          f"posenc step field c_in {fcfg.xyz_in}")
+    serve = serve_variant_phase(f"serve_posenc{POSENC_FREQ}", dev, step["scfg"].render,
+                                step["params"], vocab,
+                                {"field_fused": 1, "trunk_fwd": 0, "composite": 1,
+                                 "trunk_fwd_interleaved": 0})
+    parent = None
+    if turns:
+        bitwise = parent_outputs_bitwise()
+        mine, theirs = turn_means(turns)
+        parent = {"outputs_bitwise_parent_c_in_60": bitwise,
+                  "forward_kernels": {t["tree"]: t["build"].get("forward_kernels")
+                                      for t in turns[:2]},
+                  "this_ms_c_in_60": {k: v for k, v in mine.items()
+                                      if k.split("/")[0] in PARENT_KERNEL_KEYS},
+                  "parent_ms_c_in_60": {k: v for k, v in theirs.items()
+                                        if k.split("/")[0] in PARENT_KERNEL_KEYS}}
+        check(all(bitwise.values()), f"K1-K4 at c_in 60 differ from the parent build's: "
+                                     f"{bitwise}")
+    line = {"phase": "input_widths", "freqs": INPUT_FREQS,
+            "c_in": [6 * f for f in INPUT_FREQS], "feat": trunk.FEAT_WIDTHS,
+            "points": INPUT_POINTS, "errors": cells, "notes": notes, "times_512": times,
+            "check_launches": check_launches,
+            "posenc_step": {"launches": step["launches"], "n_freq": POSENC_FREQ},
+            "posenc_serve": serve, "parent": parent, "checks_seconds": checks_s,
+            "seconds": time.monotonic() - t_phase,
+            "tol": {"forward": TOL_FIELD, "backward": TOL_FIELD_BWD, "residuals": TOL_RESID}}
+    emit(line)
     return line
 
 
@@ -4705,6 +4875,10 @@ def main() -> int:
     # the examples' 2 x 128 step ----
     widths = widths_phase(dev, vocab, turns, per_lib)
     marks.append(("widths", time.monotonic()))
+    # ---- 13c. encoded inputs past 64 wide at every trunk width, and the
+    # rs_semantic TOML trained and served at 12 frequencies ----
+    input_widths = input_widths_phase(dev, vocab, turns)
+    marks.append(("input_widths", time.monotonic()))
 
     # ---- 14-20. the training CLI on a generated scene, resume, serving its best;
     # the eval battery on that run; the run served by view name over HTTP; its
@@ -4760,6 +4934,8 @@ def main() -> int:
                 "sweep": sweep["launches"][kernel], "prep_scene": prep["launches"][kernel],
                 "widths_cli_8x256": widths["cli"]["launches"][kernel],
                 "widths_examples_step_2x128": widths["examples_step"]["launches"][kernel],
+                f"train_posenc{POSENC_FREQ}": input_widths["posenc_step"]["launches"][kernel],
+                f"serve_posenc{POSENC_FREQ}": input_widths["posenc_serve"]["launches"][kernel],
                 "prep_scene_eval": prep["eval_launches"][kernel],
                 "quality_tools": quality["launches"][kernel],
                 "quality_tools_sin_swap": quality["sin_swap_launches"][kernel],
@@ -4899,6 +5075,16 @@ def main() -> int:
         if entry["name"] in widths["by_kernel"]:
             # device ms, bound and launches at each width below 512 (phase widths)
             entry["widths"] = widths["by_kernel"][entry["name"]]
+        # device ms and bound at 512 wide by encoded input width, and the
+        # launches of phase input_widths' checks and timings
+        by_c_in = {c: {d: {k: rows[entry["name"]][k] for k in ("ms", "bound_ms", "bound_by")}
+                       for d, rows in per.items() if entry["name"] in rows}
+                   for c, per in input_widths["times_512"].items()}
+        if any(by_c_in.values()):
+            entry["input_widths"] = {
+                "padded_c_in_max": ff.trunk.TC_MAX_K,
+                "check_launches": input_widths["check_launches"].get(entry["name"], 0),
+                "times_512": by_c_in}
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -41,9 +41,11 @@
 // Widths: the (feat, feat_last) pairs of `admitted` below, every trunk width
 // the TPU kernel takes up to 512 (feat % 128 == 0, field_fused.py:96) with
 // the heads of field.py's rule (feat_last = feat or feat / 2, a multiple of
-// 128). One kernel per dtype takes them all: the widths are run-time values
-// of the pass loop (trunk_tc.cuh), and a 128- or 384-wide layer ends with a
-// 128-column pass.
+// 128), and every encoded input it takes (c_in <= 128, trunk.py:83: 16 to 128
+// after padding, mapping_pos_n_freq up to 21). One kernel per dtype takes
+// them all: the widths are run-time values of the pass loop and of the x
+// tile (trunk_tc.cuh), and a 128- or 384-wide layer ends with a 128-column
+// pass.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -133,29 +135,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ unsigned char smem_raw[];
   using S = Smem<T>;
   const int F = a.feat, FL = a.fl, ldh = S::ldh(F);
-  unsigned char* smem = align1024(smem_raw);
+  const int kx = round16(a.cx), ka = round16(a.aux_w), ldx = S::ldx(kx);
+  unsigned char* smem = align_up(smem_raw, S::kAlign);
   T* H = reinterpret_cast<T*>(smem);
   T* X = H + kRows * ldh;
-  T* AX = X + kRows * S::kLdx;
+  // the output accumulators and the aux tile take the x tile's room once the
+  // trunk is done with x
+  float* keep = reinterpret_cast<float*>(X);
+  T* AX = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(X) + S::kKeep);
   const int row0 = blockIdx.x * kRows;
   const int mode = a.sin_mode;
-  const int kx = round16(a.cx), ka = round16(a.aux_w);
 
-  Ring r = make_ring<T>(smem, F);
+  Ring r = make_ring<T>(smem, F, kx, true);
   produce<T>(pl, r);  // the first two chunks of the stream
   produce<T>(pl, r);
-  load_tile(X, S::kLdx, kx, static_cast<const T*>(a.x), a.cx, row0, a.n);
-  load_tile(AX, S::kLda, ka, static_cast<const T*>(a.aux), a.aux_w, row0, a.n);
-  // (the first layer's barrier publishes the tiles)
+  load_tile(X, ldx, kx, static_cast<const T*>(a.x), a.cx, row0, a.n);
+  // (the first layer's barrier publishes the tile)
 
-  const ATile<T> Xt{X, S::kLdx}, Ht{H, ldh}, At{AX, S::kLda}, none{nullptr, 0};
-  // the output accumulators live in the x tile once the trunk is done with it
-  float* keep = reinterpret_cast<float*>(X);
-  // the trunk, sigma from h_{L-1} and feats in place in H: jobs 0 ..
-  // passes(F) (L + 2) - 1
+  const ATile<T> Xt{X, ldx}, Ht{H, ldh}, At{AX, S::kLda}, none{nullptr, 0};
+  // the trunk, sigma from h_{L-1} (into keep, after the last read of x) and
+  // feats in place in H: jobs 0 .. passes(F) (L + 2) - 1
   run_trunk<T, true>(a, pl, r, Xt, H, static_cast<T*>(a.acts_out),
                      static_cast<T*>(a.shared_out), row0, keep,
                      static_cast<const float*>(a.b_feats));
+  // (the first head pass's barrier publishes the tile)
+  load_tile(AX, S::kLda, ka, static_cast<const T*>(a.aux), a.aux_w, row0, a.n);
 
   // the FL-wide hidden layers in plan order: rgb, sky, beta, semantic (each
   // pass projected), then the sun-visibility chain sv0, sv1 in place in H
@@ -238,7 +242,7 @@ template <typename T>
 int launch(const FieldArgs& a, cudaStream_t stream) {
   Plan pl;
   if (const int err = build_plan<T>(a, pl)) return err;
-  const int smem = Smem<T>::bytes(a.feat);
+  const int smem = Smem<T>::bytes(a.feat, round16(a.cx), true);
   auto kern = field_fused_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -250,7 +254,7 @@ int launch(const FieldArgs& a, cudaStream_t stream) {
 
 extern "C" int field_fused_forward(const FieldArgs* a, cudaStream_t stream) {
   if (a->n <= 0) return 0;
-  if (a->cx <= 0 || round16(a->cx) > kMaxK || a->aux_w <= 0 || a->aux_w > 16 ||
+  if (a->cx <= 0 || round16(a->cx) > kMaxX || a->aux_w <= 0 || a->aux_w > 16 ||
       a->layers < 1 || (a->skip_mask & 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a->acts_out != nullptr && a->shared_out == nullptr) return static_cast<int>(cudaErrorInvalidValue);

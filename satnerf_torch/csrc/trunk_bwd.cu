@@ -22,7 +22,7 @@
 //                     then, for both engines, one launch per layer of the
 //                     reverse sweep (B = the packed (in, out) weight as it
 //                     is; the "stored" engine rebuilds h_i = sin(a_i) in the
-//                     same launch) and one for gx (input padded to 64);
+//                     same launch) and one for gx (64 or 128 wide);
 //   trunk_bwd_reduce  every gW and gb: 128x128 tiles of dW over chunks of
 //                     rows, each gb folded into the pass that stages its ga
 //                     (f32), then the chunks added in order.

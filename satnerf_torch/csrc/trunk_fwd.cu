@@ -32,9 +32,11 @@
 // parts (ops/trunk.py:tc_split_weights). It is off every path.
 //
 // Widths: K3 takes every trunk width the TPU kernel takes up to 512
-// (feat % 128 == 0, trunk.py:82), as run-time values of one kernel per dtype
-// (satnerf_torch/ops/trunk.py FEAT_WIDTHS); K6 is built for feat 512 alone
-// (kIlFeat, ops/trunk.py IL_FEAT_WIDTHS).
+// (feat % 128 == 0, trunk.py:82) and every encoded input (c_in <= 128,
+// trunk.py:83), as run-time values of one kernel per dtype
+// (satnerf_torch/ops/trunk.py FEAT_WIDTHS, TC_MAX_K); K6 is built for feat
+// 512 alone (kIlFeat, ops/trunk.py IL_FEAT_WIDTHS) and at most 64 padded
+// inputs (ws::kMaxX, IL_MAX_K).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -70,15 +72,16 @@ __global__ void __launch_bounds__(fw::kThreads, 1)
     trunk_fwd_kernel(const __grid_constant__ TrunkArgs a, const __grid_constant__ fw::Plan pl) {
   extern __shared__ unsigned char smem_raw[];
   using S = fw::Smem<T>;
-  unsigned char* smem = fw::align1024(smem_raw);
+  const int kx = fw::round16(a.cx), ldx = S::ldx(kx);
+  unsigned char* smem = fw::align_up(smem_raw, S::kAlign);
   T* H = reinterpret_cast<T*>(smem);
   T* X = H + fw::kRows * S::ldh(a.feat);
   const int row0 = blockIdx.x * fw::kRows;
-  fw::Ring r = fw::make_ring<T>(smem, a.feat);
+  fw::Ring r = fw::make_ring<T>(smem, a.feat, kx, false);
   fw::produce<T>(pl, r);  // the first two chunks of the stream
   fw::produce<T>(pl, r);
-  fw::load_tile(X, S::kLdx, fw::round16(a.cx), static_cast<const T*>(a.x), a.cx, row0, a.n);
-  fw::run_trunk<T, false>(a, pl, r, fw::ATile<T>{X, S::kLdx}, H, static_cast<T*>(a.acts_out),
+  fw::load_tile(X, ldx, kx, static_cast<const T*>(a.x), a.cx, row0, a.n);
+  fw::run_trunk<T, false>(a, pl, r, fw::ATile<T>{X, ldx}, H, static_cast<T*>(a.acts_out),
                           static_cast<T*>(a.out), row0, nullptr, nullptr);
 }
 
@@ -90,7 +93,7 @@ __global__ void __launch_bounds__(ws::kThreads, 1)
   extern __shared__ unsigned char smem_raw[];
   using S = ws::Smem<T, F>;
   constexpr int kSlots = ws::Ring<T>::kSlots;
-  unsigned char* smem = fw::align1024(smem_raw);
+  unsigned char* smem = fw::align_up(smem_raw, 1024u);
   T* H = reinterpret_cast<T*>(smem);
   T* X = H + fw::kRows * S::kLdh;
   const uint32_t ring = tc::smem_u32(smem + S::kRing);
@@ -117,13 +120,12 @@ template <typename T>
 int launch(const TrunkArgs& a, cudaStream_t stream) {
   fw::Plan pl;
   pl.njobs = 0;
-  if (!fw::width_ok(a.feat) || fw::passes(a.feat) * a.layers > fw::kMaxJobs ||
-      fw::round16(a.cx) > fw::kMaxK)
+  const int kx = fw::round16(a.cx);
+  if (!fw::width_ok(a.feat) || fw::passes(a.feat) * a.layers > fw::kMaxJobs || kx > fw::kMaxX)
     return static_cast<int>(cudaErrorInvalidValue);
-  fw::add_trunk_jobs(pl, sizeof(T), a.layers, a.feat, fw::round16(a.cx), a.skip_mask, a.w0,
-                     a.w_mid, a.w_skip);
+  fw::add_trunk_jobs(pl, sizeof(T), a.layers, a.feat, kx, a.skip_mask, a.w0, a.w_mid, a.w_skip);
   if (const int err = fw::check_plan(pl)) return err;
-  const int smem = fw::Smem<T>::bytes(a.feat);
+  const int smem = fw::Smem<T>::bytes(a.feat, kx, false);
   auto kern = trunk_fwd_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -134,7 +136,7 @@ int launch(const TrunkArgs& a, cudaStream_t stream) {
 template <typename T>
 int launch_il(const TrunkArgs& a, cudaStream_t stream) {
   constexpr bool f32 = sizeof(T) == 4;
-  if (a.feat != kIlFeat || fw::round16(a.cx) > fw::kMaxK ||
+  if (a.feat != kIlFeat || fw::round16(a.cx) > ws::kMaxX ||
       f32 != (a.w0_lo != nullptr && a.w_mid_lo != nullptr && a.w_skip_lo != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = ws::Smem<T, kIlFeat>::kBytes;

@@ -5,8 +5,9 @@
 //
 // A block of two warpgroups owns a 64-row tile of points. Its activations
 // stay in shared memory for the whole field: the (64, F) tile H in the
-// compute dtype, written in place by every layer, beside the x and aux
-// tiles. Every product runs on wgmma, in passes of 256 output columns:
+// compute dtype, written in place by every layer, beside the x tile (as wide
+// as the padded input, 16 to 128) and, in K1 once the trunk is done with x,
+// the aux tile. Every product runs on wgmma, in passes of 256 output columns:
 // warpgroup g computes columns [256 p + 128 g, 256 p + 128 (g + 1)) of pass
 // p for all 64 rows (m64n128), so a 512-wide layer takes two passes; a width
 // that is an odd multiple of 128 (128, 384) ends with a pass of 128 columns,
@@ -82,7 +83,9 @@ constexpr int kMaxJobs = 64;
 constexpr int kPassCols = 256;  // output columns of one pass, 128 per warpgroup
 constexpr int kNW = kPassCols / 2;
 constexpr int kTailCols = 128;  // the last pass of an odd multiple of 128: 64 per warpgroup
-constexpr int kMaxK = 64;       // widest x (and aux) tile: K after padding to 16
+// widest x tile: K after padding to 16; the JAX kernels take any c_in <= 128
+// (satnerf_tpu/ops/pallas/trunk.py:83)
+constexpr int kMaxX = 128;
 
 enum Act { kLinear = 0, kSine = 1, kRelu = 2 };
 
@@ -188,27 +191,46 @@ inline int check_plan(const Plan& pl) {
   return 0;
 }
 
-// shared memory of an F-wide trunk: H (64, F), the x tile (64, kMaxK), the
-// aux tile (64, 16), the 1,024-byte aligned ring of two slots, their mbarriers
+// shared memory of an F-wide trunk with a kx-wide x tile: H (64, F); the x
+// tile (64, kx), whose room K1 (field) takes over once the trunk is done
+// with x for its output accumulators (kKeep bytes) and the aux tile (64,
+// 16); the ring of two slots, aligned to the 32-byte swizzle's period of 256
+// bytes (desc_sw32: every B tile starts at a multiple of it); their
+// mbarriers. In f32 at F 512 a 128-wide x tile leaves 752 bytes of the
+// 232,448 a block may have: neither the aux tile beside it nor a 1,024-byte
+// alignment would fit.
 template <typename T>
 struct Smem {
-  static constexpr int kLdx = kMaxK + Tc<T>::kPad;
   static constexpr int kLda = 16 + Tc<T>::kPad;
   static constexpr int kSlot = Tc<T>::kParts * kPart;
+  static constexpr int kKeep = kThreads * 8 * 4;  // 8 f32 accumulators a thread
+  static constexpr int kAlign = 256;
   __host__ __device__ static constexpr int ldh(int F) { return F + Tc<T>::kPad; }
-  __host__ __device__ static constexpr int ring(int F) {
-    return (kRows * (ldh(F) + kLdx + kLda) * static_cast<int>(sizeof(T)) + 1023) / 1024 * 1024;
+  __host__ __device__ static constexpr int ldx(int kx) { return kx + Tc<T>::kPad; }
+  __host__ __device__ static constexpr int x_room(int kx, bool field) {
+    const int x = kRows * ldx(kx) * static_cast<int>(sizeof(T));
+    const int keep_aux = field ? kKeep + kRows * kLda * static_cast<int>(sizeof(T)) : 0;
+    return x > keep_aux ? x : keep_aux;
   }
-  __host__ __device__ static constexpr int bars(int F) { return ring(F) + 2 * kSlot; }
+  __host__ __device__ static constexpr int ring(int F, int kx, bool field) {
+    return (kRows * ldh(F) * static_cast<int>(sizeof(T)) + x_room(kx, field) + kAlign - 1) /
+           kAlign * kAlign;
+  }
+  __host__ __device__ static constexpr int bars(int F, int kx, bool field) {
+    return ring(F, kx, field) + 2 * kSlot;
+  }
   // + the base's alignment
-  __host__ __device__ static constexpr int bytes(int F) { return bars(F) + 16 + 1024; }
+  __host__ __device__ static constexpr int bytes(int F, int kx, bool field) {
+    return bars(F, kx, field) + 16 + kAlign;
+  }
 };
 
-// p (dynamic shared memory) rounded up to a 1,024-byte shared address, by
-// pointer arithmetic: every pointer derived from it stays a shared-memory
-// pointer to the compiler (32-bit addresses, LDS/STS)
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024u - (tc::smem_u32(p) & 1023u)) & 1023u);
+// p (dynamic shared memory) rounded up to a multiple of `align` bytes (a
+// power of two) of shared address, by pointer arithmetic: every pointer
+// derived from it stays a shared-memory pointer to the compiler (32-bit
+// addresses, LDS/STS)
+__device__ __forceinline__ unsigned char* align_up(unsigned char* p, uint32_t align) {
+  return p + ((align - (tc::smem_u32(p) & (align - 1))) & (align - 1));
 }
 
 template <typename T>
@@ -234,12 +256,12 @@ __device__ __forceinline__ unsigned char* slot_ptr(const Ring& r, int i) {
   return r.ptr + (i & 1) * (Tc<T>::kParts * kPart);
 }
 
-// the ring of an F-wide trunk at `smem` (Smem<T>::ring(F) bytes in), its
-// mbarriers initialised
+// the ring at `smem` + Smem<T>::ring(F, kx, field), its mbarriers initialised
 template <typename T>
-__device__ __forceinline__ Ring make_ring(unsigned char* smem, int F) {
+__device__ __forceinline__ Ring make_ring(unsigned char* smem, int F, int kx, bool field) {
   using S = Smem<T>;
-  Ring r{smem + S::ring(F), tc::smem_u32(smem + S::ring(F)), tc::smem_u32(smem + S::bars(F)),
+  const int at = S::ring(F, kx, field);
+  Ring r{smem + at, tc::smem_u32(smem + at), tc::smem_u32(smem + S::bars(F, kx, field)),
          0, 0, 0, 0};
   if (threadIdx.x == 0) {
     tc::mbar_init(r.bar, 1);

@@ -103,12 +103,15 @@ __device__ __forceinline__ uint32_t slot_addr(uint32_t ring, int j) {
     return ring + j * (kChunk * kStep);
 }
 
-// H (64, F), the x tile (64, fwd::kMaxK), the 1,024-byte aligned ring, the
+// K6's widest x tile: K after padding to 16 (K3 takes up to fwd::kMaxX)
+constexpr int kMaxX = 64;
+
+// H (64, F), the x tile (64, kMaxX), the 1,024-byte aligned ring, the
 // full and empty mbarriers
 template <typename T, int F>
 struct Smem {
   static constexpr int kLdh = F + Tc<T>::kPad;
-  static constexpr int kLdx = fwd::kMaxK + Tc<T>::kPad;
+  static constexpr int kLdx = kMaxX + Tc<T>::kPad;
   static constexpr int kTiles = fwd::kRows * (kLdh + kLdx) * static_cast<int>(sizeof(T));
   static constexpr int kRing = (kTiles + 1023) / 1024 * 1024;
   static constexpr int kBars = kRing + kRingBytes;

@@ -603,7 +603,8 @@ def _check_cuda(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor) -> None:
     if x.dtype not in (torch.float32, torch.bfloat16) or aux.dtype != x.dtype:
         raise ValueError(f"fused_field: x {x.dtype} / aux {aux.dtype} unsupported")
     if _bwd.padded_k(spec.cx) > trunk.TC_MAX_K or spec.aux_w > G_AUX_W:
-        raise ValueError(f"fused_field kernel takes at most {trunk.TC_MAX_K} inputs and "
+        raise ValueError(f"fused_field kernel takes encoded inputs up to {trunk.TC_MAX_K} "
+                         f"wide after padding to 16 (c_in <= 128, as the JAX kernels) and "
                          f"{G_AUX_W} aux columns, got {spec.cx} / {spec.aux_w}")
     n = x.shape[0]
     if x.shape != (n, spec.cx) or aux.shape != (n, spec.aux_w):

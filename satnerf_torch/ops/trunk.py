@@ -60,7 +60,11 @@ FEAT_WIDTHS = (128, 256, 384, 512)
 IL_FEAT_WIDTHS = (512,)  # K6's one width (csrc/trunk_fwd.cu kIlFeat)
 GX_WIDTHS = (64, 128)  # padded input widths of the gx launch (csrc/trunk_bwd.cu)
 TRUNK_KEYS = ("w0", "w_mid", "w_skip", "b")
-TC_MAX_K = 64  # widest padded input the tensor-core forward kernels take
+# widest encoded input K1 and K3 take after padding to 16: every c_in the TPU
+# kernels take (c_in <= 128, satnerf_tpu/ops/pallas/trunk.py:83), so every
+# mapping_pos_n_freq up to 21 (csrc/trunk_tc.cuh kMaxX)
+TC_MAX_K = 128
+IL_MAX_K = 64  # K6's widest padded input (csrc/trunk_ws.cuh kMaxX)
 
 
 def dot_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -336,7 +340,9 @@ def _forward(spec, x, packed, emit_acts: bool):
         return fused_trunk_reference(spec, x, packed, emit_acts)
     _check_forward("fused_trunk", spec, x, packed)
     if _bwd.padded_k(spec.cx) > TC_MAX_K:
-        raise ValueError(f"fused_trunk kernel takes at most {TC_MAX_K} inputs, got {spec.cx}")
+        raise ValueError(f"fused_trunk kernel takes encoded inputs up to {TC_MAX_K} wide "
+                         f"after padding to 16 (c_in <= 128, as the JAX kernels), "
+                         f"got {spec.cx}")
     n, dev = x.shape[0], x.device
     out = torch.empty((n, spec.feat), dtype=x.dtype, device=dev)
     acts = (torch.empty((spec.layers, n, spec.feat), dtype=x.dtype, device=dev)
@@ -404,8 +410,9 @@ def fused_trunk_interleaved(spec, x: torch.Tensor, packed: dict,
     if spec.feat not in IL_FEAT_WIDTHS:
         raise ValueError(f"{name} kernel is built for feat in {IL_FEAT_WIDTHS}, "
                          f"got {spec.feat}")
-    if _bwd.padded_k(spec.cx) > TC_MAX_K:
-        raise ValueError(f"{name} kernel takes at most {TC_MAX_K} inputs, got {spec.cx}")
+    if _bwd.padded_k(spec.cx) > IL_MAX_K:
+        raise ValueError(f"{name} kernel takes encoded inputs up to {IL_MAX_K} wide after "
+                         f"padding to 16, got {spec.cx}")
     if emit_acts:
         raise ValueError(f"{name} writes no pre-activations (emit_acts)")
     if x.device.type == "cpu":
@@ -482,7 +489,7 @@ def _trunk_backward_cuda(spec, x, packed, acts, g_shared, need_gx: bool):
     reduction (csrc/trunk_bwd.cu). The row GEMM takes W^T (out, in) for the
     forward layers and the packed (in, out) weight as it is for the sweep and
     gx; x and the rows of w0 / w_skip are padded with zeros to a multiple of
-    16 once (c_in 60 -> 64). In f32 each weight is split into tf32 hi + lo
+    16 once (c_in 60 -> 64, 72 -> 80; gx 64 or 128 wide). In f32 each weight is split into tf32 hi + lo
     here, once per backward."""
     dt, L, F, n = x.dtype, spec.layers, spec.feat, x.shape[0]
     bf16 = dt == torch.bfloat16

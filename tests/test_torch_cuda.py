@@ -777,6 +777,119 @@ def test_cuda_unbuilt_width_raises(cuda_device):
     assert fld.PLAIN_CALLS == before
 
 
+# encoded inputs wider than 64: mapping_pos_n_freq 11, 12, 16 and 21 give
+# c_in 66, 72, 96 and 126 (80, 80, 96 and 128 after padding to 16), all
+# inside the JAX kernels' c_in <= 128
+INPUT_FREQS = (11, 12, 16, 21)
+
+
+def _input_width_case(cuda_device, n_freq, feat, n=1001):
+    """A 4-layer field (skip at 2) ``feat`` wide whose heads K1 takes (half
+    the width where that is a multiple of 128, else all of it), at
+    ``n_freq`` frequencies, and seeded inputs for K1, K3 and K4."""
+    from satnerf_torch.core.encoding import positional_encoding
+    from satnerf_torch.models.field import Field, FieldConfig, fused_field_spec, use_fused_field
+
+    cfg = FieldConfig(variant="rs_semantic", layers=4, feat=feat, skips=(2,), mapping=True,
+                      mapping_pos_n_freq=n_freq, use_tj_for_s=True, trunk_impl="pallas",
+                      fc_use_full_features=(feat // 2) % 128 != 0)
+    assert cfg.xyz_in == 6 * n_freq and use_fused_field(cfg)
+    field = Field(cfg, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    g = torch.Generator().manual_seed(n_freq)
+    enc = positional_encoding(torch.rand(n, 3, generator=g) * 2 - 1, n_freq)
+    sun = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1)
+    te = torch.randn(n, 4, generator=g)
+    cot = torch.randn(n, feat, generator=g)
+    return field, fused_field_spec(cfg), [t.to(cuda_device) for t in (enc, sun, te, cot)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("feat", TRUNK_WIDTHS)
+@pytest.mark.parametrize("n_freq", INPUT_FREQS)
+def test_cuda_input_widths_match_plain(cuda_device, n_freq, feat, dtype, record_property):
+    """K1 (both head variants, with the "stored" residuals), K3 (with the
+    pre-activations) and K4 (both engines, gx included) at encoded inputs
+    past 64 wide, at every trunk width, against their plain versions on
+    1,001 points (ragged against the 64-row tile), each at the bars of the
+    tests above at c_in 60, and bitwise repeatable."""
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    field, spec, (enc, sun, te, cot) = _input_width_case(cuda_device, n_freq, feat)
+    f32 = dtype == torch.float32
+    tol, tol_rel = (5e-5, 5e-5) if f32 else (2e-2, 4e-2)
+    errs = {}
+    with torch.no_grad():
+        packed = field.packed(dtype)
+        x = ff.pack_x(spec, enc, dtype)
+        aux = ff.pack_aux(spec, sun, te, None, dtype)
+        assert x.shape[1] == spec.cx and trunk._bwd.padded_k(spec.cx) > 64
+        for heads_on in (True, False):
+            sp = dataclasses.replace(spec, heads_on=heads_on, trunk_bwd="stored")
+            before = ff.LAUNCHES
+            out, shared, acts = ff._forward(sp, x, aux, packed, resid=True)
+            again = ff._forward(sp, x, aux, packed, resid=True)
+            torch.cuda.synchronize()
+            assert ff.LAUNCHES == before + 2
+            assert all(torch.equal(a, b) for a, b in zip((out, shared, acts), again))
+            ref, ref_shared, ref_acts = ff._reference_forward(sp, x, aux, packed, True)
+            errs[f"k1/{heads_on}"] = float((out - ref).abs().max())
+            assert errs[f"k1/{heads_on}"] < tol, errs
+            assert _rel(shared, ref_shared) < tol_rel and _rel(acts, ref_acts) < tol_rel
+        before = trunk.FWD_LAUNCHES
+        h, pre = trunk._forward(spec, x, packed, True)
+        torch.cuda.synchronize()
+        assert trunk.FWD_LAUNCHES == before + 1
+        ref_h, ref_pre = trunk.fused_trunk_reference(spec, x, packed, True)
+        errs["k3"] = float((h.float() - ref_h.float()).abs().max())
+        assert errs["k3"] < tol and _rel(pre, ref_pre) < tol_rel, errs
+        g = cot.to(dtype)
+        for bwd, stored in (("recompute", None), ("stored", pre)):
+            sb = dataclasses.replace(spec, trunk_bwd=bwd)
+            before = trunk.LAUNCHES
+            runs = [trunk.trunk_backward(sb, x, packed, stored, g) for _ in range(2)]
+            torch.cuda.synchronize()
+            assert trunk.LAUNCHES == before + 2
+            assert all(torch.equal(a, b) for a, b in zip(*runs))
+            ref = trunk.trunk_backward_reference(sb, x, packed, stored, g)
+            assert runs[0][0].shape == x.shape
+            errs[f"k4/{bwd}"] = max(_rel(a, b) for a, b in zip(runs[0], ref))
+            # bf16: as for K1/K2 above, one-ulp flips of an activation
+            assert errs[f"k4/{bwd}"] < (1e-4 if f32 else 2e-2), errs
+    record_property("errors", errs)
+
+
+@pytest.mark.cuda
+def test_cuda_input_width_past_128_raises(cuda_device):
+    """Past the JAX kernels' c_in <= 128 (22 frequencies: 132) both packages
+    route the field layer by layer; K1 and K3 called on such a field raise
+    with the widths they take, and K6 raises past its 64."""
+    from satnerf_torch.models.field import (Field, FieldConfig, fused_field_spec,
+                                            use_fused_field, use_fused_trunk)
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    cfg = FieldConfig(variant="rs_semantic", layers=4, feat=512, skips=(2,), mapping=True,
+                      mapping_pos_n_freq=22, trunk_impl="pallas")
+    assert cfg.xyz_in == 132 and not use_fused_field(cfg) and not use_fused_trunk(cfg)
+    spec = fused_field_spec(cfg)
+    n, f32 = 70, torch.float32
+    x = torch.zeros(n, spec.cx, device=cuda_device)
+    aux = torch.zeros(n, spec.aux_w, device=cuda_device)
+    launches = (ff.LAUNCHES, trunk.FWD_LAUNCHES, trunk.INTERLEAVED_LAUNCHES)
+    with torch.no_grad():
+        packed = Field(cfg).to(cuda_device).packed(f32)
+        with pytest.raises(ValueError, match="up to 128 wide"):
+            ff._forward(spec, x, aux, packed, resid=False)
+        with pytest.raises(ValueError, match="up to 128 wide"):
+            trunk.fused_trunk(spec, x, packed)
+        field, spec66, (enc, *_) = _input_width_case(cuda_device, 11, 512, n=n)
+        with pytest.raises(ValueError, match="up to 64 wide"):
+            trunk.fused_trunk_interleaved(spec66, ff.pack_x(spec66, enc, f32), field.packed(f32))
+    assert (ff.LAUNCHES, trunk.FWD_LAUNCHES, trunk.INTERLEAVED_LAUNCHES) == launches
+
+
 @pytest.fixture
 def cuda_run(cuda_device, tmp_path):
     """A 4x512 port run trained 8 steps on the card (its validation saves

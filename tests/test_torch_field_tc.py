@@ -144,10 +144,11 @@ def emulate_field(spec, x, aux, prepared, resid: bool = False):
 # -- against the JAX kernel ----------------------------------------------------------
 
 
-def _case(dtype: str, heads_on: bool, full: bool, n: int = N_POINTS):
+def _case(dtype: str, heads_on: bool, full: bool, n: int = N_POINTS, **cfg):
     """(JAX raw columns, emulated raw columns, the torch case) at flagship
-    widths; ``full``: 512-wide heads (fc_use_full_features)."""
-    jcfg, params, tcfg, module = field_pair(**FLAGSHIP, fc_use_full_features=full)
+    widths; ``full``: 512-wide heads (fc_use_full_features); ``cfg``: other
+    FieldConfig keys (mapping_pos_n_freq)."""
+    jcfg, params, tcfg, module = field_pair(**FLAGSHIP, fc_use_full_features=full, **cfg)
     xyz, sun, _, te, _ = field_inputs(n)
     jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32

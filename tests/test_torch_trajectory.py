@@ -5,18 +5,19 @@ over by ``params_from_jax``) and take the same training steps on the same
 batches, on the deterministic ladder (JAX ``key=None``, no generator in the
 port), under the "step" LR schedule. The run crosses every switch of a
 training run: the depth drop, the beta gate (epoch 2) and the car-reg start
-(epoch 3). Cases: rs_semantic, satnerf, rs_semantic with ``sc_stride`` 2 and
+(epoch 3). Cases: rs_semantic, satnerf, rs_semantic with ``sc_stride`` 2,
 rs_semantic with the hierarchical pass (``n_importance`` 8 inverse-CDF depths
-on the deterministic ladder, a fine field apart, ``remat_chunks`` 2) on a
-seeded ray pool, batches drawn by one index stream; and rs_semantic on
+on the deterministic ladder, a fine field apart, ``remat_chunks`` 2) and
+rs_semantic at 12 encoding frequencies (c_in 72, the JAX package's
+``--posenc-freq`` lever) on a seeded ray pool, batches drawn by one index stream; and rs_semantic on
 a generated scene whose batches each package draws from its own loaded
 dataset (RPC rays, normalisation, the tie-point depth set) through its own
 ray store and ``EpochSampler``, with its own pipeline's step configs and
 depth-drop step. That case first holds the two loaded datasets equal.
 
 Lengths. rs_semantic on the pool takes 120 steps (12 epochs of 10), the
-other three pool cases 60 (the depth drop and car-reg at step 30, the beta
-gate at 20). The dataset case takes 60 steps (max_train_steps 60: the depth
+hierarchical, satnerf and ``sc_stride`` 2 cases 60 (the depth drop and
+car-reg at step 30, the beta gate at 20), the 12-frequency case 40. The dataset case takes 60 steps (max_train_steps 60: the depth
 drop at 15, the beta gate at 36, car-reg from 54): past about step 75 its
 first trunk layer drifts from the JAX package's faster than a bar can
 follow (1.6e-4 of the tensor's largest element at step 120), while both
@@ -111,7 +112,7 @@ class _Pair:
         tparams = params_from_jax(jax.tree.map(np.asarray, params), tcfg, device="cpu")
         self.tstate = create_train_state(tparams, LR, "step", spe, epochs)
         self.tsteps = {d: tstep.build_train_step(c) for d, c in t_scfgs.items()}
-        self.tcfg = tcfg
+        self.jcfg, self.tcfg = jcfg, tcfg
         self.worst = {}
 
     def step(self, i: int, jbatch: dict, tbatch: dict, depth: bool) -> None:
@@ -146,9 +147,12 @@ class _Pair:
             assert err <= TOL_PARAM, (k, err)
 
 
-def _pool_case(variant: str, sc_stride: int, steps: int, hier: bool) -> _Pair:
+def _pool_case(variant: str, sc_stride: int, steps: int, hier: bool,
+               n_freq: int | None = None) -> _Pair:
     fkw = dict(variant=variant, layers=3, feat=64, skips=(1,),
                mapping=variant == "rs_semantic")
+    if n_freq is not None:
+        fkw["mapping_pos_n_freq"] = n_freq
     jcfg, tcfg = JFieldConfig(**fkw), FieldConfig(**fkw)
     rkw = dict(n_samples=N_SAMPLES, sc_stride=sc_stride, **(HIER if hier else {}))
     semantic = variant == "rs_semantic"
@@ -162,14 +166,18 @@ def _pool_case(variant: str, sc_stride: int, steps: int, hier: bool) -> _Pair:
     return _Pair(jcfg, tcfg, j_scfgs, t_scfgs, 5, SPE, steps // SPE, fine=hier)
 
 
-@pytest.mark.parametrize("variant,sc_stride,steps,hier", [
-    ("rs_semantic", 1, 120, False), ("satnerf", 1, 60, False), ("rs_semantic", 2, 60, False),
-    ("rs_semantic", 1, 60, True)],
-    ids=["rs_semantic", "satnerf", "rs_semantic-sc_stride2", "rs_semantic-hier"])
-def test_trajectory_matches_jax(variant, sc_stride, steps, hier):
+@pytest.mark.parametrize("variant,sc_stride,steps,hier,n_freq", [
+    ("rs_semantic", 1, 120, False, None), ("satnerf", 1, 60, False, None),
+    ("rs_semantic", 2, 60, False, None), ("rs_semantic", 1, 60, True, None),
+    ("rs_semantic", 1, 40, False, 12)],
+    ids=["rs_semantic", "satnerf", "rs_semantic-sc_stride2", "rs_semantic-hier",
+         "rs_semantic-posenc12"])
+def test_trajectory_matches_jax(variant, sc_stride, steps, hier, n_freq):
     """On one index stream over a seeded pool: the beta gate at step 20,
     the depth drop and car-reg at 30."""
-    pair = _pool_case(variant, sc_stride, steps, hier)
+    pair = _pool_case(variant, sc_stride, steps, hier, n_freq)
+    if n_freq is not None:
+        assert pair.tcfg.xyz_in == pair.jcfg.xyz_in == 6 * n_freq
     pool, depth = _pool()
     sampler = tdata.EpochSampler(POOL, RAYS, seed=0)
     dsampler = tdata.EpochSampler(DEPTH_POOL, DEPTH_RAYS, seed=1)

@@ -67,9 +67,17 @@ def _rel(a, b) -> float:
 
 @pytest.mark.parametrize("feat,fl", PAIRS, ids=[f"{a}x{b}" for a, b in PAIRS])
 def test_field_at_width_matches_jax(feat, fl):
-    kw = _kw(feat, fl)
+    tcfg = field_matches_jax(_kw(feat, fl))
+    assert tcfg.feat_last == fl
+
+
+def field_matches_jax(kw: dict):
+    """The port's field_forward against the JAX package's on the same
+    weights (numpy_pair) and N_POINTS seeded points: outputs within TOL_OUT,
+    every parameter gradient and the t-embedding's within TOL_GRAD of the
+    JAX VJP's for one fixed cotangent per output. -> the port's config."""
     jcfg, params, tcfg, module = numpy_pair(kw)
-    assert tcfg.feat_last == jcfg.feat_last == fl
+    assert tcfg.feat_last == jcfg.feat_last and tcfg.xyz_in == jcfg.xyz_in
     xyz, sun, _, te, _ = field_inputs(N_POINTS)
     g = np.random.default_rng(3)
 
@@ -96,6 +104,7 @@ def test_field_at_width_matches_jax(feat, fl):
     for k in want:
         assert _rel(grads[k], want[k]) < TOL_GRAD, k
     assert _rel(t_emb.grad, gt_j) < TOL_GRAD, "t_emb"
+    return tcfg
 
 
 @pytest.mark.parametrize("feat,fl", PAIRS + [(384, 192), (512, 256), (512, 512)])
