@@ -448,6 +448,16 @@ INPUT_FREQS = (11, 12, 16, 21)
 INPUT_POINTS = 65_536  # a training step's points
 INPUT_TIME_FREQS = (10, 12, 21)  # device ms at 512 wide: c_in 60 beside 72 and 126
 POSENC_FREQ = 12  # the JAX package's --posenc-freq lever (tools/syn_long_run.py:60-64)
+# phase head_widths: (tau, n_classes) past the 16 aux and 16 output columns,
+# to both of the JAX kernels' maxima (3 + 2 tau <= 128, 9 + n_classes <= 128),
+# at 512 wide with both head widths and at one width below
+HEAD_CASES = ((7, 8), (16, 12), (62, 119))
+HEAD_PAIRS = ((512, 256), (512, 512), (256, 128))
+HEAD_POINTS = 65_536
+HEAD_STEP = {"t_embedding_tau": 16}  # the flagship step at 12 classes
+HEAD_CLASSES = 12
+HEAD_SCENE = {"n_train": 4, "n_test": 1, "img_size": 48, "n_tie_points": 300}
+HEAD_CLI_STEPS = 18  # two epochs of the scene at the TOML's 1,024 rays
 # port_times keys of K1-K4 (at 512), read in turns with the parent's
 PARENT_KERNEL_KEYS = ("field_fused", "field_fused_serve", "heads_bwd", "trunk_bwd_recompute",
                       "trunk_bwd_stored", "trunk_fwd")
@@ -724,7 +734,8 @@ def field_backward_phase(field, fcfg, enc, sun_d, t_emb) -> dict:
     from satnerf_torch.ops import trunk
 
     n = enc.shape[0]
-    g_out = torch.randn(n, ff.OUT_W, generator=torch.Generator().manual_seed(3))
+    g_out = torch.randn(n, fused_field_spec(fcfg).out_w,
+                        generator=torch.Generator().manual_seed(3))
     g_out = g_out.to(enc.device)
     cases = {}
     worst_rel = {"heads": 0.0, "trunk": 0.0}
@@ -880,8 +891,10 @@ def composite_device_phase(turns: list | None, k5: dict) -> dict:
     return line
 
 
-def train_batch(n: int, n_depth: int, seed: int, vocab: int, device) -> dict:
-    """A seeded synthetic batch with every key a flagship step reads."""
+def train_batch(n: int, n_depth: int, seed: int, vocab: int, device,
+                n_classes: int = 5) -> dict:
+    """A seeded synthetic batch with every key a flagship step reads, its
+    labels drawn over ``n_classes`` classes."""
     import numpy as np
     import torch
 
@@ -896,7 +909,7 @@ def train_batch(n: int, n_depth: int, seed: int, vocab: int, device) -> dict:
     batch = {
         "rays": rays, "extras": extras,
         "rgbs": rng.uniform(0, 1, (n, 3)),
-        "semantic": rng.integers(0, 5, (n, 1)),
+        "semantic": rng.integers(0, n_classes, (n, 1)),
         "semantic_sparsity_mask": rng.uniform(size=n) > 0.1,
         "depth_rays": rays[:n_depth], "depth_extras": extras[:n_depth],
         "depth_depths": rng.uniform(0.5, 1.5, (n_depth,)),
@@ -1035,12 +1048,12 @@ def captured_launches(graph) -> dict:
 
 def train_phase(dev, vocab: int, name: str = "train", overrides: dict | None = None,
                 per_step: dict = PER_STEP, stored_check: bool = True,
-                preparations: int = 1) -> dict:
+                preparations: int = 1, n_classes: int = 5) -> dict:
     """Five training steps of the flagship step config (with ``overrides``
-    of its pipeline keys) through the kernels, each preparing the K1/K3
-    weights ``preparations`` times (once per field), then a 32-ray step
-    against the CPU plain path and, with ``stored_check``, a "stored"-engine
-    step."""
+    of its pipeline keys, ``n_classes`` semantic classes) through the
+    kernels, each preparing the K1/K3 weights ``preparations`` times (once
+    per field), then a 32-ray step against the CPU plain path and, with
+    ``stored_check``, a "stored"-engine step."""
     import dataclasses
     import math
 
@@ -1053,8 +1066,8 @@ def train_phase(dev, vocab: int, name: str = "train", overrides: dict | None = N
 
     p = load_pipeline_toml(PIPELINE_TOML)
     p.update(trunk_impl="pallas", **(overrides or {}))
-    scfg = step_config_from_pipeline(p, steps_per_epoch=1000, n_classes=5, car_index=4,
-                                     device=dev)
+    scfg = step_config_from_pipeline(p, steps_per_epoch=1000, n_classes=n_classes,
+                                     car_index=4, device=dev)
     # as bench.py:257-260: every loss term on from step 0
     scfg = dataclasses.replace(scfg, use_car_reg_loss=True, car_reg_loss_start=0,
                                first_beta_epoch=0)
@@ -1066,7 +1079,7 @@ def train_phase(dev, vocab: int, name: str = "train", overrides: dict | None = N
     start = copy_params(params, "cpu")
     state = create_train_state(params, LR, "step", scfg.steps_per_epoch)
     step = build_train_step(scfg)
-    batch = train_batch(TRAIN_RAYS, TRAIN_RAYS, 5, vocab, dev)
+    batch = train_batch(TRAIN_RAYS, TRAIN_RAYS, 5, vocab, dev, n_classes)
     gen = torch.Generator(device=dev).manual_seed(0)
 
     reset_counters()
@@ -1194,7 +1207,7 @@ def train_times_phase(dev, scfg, params, turns: list | None, k5: dict) -> dict:
         k1 = cuda_ms(lambda: ff._forward(spec, x, aux, packed, True), reps=3)
         k1p = cuda_ms(lambda: ff._reference_forward(spec, x, aux, packed, True), reps=2)
         k1_flops = 2.0 * spec.mac_per_point() * n
-        k1_bytes = io + w_bytes + n * (ff.OUT_W + spec.feat) * f4
+        k1_bytes = io + w_bytes + n * (out_cols(spec) + spec.feat) * f4
         bounds = op_bounds(k1_flops, "float32")
         ops_ms = bounds.pop("ops_ms")
         bytes_ms = k1_bytes / PEAK_HBM_BYTES * 1e3
@@ -1259,6 +1272,13 @@ def timed_blocks(rec: list):
         _bwd.row_op, _bwd.reduce_op = saved
 
 
+def out_cols(spec) -> int:
+    """Columns of the packed raw output: ``spec.out_w``; 16 in a parent
+    build from before the head widths (run by ``--tree``), whose FieldSpec
+    has no out_w and whose output was always 16 wide."""
+    return getattr(spec, "out_w", 16)
+
+
 def flagship_case(dev, enc_copies: int = 1) -> dict:
     """The flagship field from seed 0 and seeded inputs at the training shape
     (65,536 points; ``enc_copies`` times as many encoded positions): the
@@ -1267,8 +1287,7 @@ def flagship_case(dev, enc_copies: int = 1) -> dict:
 
     from satnerf_torch.configs import load_render_config
     from satnerf_torch.core.encoding import positional_encoding
-    from satnerf_torch.models.field import Field
-    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.models.field import Field, fused_field_spec
 
     rcfg = load_render_config(PIPELINE_TOML, device=dev, trunk_impl="pallas")
     fcfg = rcfg.field
@@ -1281,7 +1300,7 @@ def flagship_case(dev, enc_copies: int = 1) -> dict:
                                    fcfg.mapping_pos_n_freq).to(dev),
         "sun": torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1).to(dev),
         "te": torch.randn(n, fcfg.t_embedding_tau, generator=g).to(dev),
-        "g_out": torch.randn(n, ff.OUT_W, generator=g).to(dev),
+        "g_out": torch.randn(n, out_cols(fused_field_spec(fcfg)), generator=g).to(dev),
     }
 
 
@@ -1468,7 +1487,7 @@ def bwd_times(dev, turns: list | None) -> tuple:
         for dname in ("float32", "bfloat16"):
             esz = f4 if dname == "float32" else 2
             if key == "heads_bwd":  # shared, aux, g in; g_shared, g_aux, head grads out
-                nbytes = n * (2 * spec.feat + 2 * spec.aux_w) * esz + n * ff.OUT_W * f4 \
+                nbytes = n * (2 * spec.feat + 2 * spec.aux_w) * esz + n * spec.out_w * f4 \
                     + 2 * sum(packed[k].numel() for k in spec.head_keys()) * f4
             else:  # x, g_shared (and the stored pre-activations) in; gradients out
                 nbytes = n * (spec.cx + spec.feat) * esz + 2 * sum(
@@ -4013,9 +4032,10 @@ def tools_phase(dev) -> dict:
     return line
 
 
-def _width_inputs(fcfg, n: int, seed: int, dev) -> tuple:
-    """(encoded points, sun directions, t embeddings, a gradient of the 16
-    raw columns, a gradient of the trunk output) for ``n`` points, seeded."""
+def _width_inputs(fcfg, n: int, seed: int, dev, out_w: int = 16) -> tuple:
+    """(encoded points, sun directions, t embeddings, a gradient of the
+    ``out_w`` raw columns, a gradient of the trunk output) for ``n`` points,
+    seeded."""
     import torch
 
     from satnerf_torch.core.encoding import positional_encoding
@@ -4024,7 +4044,7 @@ def _width_inputs(fcfg, n: int, seed: int, dev) -> tuple:
     xyz = torch.rand(n, 3, generator=g) * 2 - 1
     sun = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1)
     te = torch.randn(n, fcfg.t_embedding_tau, generator=g)
-    g_out = torch.randn(n, 16, generator=g)
+    g_out = torch.randn(n, out_w, generator=g)
     cot = torch.randn(n, fcfg.feat, generator=g)
     return tuple(t.to(dev) for t in (positional_encoding(xyz, fcfg.mapping_pos_n_freq), sun,
                                      te, g_out, cot))
@@ -4096,7 +4116,8 @@ def width_kernel_checks(key: str, spec, fused: bool, packed, inputs, dname: str,
     from satnerf_torch.ops import field_fused as ff
     from satnerf_torch.ops import trunk
 
-    enc, sun, te, g_out, cot = (t[:n] for t in inputs)
+    enc, sun, te, g_out, cot = (t[:n] for t in inputs[:5])
+    ts = inputs[5][:n] if len(inputs) > 5 else None  # the separate semantic t-embedding
     dt = packed["w0"].dtype
     x = ff.pack_x(spec, enc, dt)
     p32 = {k: v.float() for k, v in packed.items()}  # the same weights, for f32 yardsticks
@@ -4136,7 +4157,7 @@ def width_kernel_checks(key: str, spec, fused: bool, packed, inputs, dname: str,
                     sb, x.float(), p32, f32(acts), g.float()))), notes)
         return errs
 
-    aux = ff.pack_aux(spec, sun, te, None, dt)
+    aux = ff.pack_aux(spec, sun, te, ts, dt)
     for heads_on in (True, False):
         sp = dataclasses.replace(spec, heads_on=heads_on)
         tag = "heads_on" if heads_on else "heads_off"
@@ -4207,7 +4228,8 @@ def width_times(spec, fused: bool, packed, inputs, dname: str, only=None) -> dic
     from satnerf_torch.ops import trunk
 
     n = max(WIDTH_POINTS)
-    enc, sun, te, g_out, cot = inputs
+    enc, sun, te, g_out, cot = inputs[:5]
+    ts = inputs[5][:n] if len(inputs) > 5 else None
     dt = packed["w0"].dtype
     esz = 2 if dt == torch.bfloat16 else 4
     x = ff.pack_x(spec, enc[:n], dt)
@@ -4230,13 +4252,14 @@ def width_times(spec, fused: bool, packed, inputs, dname: str, only=None) -> dic
                                                       if after[k] != before[k]}}
 
     if fused:
-        aux = ff.pack_aux(spec, sun[:n], te[:n], None, dt)
+        aux = ff.pack_aux(spec, sun[:n], te[:n], ts, dt)
         _, shared, _ = ff._forward(spec, x, aux, packed, resid=True)
         g_shared = ff.heads_backward(spec, shared, aux, g_out[:n], packed)[0]
+        ow = spec.out_w
         row("field_fused", lambda: ff._forward(spec, x, aux, packed, True),
-            spec.mac_per_point(), n * ((spec.cx + spec.aux_w + F) * esz + 16 * 4), 10)
+            spec.mac_per_point(), n * ((spec.cx + spec.aux_w + F) * esz + ow * 4), 10)
         row("heads_bwd", lambda: ff.heads_backward(spec, shared, aux, g_out[:n], packed),
-            spec.heads_bwd_mac_per_point(), n * ((2 * F + 2 * spec.aux_w) * esz + 16 * 4), 5)
+            spec.heads_bwd_mac_per_point(), n * ((2 * F + 2 * spec.aux_w) * esz + ow * 4), 5)
         row("trunk_bwd", lambda: trunk.trunk_backward(spec, x, packed, None, g_shared,
                                                        need_gx=False),
             spec.trunk_bwd_mac_per_point(), n * (spec.cx + F) * esz, 5)
@@ -4518,6 +4541,158 @@ def input_widths_phase(dev, vocab: int, turns: list | None) -> dict:
             "posenc_serve": serve, "parent": parent, "checks_seconds": checks_s,
             "seconds": time.monotonic() - t_phase,
             "tol": {"forward": TOL_FIELD, "backward": TOL_FIELD_BWD, "residuals": TOL_RESID}}
+    emit(line)
+    return line
+
+
+def head_widths_cli_run(dev, work: str) -> dict:
+    """The training CLI (``start_training``) on a generated scene whose root
+    file lists HEAD_CLASSES class names (the labels drawn stay those the
+    generator draws), on the rs_semantic TOML with t_embedding_tau 16,
+    HEAD_CLI_STEPS steps: K1 (a 32-column output, a 48-column aux tile), K2,
+    K4, K5 and K5's backward launched by the step schedule, no plain
+    version, finite loss terms."""
+    import math
+
+    from satnerf_torch.configs import write_toml
+    from satnerf_torch.datasets.synthetic import generate_scene
+    from satnerf_torch.device import disable_tf32
+    from satnerf_torch.io.json_io import read_json, write_json
+    from satnerf_torch.models.field import fused_field_spec, use_fused_field
+    from satnerf_torch.run.training import start_training
+
+    scene_dp = os.path.join(work, "datasets", "SYN")
+    generate_scene(scene_dp, **HEAD_SCENE)
+    root_fp = os.path.join(scene_dp, "root.json")
+    root = read_json(root_fp)
+    labels = dict(root["semantic_cls_labels"])
+    for i in range(len(labels), HEAD_CLASSES):
+        labels[str(i)] = f"class_{i}"
+    root["semantic_cls_labels"] = labels
+    write_json(root_fp, root)
+    run_fp, pipe_fp = os.path.join(work, "run.toml"), os.path.join(work, "pipeline.toml")
+    write_toml(run_fp, {
+        "max_train_steps": HEAD_CLI_STEPS, "save_every_n_epochs": -1,
+        "check_val_every_n_epoch": 1, "num_sanity_val_steps": 0, "seed": 0,
+        "dataset_name": "SYN", "datasets_dp": os.path.join(work, "datasets"),
+        "cache_dp": os.path.join(work, "cache"), "workspace_dp": os.path.join(work, "training")})
+    with open(PIPELINE_TOML) as f:
+        body = [ln for ln in f.read().splitlines() if ln.split("=")[0].strip() not in HEAD_STEP]
+    with open(pipe_fp, "w") as f:
+        f.write("\n".join(body + [f"{k} = {v}" for k, v in HEAD_STEP.items()]) + "\n")
+    reset_counters()
+    t0 = time.monotonic()
+    try:
+        pipeline, state, trainer = start_training(run_fp, pipe_fp, device=dev, log_every=1)
+    finally:
+        disable_tf32()  # the run's matmul_precision "high" allowed TF32
+    seconds = time.monotonic() - t0
+    got, plain = read_counters()
+    cfg = state.params["field"].cfg
+    spec = fused_field_spec(cfg)
+    check(cfg.t_embedding_tau == 16 and cfg.n_classes == HEAD_CLASSES and use_fused_field(cfg)
+          and (spec.out_w, spec.aux_pad) == (32, 48),
+          f"head widths CLI field: tau {cfg.t_embedding_tau}, {cfg.n_classes} classes")
+    check(state.step == HEAD_CLI_STEPS, f"head widths CLI ended at step {state.step}")
+    want = scene_expected_launches(trainer, HEAD_CLI_STEPS, pipeline.ds_drop_step)
+    check(got == want, f"head widths CLI launches {got}, expected {want}")
+    check(not any(plain.values()), f"head widths CLI: a plain version ran: {plain}")
+    hist = trainer.history
+    check(len(hist) == HEAD_CLI_STEPS
+          and all(math.isfinite(v) for h in hist for v in h.values()),
+          "head widths CLI: missing or non-finite loss terms")
+    return {"steps": HEAD_CLI_STEPS, "scene": HEAD_SCENE, "classes": HEAD_CLASSES,
+            "tau": cfg.t_embedding_tau, "out_w": spec.out_w, "aux_pad": spec.aux_pad,
+            "depth_drop_step": pipeline.ds_drop_step, "seconds": seconds,
+            "loop_ms_per_step": trainer.ms_per_step, "launches": got, "plain_calls": plain,
+            "metrics_last": hist[-1]}
+
+
+def head_widths_phase(dev, vocab: int, turns: list | None) -> dict:
+    """Head widths past 16 columns (HEAD_CASES: t-embeddings 7, 16 and 62
+    wide, 8, 12 and 119 classes; at 62 the separate semantic t-embedding
+    too) at HEAD_PAIRS, f32 and bf16, HEAD_POINTS points: K1 (both head
+    variants) with K2 and K4 (both engines) on K1's residuals against their
+    plain versions within today's bars, each run twice bitwise equal
+    (width_kernel_checks); K1's and K2's device ms beside their bounds
+    (width_times); then the rs_semantic TOML at HEAD_STEP and HEAD_CLASSES
+    classes: five flagship training steps (train_phase: K1, K2, K4, K5 and
+    its backward every step, no plain version, a 32-ray step against the
+    CPU), one 128 x 128 request (serve_variant_phase) and the training CLI on
+    a scene with HEAD_CLASSES labels (head_widths_cli_run). With ``turns``,
+    K1-K4's outputs at the flagship against the parent build's: bitwise
+    equal."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from satnerf_torch.configs import load_render_config
+    from satnerf_torch.models.field import Field, fused_field_spec, use_fused_field
+
+    t_phase = time.monotonic()
+    cells, notes, times = {}, [], {}
+    before = read_counters()[0]
+    for (feat, fl), (tau, n_classes) in [(p, c) for p in HEAD_PAIRS for c in HEAD_CASES]:
+        key = f"tau{tau}_c{n_classes}/{feat}x{fl}"
+        rcfg = load_render_config(PIPELINE_TOML, n_classes=n_classes, device=dev,
+                                  trunk_impl="pallas", fc_units=feat,
+                                  fc_use_full_features=fl == feat, t_embedding_tau=tau,
+                                  use_tj_for_s=True, use_separate_tj_for_semantic=tau == 62)
+        fcfg = rcfg.field
+        spec = fused_field_spec(fcfg)
+        check(use_fused_field(fcfg) and fcfg.feat_last == fl and spec.tau == tau
+              and spec.n_classes == n_classes and spec.out_w > 16 and spec.aux_pad > 16,
+              f"{key} route")
+        field = Field(fcfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+        inputs = _width_inputs(fcfg, HEAD_POINTS, tau + n_classes + feat, dev, spec.out_w)
+        inputs += (torch.randn(HEAD_POINTS, tau, generator=torch.Generator().manual_seed(tau))
+                   .to(dev),)  # the separate semantic t-embedding
+        with torch.no_grad():
+            for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                packed = field.packed(dt)
+                cells.setdefault(key, {})[dname] = width_kernel_checks(
+                    key, spec, True, packed, inputs, dname, HEAD_POINTS, notes)
+                times.setdefault(key, {})[dname] = width_times(
+                    spec, True, packed, inputs, dname, only=("field_fused", "heads_bwd"))
+        del field, inputs
+        torch.cuda.empty_cache()
+    after = read_counters()[0]
+    check_launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    checks_s = time.monotonic() - t_phase
+
+    step = train_phase(dev, vocab, "train_heads", HEAD_STEP, PER_STEP, stored_check=False,
+                       n_classes=HEAD_CLASSES)
+    spec = fused_field_spec(step["scfg"].render.field)
+    check((spec.tau, spec.n_classes, spec.out_w) == (16, HEAD_CLASSES, 32),
+          f"head widths step field: tau {spec.tau}, {spec.n_classes} classes")
+    serve = serve_variant_phase("serve_heads", dev, step["scfg"].render, step["params"], vocab,
+                                {"field_fused": 1, "trunk_fwd": 0, "composite": 1,
+                                 "trunk_fwd_interleaved": 0})
+    work = tempfile.mkdtemp(prefix="head_widths_")
+    try:
+        cli = head_widths_cli_run(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    parent = None
+    if turns:
+        bitwise = parent_outputs_bitwise()
+        mine, theirs = turn_means(turns)
+        keys = ("field_fused", "field_fused_serve", "heads_bwd")
+        parent = {"outputs_bitwise_parent_flagship": bitwise,
+                  "this_ms_flagship": {k: v for k, v in mine.items() if k.split("/")[0] in keys},
+                  "parent_ms_flagship": {k: v for k, v in theirs.items()
+                                         if k.split("/")[0] in keys}}
+        check(all(bitwise.values()), f"K1-K4 at the flagship differ from the parent build's: "
+                                     f"{bitwise}")
+    line = {"phase": "head_widths", "cases": HEAD_CASES, "pairs": HEAD_PAIRS,
+            "points": HEAD_POINTS, "errors": cells, "notes": notes, "times": times,
+            "check_launches": check_launches,
+            "step": {"launches": step["launches"], **HEAD_STEP, "n_classes": HEAD_CLASSES},
+            "serve": serve, "cli": cli, "parent": parent, "checks_seconds": checks_s,
+            "seconds": time.monotonic() - t_phase,
+            "tol": {"forward": TOL_FIELD, "backward": TOL_FIELD_BWD, "residuals": TOL_RESID,
+                    "relu_kink": TOL_KINK}}
     emit(line)
     return line
 
@@ -4879,6 +5054,11 @@ def main() -> int:
     # rs_semantic TOML trained and served at 12 frequencies ----
     input_widths = input_widths_phase(dev, vocab, turns)
     marks.append(("input_widths", time.monotonic()))
+    # ---- 13d. head widths past 16 columns (t-embeddings to 62, 8 to 119 classes):
+    # K1, K2, K4 against their plain versions, K1/K2 times, the rs_semantic TOML
+    # at tau 16 and 12 classes trained, served and run through the CLI ----
+    head_widths = head_widths_phase(dev, vocab, turns)
+    marks.append(("head_widths", time.monotonic()))
 
     # ---- 14-20. the training CLI on a generated scene, resume, serving its best;
     # the eval battery on that run; the run served by view name over HTTP; its
@@ -4936,6 +5116,9 @@ def main() -> int:
                 "widths_examples_step_2x128": widths["examples_step"]["launches"][kernel],
                 f"train_posenc{POSENC_FREQ}": input_widths["posenc_step"]["launches"][kernel],
                 f"serve_posenc{POSENC_FREQ}": input_widths["posenc_serve"]["launches"][kernel],
+                "train_heads_tau16_c12": head_widths["step"]["launches"][kernel],
+                "serve_heads_tau16_c12": head_widths["serve"]["launches"][kernel],
+                "head_widths_cli_tau16_c12": head_widths["cli"]["launches"][kernel],
                 "prep_scene_eval": prep["eval_launches"][kernel],
                 "quality_tools": quality["launches"][kernel],
                 "quality_tools_sin_swap": quality["sin_swap_launches"][kernel],
@@ -5085,6 +5268,17 @@ def main() -> int:
                 "padded_c_in_max": ff.trunk.TC_MAX_K,
                 "check_launches": input_widths["check_launches"].get(entry["name"], 0),
                 "times_512": by_c_in}
+        # device ms and bound at each head width (phase head_widths), and the
+        # launches of its checks, timings, step, request and CLI run
+        by_case = {c: {d: {k: rows[entry["name"]][k] for k in ("ms", "bound_ms", "bound_by")}
+                       for d, rows in per.items() if entry["name"] in rows}
+                   for c, per in head_widths["times"].items()}
+        if any(by_case.values()):
+            entry["head_widths"] = {
+                "check_launches": head_widths["check_launches"].get(entry["name"], 0),
+                "step_launches": head_widths["step"]["launches"].get(entry["name"], 0),
+                "cli_launches": head_widths["cli"]["launches"].get(entry["name"], 0),
+                "times": by_case}
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -253,11 +253,11 @@ def stages(spec, shared, aux, g_out, packed) -> dict:
         r.update({f"{group}.{k}": v.float().contiguous() for k, v in trace[group].items()})
     n, p = shared.shape[0], packed
     g = g_out.float().contiguous()
-    auxp = _bwd.pad_cols(aux, ff.G_AUX_W)
+    auxp = _bwd.pad_cols(aux, spec.aux_pad)
 
-    def wt(key):  # packed (in, out) -> W^T (out, in), aux rows padded to 16 columns
+    def wt(key):  # packed (in, out) -> W^T (out, in), aux rows padded to aux_pad columns
         w = p[key].t()
-        return (_bwd.pad_cols(w, ff.G_AUX_W) if key.endswith("_aux") else w).contiguous()
+        return (_bwd.pad_cols(w, spec.aux_pad) if key.endswith("_aux") else w).contiguous()
 
     # (a) the row GEMM: name -> (width, [(A, Wt)])
     rows = {"fwd.feats": (spec.feat, [(shared, wt("w_feats"))]),

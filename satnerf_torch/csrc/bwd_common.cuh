@@ -68,9 +68,12 @@
 // within the plain f32 version's distance from f64.
 //
 // Thin products stay on the f32 FMA row kernel by a fixed rule on shape: an
-// output 16 wide. That is K2's g_aux launch: under 1% of K2's multiply-adds,
-// 0.24 ms of K2's 8.85 ms (f32, 65,536 points, an H100 SXM at 700 W). Every
-// other product, K 16 included, runs on the tensor cores.
+// output 16 wide. That is K2's g_aux launch at aux blocks up to 16 columns
+// (t-embeddings up to 6 wide): under 1% of K2's multiply-adds, 0.24 ms of
+// K2's 8.85 ms (f32, 65,536 points, an H100 SXM at 700 W). Every other
+// product, K 16 included, runs on the tensor cores; a wider g_aux launch
+// (32 to 128 aux columns) comes padded by its wrapper to this rule's
+// 64-column tiles.
 #pragma once
 
 #include <cuda_bf16.h>

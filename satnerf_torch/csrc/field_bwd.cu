@@ -3,7 +3,7 @@
 // Replaces the TPU kernel satnerf_tpu/ops/pallas/field_fused.py:
 // _fused_field_bwd (pallas_call at field_fused.py:594) -> _heads_bwd_kernel
 // (:435). From the trunk output `shared` (N, F), the aux block and the
-// incoming gradient of the raw (N, 16) columns, it recomputes feats and
+// incoming gradient of the raw (N, out_w) columns, it recomputes feats and
 // every head hidden layer, reverses each head chain (sine layers through the
 // polynomial cosine, the sky ReLU through [a > 0]), and produces g_shared
 // (N, F), g_aux and every head weight and bias gradient in f32.
@@ -15,7 +15,17 @@
 // two blocks of bwd_common.cuh (3xTF32 in f32, bf16 as it is), K 16 (the raw
 // columns, the aux block padded to 16) included; only
 // the 16-wide g_aux launch stays on the FMA row kernel, by the fixed rule
-// on shape that bwd_common.cuh states. The wrapper
+// on shape that bwd_common.cuh states.
+//
+// Head widths: every block the TPU kernel takes (9 + n_classes <= 128,
+// 3 + 2 tau <= 128). The raw gradient g is (N, out_w), out_w = 9 + n_classes
+// rounded up to 16, and is the A operand (K = out_w) of the rgb, sv2, sky,
+// beta and semantic reverse rows and of g_shared; the w2_* reductions are
+// (feat_last or F, out_w). The aux block is padded to 16 columns (aux_pad,
+// up to 128) as the recompute's A operand; the g_aux launch is aux_pad wide
+// when that is 16 (the FMA kernel) and otherwise padded to the tensor-core
+// row GEMM's 64-column tiles (64 or 128), its extra columns zero weights.
+// The wrapper
 // (satnerf_torch/ops/field_fused.py:_heads_backward_cuda) drives:
 //   heads_bwd_row     one head layer over all rows (18 launches with every
 //                     head on, 10 for the sigma + sun-visibility variant);

@@ -77,7 +77,7 @@ __global__ void __launch_bounds__(fw::kThreads, 1)
   T* H = reinterpret_cast<T*>(smem);
   T* X = H + fw::kRows * S::ldh(a.feat);
   const int row0 = blockIdx.x * fw::kRows;
-  fw::Ring r = fw::make_ring<T>(smem, a.feat, kx, false);
+  fw::Ring r = fw::make_ring<T>(smem, a.feat, kx, 0);
   fw::produce<T>(pl, r);  // the first two chunks of the stream
   fw::produce<T>(pl, r);
   fw::load_tile(X, ldx, kx, static_cast<const T*>(a.x), a.cx, row0, a.n);
@@ -125,7 +125,7 @@ int launch(const TrunkArgs& a, cudaStream_t stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   fw::add_trunk_jobs(pl, sizeof(T), a.layers, a.feat, kx, a.skip_mask, a.w0, a.w_mid, a.w_skip);
   if (const int err = fw::check_plan(pl)) return err;
-  const int smem = fw::Smem<T>::bytes(a.feat, kx, false);
+  const int smem = fw::Smem<T>::bytes(a.feat, kx, 0);
   auto kern = trunk_fwd_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -7,8 +7,8 @@
 // stay in shared memory for the whole field: the (64, F) tile H in the
 // compute dtype, written in place by every layer, beside the x tile (as wide
 // as the padded input, 16 to 128) and, in K1 once the trunk is done with x,
-// the aux tile. Every product runs on wgmma, in passes of 256 output columns:
-// warpgroup g computes columns [256 p + 128 g, 256 p + 128 (g + 1)) of pass
+// the aux tile (16 to 128 wide). Every product runs on wgmma, in passes of
+// 256 output columns: warpgroup g computes columns [256 p + 128 g, 256 p + 128 (g + 1)) of pass
 // p for all 64 rows (m64n128), so a 512-wide layer takes two passes; a width
 // that is an odd multiple of 128 (128, 384) ends with a pass of 128 columns,
 // 64 per warpgroup (m64n64). Widths are run-time values (one kernel per
@@ -53,12 +53,13 @@
 // slot, so a layer's epilogue (bias, w0 scale, sine, stores) overlaps the
 // next weights' copies.
 //
-// A 16-wide projection (sigma from h_{L-1}, and each head's hidden layer)
-// never stores its input: each warpgroup feeds its pass's values, after the
-// epilogue, straight back as the register A operand of m64n16 wgmmas into
-// one 16-column f32 accumulator shared by every head (kept in shared memory
-// between projections). In bf16 the accumulator's layout is the A
-// fragment's (as in FlashAttention-3); in tf32 the accumulator holds columns
+// A projection (sigma from h_{L-1}, and each head's hidden layer) never
+// stores its input: each warpgroup feeds its pass's values, after the
+// epilogue, straight back as the register A operand of m64n16 wgmmas, one
+// job per 16 output columns, into that group's f32 accumulator (kept in
+// global memory between projections, each thread's own 8 floats; group 0,
+// columns 0-15, is shared by every head). In bf16 the accumulator's layout
+// is the A fragment's (as in FlashAttention-3); in tf32 the accumulator holds columns
 // (2t, 2t + 1) of each group of 8 where the A fragment takes (t, t + 4), so
 // the wrapper permutes the projection's K within each group of 8 to match.
 #pragma once
@@ -79,7 +80,7 @@ namespace fwd {
 constexpr int kRows = 64;       // point rows per block
 constexpr int kThreads = 256;   // two warpgroups
 constexpr int kPart = 16384;    // bytes of one part (hi or lo) of a ring slot
-constexpr int kMaxJobs = 64;
+constexpr int kMaxJobs = 96;
 constexpr int kPassCols = 256;  // output columns of one pass, 128 per warpgroup
 constexpr int kNW = kPassCols / 2;
 constexpr int kTailCols = 128;  // the last pass of an odd multiple of 128: 64 per warpgroup
@@ -120,8 +121,10 @@ inline bool width_ok(int F) { return F == 128 || F == 256 || F == 384 || F == 51
 struct BJob {
   const char* src[2];
   int steps[2];  // k-steps of each product
-  int nprod;
-  int rows_log2;  // rows of W^T: 256 or 128 (a pass), 16 (a projection)
+  short nprod;
+  short rows_log2;  // rows of W^T: 256 or 128 (a pass), 16 (a projection)
+  short group;      // a projection's 16-column output group
+  short fresh;      // a projection that starts its group's sum at 0
 };
 
 struct Plan {
@@ -140,6 +143,8 @@ inline void add_job(Plan& pl, int rows, size_t esz, const void* w0, int k0,
   j.src[1] = static_cast<const char*>(w1);
   j.steps[1] = static_cast<int>(k1 * esz / 32);
   j.rows_log2 = rows == 256 ? 8 : rows == 128 ? 7 : 4;
+  j.group = 0;
+  j.fresh = 0;
 }
 
 // host: pass p of an N-wide layer: rows 256 p .. of W^T (N, k0) [and (N, k1)],
@@ -160,10 +165,15 @@ inline void add_layer_jobs(Plan& pl, size_t esz, int n, const void* w0, int k0,
 }
 
 // host: the projection of pass p of an n-wide activation: its columns
-// (256 p .. 256 p + 255, or the last pass's 128) of W2^T (16, n)
-inline void add_proj_job(Plan& pl, size_t esz, int n, const void* w2, int p) {
+// (256 p .. 256 p + 255, or the last pass's 128) of W2^T (16, n), onto
+// output group `group` (W2^T is that group's 16 rows of a wider projection);
+// `fresh` starts the group's sum
+inline void add_proj_job(Plan& pl, size_t esz, int n, const void* w2, int p, int group = 0,
+                         bool fresh = false) {
   add_job(pl, 16, esz, static_cast<const char*>(w2) + static_cast<size_t>(p) * kPassCols * 16 * esz,
           p < full_passes(n) ? kPassCols : kTailCols);
+  pl.jobs[pl.njobs - 1].group = static_cast<short>(group);
+  pl.jobs[pl.njobs - 1].fresh = fresh ? 1 : 0;
 }
 
 // host: the projections of every pass of an n-wide activation
@@ -171,13 +181,18 @@ inline void add_proj_jobs(Plan& pl, size_t esz, int n, const void* w2) {
   for (int p = 0; p < passes(n); ++p) add_proj_job(pl, esz, n, w2, p);
 }
 
-// host: an N-wide layer whose passes are each projected right away by W2^T
-// (16, n): pass 0, its projection, pass 1, its projection, ...
+// host: an N-wide layer whose passes are each projected right away by the
+// first `groups` 16-row groups of W2^T (16 groups, n), group g at 16 g n
+// elements (ops/field_fused.py:tc_projection): pass 0, its projection onto
+// each group (groups 1 .. starting afresh), pass 1, ...
 inline void add_projected_jobs(Plan& pl, size_t esz, int n, const void* w2, const void* w0,
-                               int k0, const void* w1 = nullptr, int k1 = 0) {
+                               int k0, const void* w1 = nullptr, int k1 = 0, int groups = 1) {
   for (int p = 0; p < passes(n); ++p) {
     add_pass_job(pl, esz, n, p, w0, k0, w1, k1);
-    add_proj_job(pl, esz, n, w2, p);
+    for (int g = 0; g < groups; ++g) {
+      const char* w2g = static_cast<const char*>(w2) + static_cast<size_t>(g) * 16 * n * esz;
+      add_proj_job(pl, esz, n, w2g, p, g, g > 0 && p == 0);
+    }
   }
 }
 
@@ -192,36 +207,36 @@ inline int check_plan(const Plan& pl) {
 }
 
 // shared memory of an F-wide trunk with a kx-wide x tile: H (64, F); the x
-// tile (64, kx), whose room K1 (field) takes over once the trunk is done
-// with x for its output accumulators (kKeep bytes) and the aux tile (64,
-// 16); the ring of two slots, aligned to the 32-byte swizzle's period of 256
-// bytes (desc_sw32: every B tile starts at a multiple of it); their
-// mbarriers. In f32 at F 512 a 128-wide x tile leaves 752 bytes of the
-// 232,448 a block may have: neither the aux tile beside it nor a 1,024-byte
-// alignment would fit.
+// tile (64, kx), whose room K1 takes over once the trunk is done with x for
+// the aux tile (64, ka; ka 0 for K3); the ring of two slots, aligned to the
+// 32-byte swizzle's period of 256 bytes (desc_sw32: every B tile starts at a
+// multiple of it); their mbarriers. The tiles' row strides (ldx) are padded
+// against bank conflicts. In f32 at F 512 a 128-wide x or aux tile leaves
+// 752 bytes of the 232,448 a block may have: no 1,024-byte alignment, and
+// no output accumulators beside the aux tile (K1 keeps them in global
+// memory, field_fused.cu), would fit.
 template <typename T>
 struct Smem {
-  static constexpr int kLda = 16 + Tc<T>::kPad;
   static constexpr int kSlot = Tc<T>::kParts * kPart;
-  static constexpr int kKeep = kThreads * 8 * 4;  // 8 f32 accumulators a thread
   static constexpr int kAlign = 256;
   __host__ __device__ static constexpr int ldh(int F) { return F + Tc<T>::kPad; }
   __host__ __device__ static constexpr int ldx(int kx) { return kx + Tc<T>::kPad; }
-  __host__ __device__ static constexpr int x_room(int kx, bool field) {
-    const int x = kRows * ldx(kx) * static_cast<int>(sizeof(T));
-    const int keep_aux = field ? kKeep + kRows * kLda * static_cast<int>(sizeof(T)) : 0;
-    return x > keep_aux ? x : keep_aux;
+  __host__ __device__ static constexpr int tile(int k) {
+    return k > 0 ? kRows * ldx(k) * static_cast<int>(sizeof(T)) : 0;
   }
-  __host__ __device__ static constexpr int ring(int F, int kx, bool field) {
-    return (kRows * ldh(F) * static_cast<int>(sizeof(T)) + x_room(kx, field) + kAlign - 1) /
+  __host__ __device__ static constexpr int x_room(int kx, int ka) {
+    return tile(kx) > tile(ka) ? tile(kx) : tile(ka);
+  }
+  __host__ __device__ static constexpr int ring(int F, int kx, int ka) {
+    return (kRows * ldh(F) * static_cast<int>(sizeof(T)) + x_room(kx, ka) + kAlign - 1) /
            kAlign * kAlign;
   }
-  __host__ __device__ static constexpr int bars(int F, int kx, bool field) {
-    return ring(F, kx, field) + 2 * kSlot;
+  __host__ __device__ static constexpr int bars(int F, int kx, int ka) {
+    return ring(F, kx, ka) + 2 * kSlot;
   }
   // + the base's alignment
-  __host__ __device__ static constexpr int bytes(int F, int kx, bool field) {
-    return bars(F, kx, field) + 16 + kAlign;
+  __host__ __device__ static constexpr int bytes(int F, int kx, int ka) {
+    return bars(F, kx, ka) + 16 + kAlign;
   }
 };
 
@@ -256,12 +271,12 @@ __device__ __forceinline__ unsigned char* slot_ptr(const Ring& r, int i) {
   return r.ptr + (i & 1) * (Tc<T>::kParts * kPart);
 }
 
-// the ring at `smem` + Smem<T>::ring(F, kx, field), its mbarriers initialised
+// the ring at `smem` + Smem<T>::ring(F, kx, ka), its mbarriers initialised
 template <typename T>
-__device__ __forceinline__ Ring make_ring(unsigned char* smem, int F, int kx, bool field) {
+__device__ __forceinline__ Ring make_ring(unsigned char* smem, int F, int kx, int ka) {
   using S = Smem<T>;
-  const int at = S::ring(F, kx, field);
-  Ring r{smem + at, tc::smem_u32(smem + at), tc::smem_u32(smem + S::bars(F, kx, field)),
+  const int at = S::ring(F, kx, ka);
+  Ring r{smem + at, tc::smem_u32(smem + at), tc::smem_u32(smem + S::bars(F, kx, ka)),
          0, 0, 0, 0};
   if (threadIdx.x == 0) {
     tc::mbar_init(r.bar, 1);
@@ -511,13 +526,14 @@ __device__ __forceinline__ void epilogue(float (&acc)[R], const float* __restric
   }
 }
 
-// The 16 output columns of this warpgroup's rows (an m64n16 accumulator,
-// kept between projections in this thread's 8 floats at `keep` in shared
-// memory, so that no pass holds it in registers) += v (this warpgroup's 2 R
-// columns of a pass, after the epilogue) @ the projection of job q (16 rows,
-// K = 4 R; in f32 K permuted within groups of 8); `fresh` starts the sum at
-// 0. Its one chunk is in flight; call after a barrier that follows the last
-// wgmma on the other slot (pass's).
+// 16 output columns of this warpgroup's rows (an m64n16 accumulator, kept
+// between projections in this thread's 8 floats at `keep` + 8 threadIdx.x in
+// global memory, so that no pass holds it in registers; only this thread
+// reads or writes them until the kernel's last barrier) += v (this
+// warpgroup's 2 R columns of a pass, after the epilogue) @ the projection of
+// job q (16 rows, K = 4 R; in f32 K permuted within groups of 8); `fresh`
+// starts the sum at 0. Its one chunk is in flight; call after a barrier that
+// follows the last wgmma on the other slot (pass's).
 template <typename T, int R>
 __device__ __forceinline__ void project(const Plan& pl, Ring& r, int q, float (&v)[R],
                                        float* keep, bool fresh) {

@@ -20,9 +20,10 @@ Per point it evaluates
     sun-vis chain (3 sine layers on [feats, sun_d]), and with ``heads_on``
     the rgb, sky (ReLU), beta and semantic hidden layers,
 
-and projects everything straight into one (N, 16) block of RAW
-pre-nonlinearity outputs. The TPU's 128-lane output padding is dropped:
-16 f32 columns hold every head as long as 9 + n_classes <= 16.
+and projects everything straight into one (N, out_w) block of RAW
+pre-nonlinearity outputs, out_w = 9 + n_classes rounded up to 16
+(:attr:`FieldSpec.out_w`): the TPU's 128-lane output padding is dropped, and
+16 columns hold every head when n_classes <= 7.
 
     0       sigma
     1:4     rgb (before sigmoid + rgb_padding)
@@ -62,7 +63,11 @@ COL_SUN = 4
 COL_SKY = 5
 COL_BETA = 8
 COL_SEM = 9
-OUT_W = 16
+# the JAX kernels' bounds (satnerf_tpu/ops/pallas/field_fused.py:97-98): the
+# packed output and the aux block each fit one 128-lane block; K1 and K2 take
+# both up to these widths (csrc/field_fused.cu kMaxOut, kMaxAux)
+MAX_OUT_W = 128
+MAX_AUX_W = 128
 
 # rows of the hidden-bias stack ``b_heads`` (absent heads keep zero rows)
 HIDDEN_BIAS_ROWS = ("rgb0", "sv0", "sv1", "sv2", "sky0", "b0", "s0")
@@ -80,11 +85,14 @@ PLAIN_CALLS = 0  # fused_field_reference and heads_backward_reference calls
 # head widths K2 takes (csrc/field_bwd.cu: the row GEMM's tiles cover every
 # multiple of 64, the reduction's every width); with trunk.FEAT_WIDTHS
 HEADS_BWD_FL = (128, 256, 384, 512)
-G_AUX_W = 16  # the g_aux launch's padded width
 
 
 def _round4(n: int) -> int:
     return -(-n // 4) * 4
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
 
 
 @dataclass(frozen=True)
@@ -114,11 +122,14 @@ class FieldSpec:
             raise ValueError(f"sin_mode {self.sin_mode!r} not in {SIN_MODES}")
         if 0 in self.skips:
             raise ValueError("a skip at layer 0 is not meaningful")
-        if COL_SEM + self.n_classes > OUT_W:
+        if COL_SEM + self.n_classes > MAX_OUT_W:
             raise ValueError(
-                f"n_classes={self.n_classes} does not fit the {OUT_W}-column "
-                "packed output"
+                f"n_classes={self.n_classes}: {COL_SEM} + n_classes exceeds the "
+                f"{MAX_OUT_W}-column packed output"
             )
+        if 3 + 2 * self.tau > MAX_AUX_W:
+            raise ValueError(f"tau={self.tau}: 3 + 2 tau exceeds the {MAX_AUX_W}-column "
+                             "aux block")
 
     @property
     def cx(self) -> int:
@@ -137,6 +148,17 @@ class FieldSpec:
     def aux_w(self) -> int:
         """aux block: sun_d 0:3, t_emb 3:3+tau, t_s_emb 3+tau:3+2tau."""
         return _round4(3 + 2 * self.tau)
+
+    @property
+    def aux_pad(self) -> int:
+        """The aux block's width in the kernels: aux_w padded to 16."""
+        return _round16(self.aux_w)
+
+    @property
+    def out_w(self) -> int:
+        """Columns of the packed raw output: 9 + n_classes (with the
+        semantic head) rounded up to 16."""
+        return _round16(COL_SEM + (self.n_classes if self.has_semantic else 0))
 
     def mac_per_point(self) -> int:
         """Multiply-adds per point of the function (not of any padding)."""
@@ -199,8 +221,8 @@ class FieldSpec:
 # -----------------------------------------------------------------------
 
 
-def _place_cols(w_in_out: torch.Tensor, at: int) -> torch.Tensor:
-    out = w_in_out.new_zeros((w_in_out.shape[0], OUT_W))
+def _place_cols(w_in_out: torch.Tensor, at: int, width: int) -> torch.Tensor:
+    out = w_in_out.new_zeros((w_in_out.shape[0], width))
     out[:, at : at + w_in_out.shape[1]] = w_in_out
     return out
 
@@ -215,7 +237,7 @@ def pack_field(field, spec: FieldSpec, dtype: torch.dtype) -> dict:
     ``heads_on=False`` variant reads ``b_small_sc``, whose rgb/sky/beta/
     semantic columns are 0.
     """
-    F, fl, aw = spec.feat, spec.fl, spec.aux_w
+    F, fl, aw, ow = spec.feat, spec.fl, spec.aux_w, spec.out_w
     bias_dt = acc_dtype(dtype)
     p: dict = pack_trunk(field, spec, dtype)
 
@@ -256,19 +278,19 @@ def pack_field(field, spec: FieldSpec, dtype: torch.dtype) -> dict:
     p["b_heads"] = hb
 
     # final projections straight into the packed output columns
-    p["w2_shared"] = _place_cols(in_out(field.sigma_from_xyz[0], dtype), COL_SIGMA)
-    p["w2_sv"] = _place_cols(in_out(sv[6], dtype), COL_SUN)
-    p["w2_rgb"] = _place_cols(in_out(field.rgb_from_xyzdir[2], dtype), COL_RGB)
-    p["w2_sky"] = _place_cols(in_out(field.sky_color[2], dtype), COL_SKY)
+    p["w2_shared"] = _place_cols(in_out(field.sigma_from_xyz[0], dtype), COL_SIGMA, ow)
+    p["w2_sv"] = _place_cols(in_out(sv[6], dtype), COL_SUN, ow)
+    p["w2_rgb"] = _place_cols(in_out(field.rgb_from_xyzdir[2], dtype), COL_RGB, ow)
+    p["w2_sky"] = _place_cols(in_out(field.sky_color[2], dtype), COL_SKY, ow)
     if spec.has_beta:
-        p["w2_beta"] = _place_cols(in_out(field.beta_from_xyz[2], dtype), COL_BETA)
+        p["w2_beta"] = _place_cols(in_out(field.beta_from_xyz[2], dtype), COL_BETA, ow)
     if spec.has_semantic:
         p["w2_sem"] = _place_cols(
-            in_out(field.semantic_prediction[2], dtype), COL_SEM
+            in_out(field.semantic_prediction[2], dtype), COL_SEM, ow
         )
 
     def bias_cols(pairs):
-        bs = torch.zeros((OUT_W,), dtype=bias_dt, device=hb.device)
+        bs = torch.zeros((ow,), dtype=bias_dt, device=hb.device)
         for col, linear in pairs:
             b = linear.bias.to(bias_dt)
             bs[col : col + b.shape[0]] = b
@@ -362,7 +384,7 @@ def _reference_forward(spec: FieldSpec, x, aux, packed, resid: bool):
 def fused_field_reference(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor,
                           packed: dict) -> torch.Tensor:
     """Plain PyTorch version of the kernel: (N, cx) x, (N, aux_w) aux ->
-    (N, 16) f32 raw outputs. Activations are stored in x's dtype after the
+    (N, out_w) f32 raw outputs. Activations are stored in x's dtype after the
     f32 sine, as the kernel stores them."""
     return _reference_forward(spec, x, aux, packed, resid=False)[0]
 
@@ -493,9 +515,11 @@ PROJ_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
 def tc_projection(w: torch.Tensor, ks: int | None = None) -> torch.Tensor:
-    """A 16-wide projection (K, 16) as K1 takes it: W^T (16, K), in f32 (8
+    """A projection (K, out_w) as K1 takes it: W^T (out_w, K), in f32 (8
     elements per k-step) with K permuted within each group of 8 by
-    :data:`PROJ_PERM`, in :func:`trunk.tc_operand`'s layout for 16 rows."""
+    :data:`PROJ_PERM`, in :func:`trunk.tc_operand`'s layout for 16 rows: its
+    16-column groups (16, K) one after the other, each as one m64n16
+    projection reads it."""
     ks = ks or 32 // w.element_size()
     wt = w.t()
     if ks == 8:
@@ -508,10 +532,9 @@ def tc_projection(w: torch.Tensor, ks: int | None = None) -> torch.Tensor:
 def tc_weights(packed: dict) -> dict:
     """The packed field prepared for ``csrc/field_fused.cu``: the trunk as
     :func:`trunk.tc_trunk_weights`, every head weight W^T (out, in) with K
-    padded to a multiple of 16 (the aux rows 12 -> 16,
-    :func:`trunk.tc_operand`), the 16-wide projections by
-    :func:`tc_projection`, the biases as they are; one gather
-    (:func:`trunk.tc_gather`)."""
+    padded to a multiple of 16 (the aux rows aux_w -> aux_pad,
+    :func:`trunk.tc_operand`), the projections by :func:`tc_projection`,
+    the biases as they are; one gather (:func:`trunk.tc_gather`)."""
     layouts = dict(trunk.TRUNK_LAYOUTS)
     for k in packed:
         if k.startswith("w2_"):
@@ -530,12 +553,21 @@ _PTR_FIELDS = (
     "w_sv0_f", "w_sv0_aux", "w_sv1", "w_sv2", "w_rgb0", "w_sky0_aux",
     "w_b0_f", "w_b0_aux", "w_s0_f", "w_s0_aux", "w2_shared", "w2_sv",
     "w2_rgb", "w2_sky", "w2_beta", "w2_sem", "b_heads", "b_small",
-    "shared_out", "acts_out",
+    "shared_out", "acts_out", "acc",
 )
 _INT_FIELDS = (
-    "n", "layers", "feat", "fl", "cx", "aux_w", "skip_mask", "heads_on",
+    "n", "layers", "feat", "fl", "cx", "aux_w", "out_w", "skip_mask", "heads_on",
     "has_beta", "has_semantic", "use_s_aux", "sin_mode", "bf16",
 )
+ACC_FLOATS = 256 * 8  # K1's output accumulators per 64-row tile and 16-column group
+
+
+def acc_workspace(spec: FieldSpec, n: int, device) -> torch.Tensor:
+    """K1's output accumulators in global memory: per 64-row tile and
+    16-column group of the output, 8 f32 for each of the block's 256 threads
+    (csrc/field_fused.cu)."""
+    return torch.empty((-(-n // 64) * (spec.out_w // 16) * ACC_FLOATS,),
+                       dtype=torch.float32, device=device)
 
 
 class _FieldArgs(ctypes.Structure):
@@ -569,6 +601,7 @@ def _launch(spec: FieldSpec, x, aux, packed, out, shared=None, acts=None) -> Non
     for name, key in keys.items():
         tensors[name] = prepared.get(key)
     tensors["shared_out"], tensors["acts_out"] = shared, acts
+    tensors["acc"] = acc_workspace(spec, x.shape[0], x.device)
     args = _FieldArgs()
     for name in _PTR_FIELDS:
         t = tensors[name]
@@ -579,6 +612,7 @@ def _launch(spec: FieldSpec, x, aux, packed, out, shared=None, acts=None) -> Non
     args.fl = spec.fl
     args.cx = spec.cx
     args.aux_w = spec.aux_w
+    args.out_w = spec.out_w
     args.skip_mask = sum(1 << i for i in spec.skips)
     args.heads_on = int(spec.heads_on)
     args.has_beta = int(spec.has_beta)
@@ -602,10 +636,12 @@ def _check_cuda(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor) -> None:
         )
     if x.dtype not in (torch.float32, torch.bfloat16) or aux.dtype != x.dtype:
         raise ValueError(f"fused_field: x {x.dtype} / aux {aux.dtype} unsupported")
-    if _bwd.padded_k(spec.cx) > trunk.TC_MAX_K or spec.aux_w > G_AUX_W:
+    if (_bwd.padded_k(spec.cx) > trunk.TC_MAX_K or spec.aux_pad > MAX_AUX_W
+            or spec.out_w > MAX_OUT_W):
         raise ValueError(f"fused_field kernel takes encoded inputs up to {trunk.TC_MAX_K} "
-                         f"wide after padding to 16 (c_in <= 128, as the JAX kernels) and "
-                         f"{G_AUX_W} aux columns, got {spec.cx} / {spec.aux_w}")
+                         f"wide after padding to 16 (c_in <= 128, as the JAX kernels), "
+                         f"{MAX_AUX_W} aux columns and {MAX_OUT_W} output columns, got "
+                         f"{spec.cx} / {spec.aux_w} / {spec.out_w}")
     n = x.shape[0]
     if x.shape != (n, spec.cx) or aux.shape != (n, spec.aux_w):
         raise ValueError(
@@ -624,7 +660,7 @@ def _forward(spec: FieldSpec, x, aux, packed, resid: bool):
         return _reference_forward(spec, x, aux, packed, resid)
     _check_cuda(spec, x, aux)
     n, dev = x.shape[0], x.device
-    out = torch.empty((n, OUT_W), dtype=torch.float32, device=dev)
+    out = torch.empty((n, spec.out_w), dtype=torch.float32, device=dev)
     shared = acts = None
     if resid:
         shared = torch.empty((n, spec.feat), dtype=x.dtype, device=dev)
@@ -667,18 +703,27 @@ def heads_reduce_pairs(spec: FieldSpec, shared, aux, g, feats, hid, ga, g_feats)
     return pairs
 
 
+def g_aux_width(spec: FieldSpec) -> int:
+    """The g_aux launch's width: aux_pad 16 on the FMA row kernel; wider
+    blocks padded to the tensor-core row GEMM's 64-column tiles (the fixed
+    rule on shape of csrc/bwd_common.cuh)."""
+    return spec.aux_pad if spec.aux_pad == _bwd.THIN_WIDTH else -(-spec.aux_pad // 64) * 64
+
+
 def _heads_backward_cuda(spec: FieldSpec, shared, aux, g_out, packed, need_aux, trace=None):
     """K2: row launches (recompute, reverse sweep, g_feats, g_aux, g_shared)
     and one reduction of ``csrc/field_bwd.cu``. The row GEMM takes W^T
     (out, in) for the recomputed layers and the packed (in, out) weight as
     it is for the reverse sweep; the aux block and the aux rows of the
-    weights are padded with zeros to 16 columns / rows. A ``trace`` dict
-    receives the workspaces as :func:`heads_backward_reference` names them."""
+    weights are padded with zeros to ``spec.aux_pad`` columns / rows (the
+    g_aux launch's to :func:`g_aux_width`). A ``trace`` dict receives the
+    workspaces as :func:`heads_backward_reference` names them."""
     dt, f32, dev = shared.dtype, torch.float32, shared.device
     n, F, fl = shared.shape[0], spec.feat, spec.fl
     bf16 = dt == torch.bfloat16
     mode = SIN_MODES.index(spec.sin_mode)
     p = packed
+    ka, wa = spec.aux_pad, g_aux_width(spec)
 
     def row(**kw):
         _bwd.row_op("field_bwd", "heads_bwd_row", dt, n, **kw)
@@ -686,19 +731,19 @@ def _heads_backward_cuda(spec: FieldSpec, shared, aux, g_out, packed, need_aux, 
     def ws(width, dtype=dt):
         return torch.empty((n, width), dtype=dtype, device=dev)
 
-    def t(key):  # packed (in, out) -> W^T (out, in), aux rows padded to 16 columns
+    def t(key):  # packed (in, out) -> W^T (out, in), aux rows padded to aux_pad columns
         w = p[key].t()
-        return (_bwd.pad_cols(w, G_AUX_W) if key.endswith("_aux") else w).contiguous()
+        return (_bwd.pad_cols(w, ka) if key.endswith("_aux") else w).contiguous()
 
-    def b_aux(key):  # an aux weight (aux_w, out) as the sweep's B: rows padded to 16
-        return torch.nn.functional.pad(p[key], (0, 0, 0, G_AUX_W - spec.aux_w))
+    def b_aux(key):  # an aux weight (aux_w, out) as the sweep's B: rows padded to wa
+        return torch.nn.functional.pad(p[key], (0, 0, 0, wa - spec.aux_w))
 
     def hb(name):
         return p["b_heads"][HIDDEN_BIAS_ROWS.index(name)]
 
     g32 = g_out.to(f32).contiguous()
     g = g32.to(dt)
-    auxp = _bwd.pad_cols(aux, G_AUX_W)
+    auxp = _bwd.pad_cols(aux, ka)
     feats = ws(F)
     row(width=F, prods=[(shared, t("w_feats"))], bias=p["b_feats"],
         mode=_bwd.FWD_LINEAR, out_dt=feats)
@@ -756,9 +801,9 @@ def _heads_backward_cuda(spec: FieldSpec, shared, aux, g_out, packed, need_aux, 
     row(width=F, prods=f_prods, mode=_bwd.PLAIN, out_f32=g_feats32,
         out_dt=g_feats if bf16 else None)
     g_aux = None
-    if need_aux:  # 16 wide: the FMA row kernel
-        g_aux_pad = ws(G_AUX_W)
-        row(width=G_AUX_W, prods=a_prods, mode=_bwd.PLAIN, out_dt=g_aux_pad)
+    if need_aux:  # 16 wide: the FMA row kernel; wider: the tensor-core one
+        g_aux_pad = ws(wa)
+        row(width=wa, prods=a_prods, mode=_bwd.PLAIN, out_dt=g_aux_pad)
         g_aux = g_aux_pad[:, : spec.aux_w]
     g_shared = ws(F)
     row(width=F, prods=[(g, p["w2_shared"]), (g_feats, p["w_feats"])],
@@ -784,7 +829,7 @@ def _heads_backward_cuda(spec: FieldSpec, shared, aux, g_out, packed, need_aux, 
 def heads_backward(spec: FieldSpec, shared, aux, g_out, packed, need_aux: bool = True,
                    trace=None):
     """Heads backward: the trunk output ``shared`` (N, F), ``aux``
-    (N, aux_w) and the gradient ``g_out`` of the raw (N, 16) columns ->
+    (N, aux_w) and the gradient ``g_out`` of the raw (N, out_w) columns ->
     (g_shared (N, F), g_aux (N, aux_w) or None, {head key: gradient}).
 
     CPU tensors run :func:`heads_backward_reference` (which always returns
@@ -801,10 +846,11 @@ def heads_backward(spec: FieldSpec, shared, aux, g_out, packed, need_aux: bool =
     if spec.feat not in trunk.FEAT_WIDTHS or spec.fl not in HEADS_BWD_FL:
         raise ValueError(f"heads_backward kernels are built for feat in "
                          f"{trunk.FEAT_WIDTHS}, feat_last in {HEADS_BWD_FL}")
-    if spec.aux_w > G_AUX_W:
-        raise ValueError(f"heads_backward: aux width {spec.aux_w} > {G_AUX_W}")
+    if spec.aux_pad > MAX_AUX_W or spec.out_w > MAX_OUT_W:
+        raise ValueError(f"heads_backward: aux width {spec.aux_w} / output width "
+                         f"{spec.out_w} past {MAX_AUX_W} / {MAX_OUT_W}")
     if (shared.shape != (n, spec.feat) or aux.shape != (n, spec.aux_w)
-            or g_out.shape != (n, OUT_W) or not shared.is_contiguous()
+            or g_out.shape != (n, spec.out_w) or not shared.is_contiguous()
             or not aux.is_contiguous() or aux.dtype != shared.dtype):
         raise ValueError(f"heads_backward: shared {tuple(shared.shape)}, aux "
                          f"{tuple(aux.shape)} {aux.dtype}, g {tuple(g_out.shape)}")
@@ -851,7 +897,7 @@ class FusedField(torch.autograd.Function):
 
 def fused_field(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor,
                 packed: dict) -> torch.Tensor:
-    """(N, cx) points + (N, aux_w) aux -> (N, 16) raw packed head outputs.
+    """(N, cx) points + (N, aux_w) aux -> (N, out_w) raw packed head outputs.
 
     Differentiable in x, aux and the packed tensors (through
     :class:`FusedField` when grad mode is on and an input requires grad;

@@ -890,6 +890,124 @@ def test_cuda_input_width_past_128_raises(cuda_device):
     assert (ff.LAUNCHES, trunk.FWD_LAUNCHES, trunk.INTERLEAVED_LAUNCHES) == launches
 
 
+# head widths past 16 columns: (tau, n_classes) with the aux block 20, 36
+# and 128 wide (32, 48 and 128 padded to 16) and the output 32, 32 and 128
+# wide, inside the JAX kernels' 3 + 2 tau <= 128 and 9 + n_classes <= 128;
+# at tau 62 with the separate semantic t-embedding (every aux column in use)
+HEAD_CASES = ((7, 8), (16, 12), (62, 119))
+
+
+def _head_width_case(cuda_device, tau, n_classes, feat, fl, n=1001):
+    """A 4-layer field (skip at 2) with heads ``fl`` wide, a t-embedding
+    ``tau`` wide and ``n_classes`` classes, and seeded inputs for K1, K2 and
+    K4 (the gradient of the raw output columns among them)."""
+    from satnerf_torch.core.encoding import positional_encoding
+    from satnerf_torch.models.field import Field, FieldConfig, fused_field_spec, use_fused_field
+    from satnerf_torch.ops import field_fused as ff
+
+    cfg = FieldConfig(variant="rs_semantic", layers=4, feat=feat, skips=(2,), mapping=True,
+                      use_tj_for_s=True, use_separate_tj_for_semantic=tau == 62,
+                      t_embedding_tau=tau, n_classes=n_classes, trunk_impl="pallas",
+                      fc_use_full_features=fl == feat)
+    assert cfg.feat_last == fl and use_fused_field(cfg)
+    field = Field(cfg, generator=torch.Generator().manual_seed(tau)).to(cuda_device)
+    spec = fused_field_spec(cfg)
+    g = torch.Generator().manual_seed(n_classes)
+    enc = positional_encoding(torch.rand(n, 3, generator=g) * 2 - 1, 10)
+    sun = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1)
+    te, ts = torch.randn(n, tau, generator=g), torch.randn(n, tau, generator=g)
+    g_out = torch.randn(n, spec.out_w, generator=g)
+    enc, sun, te, ts, g_out = (t.to(cuda_device) for t in (enc, sun, te, ts, g_out))
+    return field, spec, lambda dt: (ff.pack_x(spec, enc, dt),
+                                    ff.pack_aux(spec, sun, te, ts, dt)), g_out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("feat,fl", [(256, 128), (512, 256), (512, 512)])
+@pytest.mark.parametrize("tau,n_classes", HEAD_CASES)
+def test_cuda_head_widths_match_plain(cuda_device, tau, n_classes, feat, fl, dtype,
+                                      record_property):
+    """K1 (both head variants, with the residuals), K2 and K4 at t-embeddings
+    7-62 wide and 8-119 classes against their plain versions on 1,001 points
+    (ragged against the 64-row tile), at the bars of the tests above, and
+    bitwise repeatable."""
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    field, spec, inputs, g_out = _head_width_case(cuda_device, tau, n_classes, feat, fl)
+    assert spec.out_w > 16 and spec.aux_pad > 16
+    f32 = dtype == torch.float32
+    errs = {}
+    with torch.no_grad():
+        packed = field.packed(dtype)
+        x, aux = inputs(dtype)
+        for heads_on in (True, False):
+            sp = dataclasses.replace(spec, heads_on=heads_on)
+            before = ff.LAUNCHES
+            runs = [ff._forward(sp, x, aux, packed, resid=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            assert ff.LAUNCHES == before + 2
+            assert all(torch.equal(a, b) for a, b in zip(*runs) if a is not None)
+            out, shared, _ = runs[0]
+            assert out.shape == (x.shape[0], spec.out_w)
+            ref, ref_shared, _ = ff._reference_forward(sp, x, aux, packed, True)
+            errs[f"k1/{heads_on}"] = float((out - ref).abs().max())
+            assert errs[f"k1/{heads_on}"] < (5e-5 if f32 else 2e-2), errs
+            assert _rel(shared, ref_shared) < (5e-5 if f32 else 4e-2)
+            if not heads_on:  # the semantic groups hold the bias alone: 0
+                assert torch.all(out[:, 16:] == 0)
+            runs = []
+            for _ in range(2):
+                before = (ff.HEADS_BWD_LAUNCHES, trunk.LAUNCHES)
+                h = ff.heads_backward(sp, shared, aux, g_out, packed)
+                t = trunk.trunk_backward(sp, x, packed, None, h[0])
+                torch.cuda.synchronize()
+                assert (ff.HEADS_BWD_LAUNCHES, trunk.LAUNCHES) == (before[0] + 1,
+                                                                    before[1] + 1)
+                runs.append([h[0], h[1], *h[2].values(), *t])
+            assert all(torch.equal(a, b) for a, b in zip(*runs))
+            assert runs[0][1].shape == aux.shape
+            ref_h = ff.heads_backward_reference(sp, shared, aux, g_out, packed)
+            ref_t = trunk.trunk_backward_reference(sp, x, packed, None, ref_h[0])
+            ref = [ref_h[0], ref_h[1], *ref_h[2].values(), *ref_t]
+            errs[f"k2_k4/{heads_on}"] = max(_rel(a, b) for a, b in zip(runs[0], ref))
+            # bf16: as for K1 (chip_smoke.py TOL_FIELD), one-ulp flips of an activation
+            assert errs[f"k2_k4/{heads_on}"] < (1e-4 if f32 else 2e-2), errs
+    record_property("errors", errs)
+
+
+@pytest.mark.cuda
+def test_cuda_head_widths_past_the_jax_bounds_raise(cuda_device):
+    """Past the JAX kernels' bounds (3 + 2 tau <= 128, 9 + n_classes <= 128)
+    the field has no spec, so neither route runs; the kernels' wrappers
+    refuse an output or aux block past 128 columns, and launch nothing."""
+    from satnerf_torch.models.field import FieldConfig, fused_field_spec
+    from satnerf_torch.ops import field_fused as ff
+
+    for kw in ({"t_embedding_tau": 63}, {"n_classes": 120}):
+        cfg = FieldConfig(variant="rs_semantic", layers=4, feat=512, skips=(2,), mapping=True,
+                          trunk_impl="pallas", **kw)
+        with pytest.raises(ValueError, match="exceeds"):
+            fused_field_spec(cfg)
+    field, spec, inputs, g_out = _head_width_case(cuda_device, 62, 119, 512, 256, n=70)
+    wide = object.__new__(ff.FieldSpec)  # past the bound, as a caller could build it
+    for f in dataclasses.fields(ff.FieldSpec):
+        object.__setattr__(wide, f.name, getattr(spec, f.name))
+    object.__setattr__(wide, "n_classes", 120)
+    x, aux = inputs(torch.float32)
+    launches = (ff.LAUNCHES, ff.HEADS_BWD_LAUNCHES)
+    with torch.no_grad():
+        packed = field.packed(torch.float32)
+        with pytest.raises(ValueError, match="128 output columns"):
+            ff._forward(wide, x, aux, packed, resid=False)
+        shared = torch.zeros(x.shape[0], spec.feat, device=cuda_device)
+        with pytest.raises(ValueError, match="past 128 / 128"):
+            ff.heads_backward(wide, shared, aux, torch.zeros(x.shape[0], 144,
+                                                             device=cuda_device), packed)
+    assert (ff.LAUNCHES, ff.HEADS_BWD_LAUNCHES) == launches
+
+
 @pytest.fixture
 def cuda_run(cuda_device, tmp_path):
     """A 4x512 port run trained 8 steps on the card (its validation saves

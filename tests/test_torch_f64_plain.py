@@ -67,7 +67,7 @@ def _case(n: int = N, seed: int = 0):
     te = te.expand(n, -1)
     # one gradient per column for every point, and a little noise: the first
     # half's sums do not cancel by themselves
-    g_out = rng.normal(size=(1, ff.OUT_W)) + 0.1 * rng.normal(size=(n, ff.OUT_W))
+    g_out = rng.normal(size=(1, spec.out_w)) + 0.1 * rng.normal(size=(n, spec.out_w))
     g_out = torch.from_numpy(g_out.astype(np.float32))
     enc = positional_encoding(xyz, cfg.mapping_pos_n_freq)
     inputs = {}

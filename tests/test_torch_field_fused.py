@@ -82,13 +82,14 @@ def _raw_case(dtype: str, heads_on: bool, n: int = 97):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_raw_columns_match_jax_kernel(dtype, heads_on):
     raw_j, raw_t = _raw_case(dtype, heads_on)
-    assert raw_t.shape == (raw_j.shape[0], tff.OUT_W)
+    out_w = 16  # 9 + 5 classes, rounded up to 16
+    assert raw_t.shape == (raw_j.shape[0], out_w)
     assert raw_t.dtype == torch.float32
-    assert np.all(raw_j[:, tff.OUT_W:] == 0.0)
+    assert np.all(raw_j[:, out_w:] == 0.0)
     tol = 5e-5 if dtype == "f32" else 0.1
-    assert max_err(raw_t, raw_j[:, : tff.OUT_W]) < tol
+    assert max_err(raw_t, raw_j[:, :out_w]) < tol
     if not heads_on:  # only sigma and sun_v are evaluated
-        live = np.zeros(tff.OUT_W, bool)
+        live = np.zeros(out_w, bool)
         live[[tff.COL_SIGMA, tff.COL_SUN]] = True
         assert torch.all(raw_t[:, ~torch.from_numpy(live)] == 0)
 
@@ -106,8 +107,14 @@ def test_field_spec_counts_flagship_work():
     # ~2.82 M multiply-adds and ~5.6 k sines per point at 8x512 / 256 heads
     assert 2.80e6 < spec.mac_per_point() < 2.84e6
     assert spec.sines_per_point() == 8 * 512 + 6 * 256
+    assert (spec.out_w, spec.aux_pad) == (16, 16)
+    # every width the JAX kernels take (9 + n_classes <= 128, 3 + 2 tau <= 128)
+    edge = dataclasses.replace(spec, n_classes=119, tau=62)
+    assert (edge.out_w, edge.aux_w, edge.aux_pad) == (128, 128, 128)
     with pytest.raises(ValueError):
-        dataclasses.replace(spec, n_classes=8)
+        dataclasses.replace(spec, n_classes=120)
+    with pytest.raises(ValueError):
+        dataclasses.replace(spec, tau=63)
 
 
 def _csrc(name: str) -> str:

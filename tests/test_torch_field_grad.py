@@ -54,9 +54,9 @@ def _to_port_layout(key, g, spec, jspec):
     if key in ("w_sv0_aux", "w_sky0_aux", "w_b0_aux", "w_s0_aux"):
         return g[: spec.aux_w]
     if key.startswith("w2_"):
-        return g[:, : tff.OUT_W]
+        return g[:, : spec.out_w]
     if key in ("b_small", "b_small_sc"):
-        return g[0, : tff.OUT_W]
+        return g[0, : spec.out_w]
     if key == "b_feats":
         return g[0]
     if key == "b_heads":
@@ -87,8 +87,9 @@ def test_plain_backward_matches_jax_vjp(dtype, heads_on, bwd):
     aux_j = jff.pack_aux(jspec, jnp.asarray(sun), jnp.asarray(te), None, jdt)
     pt, ph = pack_trunk(params["trunk"], tspec, jdt), jff.pack_heads(params, jspec, jdt)
     rng = np.random.default_rng(7)
+    out_w = tfield.fused_field_spec(tcfg).out_w
     g = np.zeros((n, 128), np.float32)
-    g[:, : tff.OUT_W] = rng.normal(size=(n, tff.OUT_W))
+    g[:, :out_w] = rng.normal(size=(n, out_w))
     _, vjp = jax.vjp(lambda x, a, t, h: jff.fused_field(jspec, True, x, a, t, h),
                      enc.astype(jdt), aux_j, pt, ph)
     gx_j, gaux_j, gt_j, gh_j = vjp(jnp.asarray(g))
@@ -102,7 +103,7 @@ def test_plain_backward_matches_jax_vjp(dtype, heads_on, bwd):
     keys = tff.TRUNK_KEYS + spec.head_keys()
     out = tff.fused_field(spec, x, aux, packed)
     grads = torch.autograd.grad(out, [x, aux] + [packed[k] for k in keys],
-                                torch.from_numpy(g[:, : tff.OUT_W]))
+                                torch.from_numpy(g[:, :out_w]))
     bar = 1e-5 if dtype == "f32" else 0.1
     assert _rel(grads[0], np.asarray(gx_j, np.float32)) < bar, "gx"
     assert _rel(grads[1], np.asarray(gaux_j, np.float32)[:, : spec.aux_w]) < bar, "g_aux"

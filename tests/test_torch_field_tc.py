@@ -90,7 +90,7 @@ def emulate_field(spec, x, aux, prepared, resid: bool = False):
     dt, p = x.dtype, _unprepare(prepared)
     sin = SINE_ENGINES[spec.sin_mode]
     F, fl = spec.feat, spec.fl
-    parts = [torch.zeros(x.shape[0], tff.OUT_W), torch.zeros(x.shape[0], tff.OUT_W)]
+    parts = [torch.zeros(x.shape[0], spec.out_w), torch.zeros(x.shape[0], spec.out_w)]
 
     def project(h, w2):  # each warpgroup's half of the columns, summed apart
         half = h.shape[1] // 2
@@ -147,9 +147,9 @@ def emulate_field(spec, x, aux, prepared, resid: bool = False):
 def _case(dtype: str, heads_on: bool, full: bool, n: int = N_POINTS, **cfg):
     """(JAX raw columns, emulated raw columns, the torch case) at flagship
     widths; ``full``: 512-wide heads (fc_use_full_features); ``cfg``: other
-    FieldConfig keys (mapping_pos_n_freq)."""
+    FieldConfig keys (mapping_pos_n_freq, t_embedding_tau, n_classes)."""
     jcfg, params, tcfg, module = field_pair(**FLAGSHIP, fc_use_full_features=full, **cfg)
-    xyz, sun, _, te, _ = field_inputs(n)
+    xyz, sun, _, te, _ = field_inputs(n, tau=jcfg.t_embedding_tau)
     jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
     tspec = TrunkSpec(layers=jcfg.layers, feat=jcfg.feat, skips=tuple(jcfg.skips),
@@ -169,7 +169,7 @@ def _case(dtype: str, heads_on: bool, full: bool, n: int = N_POINTS, **cfg):
     with torch.no_grad():
         packed = module.packed(tdt)
         out, shared, acts = emulate_field(spec, x, aux, tff.tc_weights(packed))
-    return raw_j[:, : tff.OUT_W], out, (spec, x, aux, packed, shared, acts)
+    return raw_j[:, : spec.out_w], out, (spec, x, aux, packed, shared, acts)
 
 
 @pytest.mark.parametrize("dtype,heads_on,full", [
@@ -187,7 +187,7 @@ def test_emulated_kernel_matches_jax_kernel(dtype, heads_on, full):
         assert max_err(shared, ref_shared.numpy()) < 5e-5
         assert max_err(acts, ref_acts.numpy()) < 5e-5 * max(1.0, float(ref_acts.abs().max()))
     if not heads_on:  # only sigma and sun_v are evaluated
-        dead = [c for c in range(tff.OUT_W) if c not in (tff.COL_SIGMA, tff.COL_SUN)]
+        dead = [c for c in range(spec.out_w) if c not in (tff.COL_SIGMA, tff.COL_SUN)]
         assert torch.all(out[:, dead] == 0)
 
 

@@ -94,3 +94,44 @@ def test_sample_pdf_midpoint_matches_jax(n_importance):
 def test_unit_ladder_is_jnp_linspace_bit_for_bit(n):
     ref = np.asarray(jnp.linspace(0.0, 1.0, n, dtype=jnp.float32))
     assert np.array_equal(tsamp._unit_ladder(n, torch.zeros(1)).numpy(), ref)
+
+
+def test_sample_pdf_top_rung_at_a_light_last_bin_is_a_difference_by_design():
+    """The deterministic ladder's last rung (u = 1): the two packages' cdfs
+    end a last bit apart around 1.0 (their normalising sums and cumulative
+    sums add in other orders), and that bit decides whether u = 1 lies past
+    the cdf's end (at or below 1: the sample at the last edge) or inside the
+    last bin (the sample short of it by that bit over the bin's cdf step). Where the last
+    bin holds less than the guard (eps, 1e-5) of the cdf, its step's
+    denominator becomes 1 and the sample sits at the bin's first edge: it
+    moves across the whole last bin. Every other sample agrees within TOL,
+    and on one cdf the two inverse CDFs agree bit for bit (ROADMAP
+    "Differences by design")."""
+    rng = np.random.default_rng(0)
+    n, s, eps = 4096, 6, 1e-5
+    w = (rng.uniform(0.0, 1.0, (n, s)) ** 3).astype(np.float32)
+    bins = np.sort(rng.uniform(0.0, 2.0, (n, s + 1)), axis=1).astype(np.float32)
+    ref = np.asarray(jsamp.sample_pdf(jnp.asarray(bins), jnp.asarray(w), 8, det=True))
+    got = tsamp.sample_pdf(*_t(bins, w), 8).numpy()
+    diff = np.abs(got - ref)
+    assert set(np.nonzero(diff > TOL)[1].tolist()) == {7}  # the u = 1 rung alone
+    wj = jnp.asarray(w) + eps
+    cdf_j = np.asarray(jnp.cumsum(wj / jnp.sum(wj, axis=-1, keepdims=True), axis=-1))
+    wt = torch.from_numpy(w) + eps
+    cdf_t = torch.cumsum(wt / torch.sum(wt, dim=-1, keepdim=True), dim=-1).numpy()
+    rows = np.nonzero(diff[:, 7] > TOL)[0]
+    assert np.all(cdf_j[rows, -1] != cdf_t[rows, -1])  # the ends a last bit apart
+    share = (w[:, -1] + eps) / (w + eps).sum(1)
+    whole = rows[share[rows] < 0.5 * eps]  # steps under the guard: the whole bin
+    assert len(whole) > 0
+    # one end at or below 1.0 (u = 1 past it), the other above (u = 1 inside)
+    assert np.all((cdf_j[whole, -1] <= 1.0) != (cdf_t[whole, -1] <= 1.0))
+    assert np.allclose(diff[whole, 7], bins[whole, -1] - bins[whole, -2], rtol=0, atol=1e-5)
+    # JAX's cdf through both inverse CDFs: the same samples, bit for bit
+    cdf = np.concatenate([np.zeros((n, 1), np.float32), cdf_j], axis=1)
+    u = np.broadcast_to(np.asarray(jnp.linspace(0.0, 1.0, 8, dtype=jnp.float32)), (n, 8)).copy()
+    via_j = jsamp._inverse_cdf_interp(jnp.asarray(bins), jnp.asarray(cdf), jnp.asarray(u), s,
+                                      clamp_denom_below=eps)
+    via_t = tsamp._inverse_cdf_interp(*_t(bins, cdf, u), s, clamp_denom_below=eps)
+    assert np.array_equal(via_t.numpy(), np.asarray(via_j))
+    assert np.array_equal(np.asarray(via_j)[rows, 7], ref[rows, 7])

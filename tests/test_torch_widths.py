@@ -27,7 +27,7 @@ from satnerf_torch.models import field as tfield
 from satnerf_torch.models.import_params import field_state_from_params
 from satnerf_torch.ops import _bwd, trunk
 from satnerf_torch.ops import field_fused as tff
-from torch_parity import field_inputs
+from torch_parity import field_inputs, one_thread
 
 torch.set_num_threads(2)
 
@@ -91,13 +91,15 @@ def field_matches_jax(kw: dict):
     gp_j, gt_j = vjp(weights)
 
     t_emb = torch.from_numpy(te).requires_grad_(True)
-    got = tfield.field_forward(module, tcfg, torch.from_numpy(xyz),
-                               sun_d=torch.from_numpy(sun), t_emb=t_emb)
+    with one_thread():
+        got = tfield.field_forward(module, tcfg, torch.from_numpy(xyz),
+                                   sun_d=torch.from_numpy(sun), t_emb=t_emb)
+        sum(torch.sum(got[k] * torch.from_numpy(np.asarray(w)))
+            for k, w in weights.items()).backward()
     assert set(got) == set(ref)
     for k in ref:
         err = float((got[k].detach() - torch.from_numpy(np.asarray(ref[k]))).abs().max())
         assert err < TOL_OUT, (k, err)
-    sum(torch.sum(got[k] * torch.from_numpy(np.asarray(w))) for k, w in weights.items()).backward()
     want = field_state_from_params(jax.tree.map(np.asarray, gp_j))
     grads = {k: p.grad for k, p in module.named_parameters()}
     assert set(grads) == set(want)

@@ -23,6 +23,21 @@ from satnerf_torch.ops.fastmath import COSINE_ENGINES, SIN_MODES, SINE_ENGINES
 torch.set_num_threads(2)
 
 
+@contextlib.contextmanager
+def one_thread():
+    """torch's CPU products on one thread inside the block. With two, the
+    plain versions' sums have come out in another order now and then when
+    the machine was loaded (a SIREN field's outputs 4.7e-5 apart, past the
+    5e-5 bar of a test that passes alone); on one thread the order is the
+    same every run."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 # how long a test waits for the JAX package's native library: make's own
 # limit for one build (satnerf_tpu/ops/native.py) and a second build's worth
 JAX_NATIVE_WAIT_S = 240.0
