@@ -192,15 +192,17 @@ JSON line per phase:
    warm start of it as the fine one: each field evaluation held against the
    plain version of its own field, every step at the f32 kernels' step's
    inverse-CDF depths; the phase's seconds, the hierarchical audit's apart;
-23. ``bench``: ``satnerf_torch.bench.main()`` at the JAX bench's default
-   configuration in full (8,192 + 1,024 depth rays, bf16, ``sc_stride`` 2,
-   a warm window and three of 50 steps, each window one dispatch of 50
-   replays of the captured step), in this process: its line, K1
+23. ``bench``: ``satnerf_torch.bench.main(BENCH_MAIN_STEPS)`` at the JAX
+   bench's default configuration (8,192 + 1,024 depth rays, bf16,
+   ``sc_stride`` 2, a warm window and three of BENCH_MAIN_STEPS steps, each
+   window one dispatch of that many replays of the captured step), in this
+   process: its line, K1
    (both head variants), K2, K4, K5 and K5's backward launched as
    ``PER_STEP`` on every step, no plain version; one step of it at its own
    8,192 + 1,024 rays against the plain versions at ``TOL_AUDIT``'s bf16
    bars, with each side's peak device memory; and
-   ``python -m satnerf_torch.bench`` as a user runs it;
+   ``python -m satnerf_torch.bench`` as a user runs it (in full: windows of
+   50 steps, the bench's own line);
 24. ``bench_variants``: ``SATNERF_BENCH_HIER=128``, ``BWD=stored`` and
    ``SC_STRIDE=1`` at three steps a window, with the same checks at each
    one's own batch; the hierarchical one, whose fine points follow the
@@ -270,6 +272,16 @@ TOL_COMPOSITE_BWD = {"sigmas": 1e-6, "albedo": 1e-5, "sun": 1e-6, "sky": 1e-6}
 # tests/test_torch_step.py); at most 0.1% of a tensor beyond 2e-5
 TOL_STEP_LOSS = 1e-4
 TOL_STEP_PARAM = 2e-5
+# the same in bf16 (a bf16 compute_dtype: phase wide_widths, the TOML 768 and
+# 1,024 wide): both sides round every activation to bf16, and where a
+# different f32 sum flips one rounding the step and the image carry it. On
+# an H100 (80GB HBM3, 700 W) the loss terms read up to 7.9e-5 (768) and
+# 1.2e-5 (1,024) relative, the updated params beyond TOL_STEP_PARAM 0.24%
+# and 0.35% of a tensor (none beyond 2 lr), the served rgb 2.3e-4 and depth
+# 8.7e-5 abs over 128 rays. Bars: five times the loss reading, three times
+# the share, 1e-3 served
+TOL_STEP_BF16 = {"loss": 4e-4, "share": 1e-2}
+TOL_SERVE_CPU_BF16 = {"rgb": 1e-3, "depth": 1e-3}
 TOL_STORED = 1e-4  # "stored" vs "recompute" gradients, relative, f32
 # phase widths: where K2 and its plain version recompute the sky head's ReLU
 # pre-activation on two sides of 0 (its derivative is undefined there), the
@@ -423,6 +435,10 @@ BENCH_VARIANTS = {"hier128": ({"SATNERF_BENCH_HIER": "128"}, PER_STEP_HIER),
                   "bwd_stored": ({"SATNERF_BENCH_BWD": "stored"}, PER_STEP),
                   "sc_stride1": ({"SATNERF_BENCH_SC_STRIDE": "1"}, PER_STEP)}
 BENCH_VARIANT_STEPS = 3
+# the in-process bench's steps a window (its launches counted): the CLI run
+# after it measures the full 50-step windows, so 10 keep its checks and save
+# 160 steps (~36 s on an H100) of the run's time
+BENCH_MAIN_STEPS = 10
 SOL_ARGS = ["--scan", "5", "--sc-stride", "2"]  # speed_of_light at the bench's stride
 # phase widths: the (feat, feat_last) pairs of every trunk width the JAX kernels
 # take below 512 (512 is the flagship's, checked above), at the rs_semantic TOML's
@@ -446,6 +462,9 @@ EXAMPLES_FIELD = {"fc_layers": 2, "fc_units": 128, "fc_skips": [1]}
 # to 16), every one inside the JAX kernels' c_in <= 128
 INPUT_FREQS = (11, 12, 16, 21)
 INPUT_POINTS = 65_536  # a training step's points
+# the trunk widths phase input_widths crosses with INPUT_FREQS (those of PR
+# 21's run; phase wide_widths takes the wider ones)
+INPUT_FEAT_WIDTHS = (128, 256, 384, 512)
 INPUT_TIME_FREQS = (10, 12, 21)  # device ms at 512 wide: c_in 60 beside 72 and 126
 POSENC_FREQ = 12  # the JAX package's --posenc-freq lever (tools/syn_long_run.py:60-64)
 # phase head_widths: (tau, n_classes) past the 16 aux and 16 output columns,
@@ -459,6 +478,23 @@ HEAD_CLASSES = 12
 HEAD_SCENE = {"n_train": 4, "n_test": 1, "img_size": 48, "n_tie_points": 300}
 HEAD_CLI_STEPS = 18  # two epochs of the scene at the TOML's 1,024 rays
 # port_times keys of K1-K4 (at 512), read in turns with the parent's
+# phase wide_widths: trunks past 512 (the TOML's default heads, feat / 2:
+# (768, 384) and (1,024, 512) run K1, (640, 320) and (896, 448) K3 with the
+# heads layer by layer), K4 with 7 and 2 skips, the TOML trained and served
+# at WIDE_STEP_UNITS and served at WIDE_K3_UNITS; the requests' first
+# WIDE_CPU_RAYS rays against the CPU (its plain field at 1,024 wide takes
+# about 10 s for 1,024 rays)
+WIDE_PAIRS = ((640, 320), (768, 384), (896, 448), (1024, 512))
+WIDE_POINTS = (1, 63, 65, 65_536)
+WIDE_SKIPS = ((1, 2, 3, 4, 5, 6, 7), (2, 5))
+WIDE_STEP_UNITS = (1024, 768)
+WIDE_K3_UNITS = 640
+WIDE_CPU_RAYS = 128
+# head widths past 16 columns at the fused wide pairs (head_widths' cases
+# with a 32- and a 128-wide output), each at 65,536 points
+WIDE_HEAD_PAIRS = ((768, 384), (1024, 512))
+WIDE_HEAD_CASES = ((16, 12), (62, 119))
+WIDE_HEAD_POINTS = 65_536
 PARENT_KERNEL_KEYS = ("field_fused", "field_fused_serve", "heads_bwd", "trunk_bwd_recompute",
                       "trunk_bwd_stored", "trunk_fwd")
 
@@ -720,6 +756,11 @@ def rel_err(a, b) -> float:
     """max |a - b| over max |b|, taken in f64."""
     return float((a.double() - b.double()).abs().max()
                  / b.double().abs().max().clamp_min(1e-30))
+
+
+def abs_err(a, b) -> float:
+    """max |a - b|, taken in f64."""
+    return float((a.double() - b.double()).abs().max())
 
 
 def field_backward_phase(field, fcfg, enc, sun_d, t_emb) -> dict:
@@ -1052,8 +1093,9 @@ def train_phase(dev, vocab: int, name: str = "train", overrides: dict | None = N
     """Five training steps of the flagship step config (with ``overrides``
     of its pipeline keys, ``n_classes`` semantic classes) through the
     kernels, each preparing the K1/K3 weights ``preparations`` times (once
-    per field), then a 32-ray step against the CPU plain path and, with
-    ``stored_check``, a "stored"-engine step."""
+    per field), then a 32-ray step against the CPU plain path (in bf16 at
+    TOL_STEP_BF16's bars) and, with ``stored_check``, a "stored"-engine
+    step."""
     import dataclasses
     import math
 
@@ -1131,17 +1173,19 @@ def train_phase(dev, vocab: int, name: str = "train", overrides: dict | None = N
     loss_err = {k: abs(results["cuda"][0][k] - v) / max(1.0, abs(v))
                 for k, v in results["cpu"][0].items()}
     pdiff = param_diff(results["cuda"][1], results["cpu"][1])
+    tol = (TOL_STEP_BF16 if scfg.render.compute_dtype == "bfloat16"
+           else {"loss": TOL_STEP_LOSS, "share": 1e-3})
     check(set(loss_err) == set(results["cuda"][0]), f"{name}: loss keys differ")
     for k, e in loss_err.items():
-        check(e <= TOL_STEP_LOSS, f"{name} 32-ray step {k} card vs CPU {e}")
+        check(e <= tol["loss"], f"{name} 32-ray step {k} card vs CPU {e}")
     for k, (mx, share) in pdiff.items():
-        check(mx <= 2 * LR + 1e-6 and share <= 1e-3,
+        check(mx <= 2 * LR + 1e-6 and share <= tol["share"],
               f"{name} 32-ray step param {k}: {mx} {share}")
     check_line = {"phase": f"{name}_check", "cpu_step_rays": CPU_STEP_RAYS,
                   "loss_rel_err": loss_err,
                   "param_max_abs_err": max(v[0] for v in pdiff.values()),
                   "param_share_beyond_tol": max(v[1] for v in pdiff.values()),
-                  "tol": {"loss": TOL_STEP_LOSS, "param": TOL_STEP_PARAM}}
+                  "tol": {**tol, "param": TOL_STEP_PARAM}}
     if not stored_check:
         emit(check_line)
         return {"launches": got, "scfg": scfg, "params": state.params}
@@ -1706,13 +1750,15 @@ def k6_times(dev) -> dict:
 
 
 def serve_variant_phase(name: str, dev, rcfg, params: dict, vocab: int,
-                        per_chunk: dict, coarse: bool = False, fields: int = 1) -> dict:
+                        per_chunk: dict, coarse: bool = False, fields: int = 1,
+                        n_cmp: int = 1024) -> dict:
     """One 128x128 request of a ``RenderService`` over ``params`` through the
     kernels (``per_chunk`` launches of each per 16,384-ray chunk, no plain
     version, the K1/K3 weights of each of its ``fields`` prepared once), its
-    first 1,024 rays held against the plain path on CPU copies of the
-    weights; with ``coarse``, the hierarchical ``<k>_coarse`` outputs of those
-    rays on the card against the CPU's too."""
+    first ``n_cmp`` rays held against the plain path on CPU copies of the
+    weights within TOL_SERVE_CPU (TOL_SERVE_CPU_BF16 in bf16); with
+    ``coarse``, the hierarchical ``<k>_coarse`` outputs of those rays on the
+    card against the CPU's too."""
     import numpy as np
     import torch
 
@@ -1721,6 +1767,7 @@ def serve_variant_phase(name: str, dev, rcfg, params: dict, vocab: int,
     from satnerf_torch.serve.service import RenderService
 
     svc = RenderService(params, rcfg, chunk=CHUNK, device=dev)
+    tol = TOL_SERVE_CPU_BF16 if rcfg.compute_dtype == "bfloat16" else TOL_SERVE_CPU
     n_rays = SERVE_H * SERVE_W
     rays, extras = synthetic_rays(n_rays, 300, vocab)
     reset_counters()
@@ -1740,7 +1787,6 @@ def serve_variant_phase(name: str, dev, rcfg, params: dict, vocab: int,
             check(bool(np.isfinite(v).all()), f"{name} {k} non-finite")
     check(out["rgb"].shape == (SERVE_H, SERVE_W, 3), f"{name} rgb shape")
 
-    n_cmp = 1024
     cpu = copy_params(svc.params, "cpu")
     ref = render_image_chunked(cpu, svc.rcfg, rays[:n_cmp], extras[:n_cmp], chunk=n_cmp,
                                device="cpu")
@@ -1750,9 +1796,9 @@ def serve_variant_phase(name: str, dev, rcfg, params: dict, vocab: int,
     line = {"phase": name, "rays": n_rays, "chunk": CHUNK, "request_ms": req_ms,
             "rays_per_s": n_rays / (req_ms / 1e3), "launches": got, "preparations": preps,
             "cpu_plain_max_abs_err": err, "cpu_label_agreement": agree,
-            "tol": TOL_SERVE_CPU}
-    for k, tol in TOL_SERVE_CPU.items():
-        check(err[k] <= tol, f"{name} vs CPU {k} err {err[k]}")
+            "cpu_rays": n_cmp, "tol": tol}
+    for k, bar in tol.items():
+        check(err[k] <= bar, f"{name} vs CPU {k} err {err[k]}")
     check(agree >= 0.99, f"{name}: semantic labels agree on {agree}")
     if coarse:
         on_card = render_image_chunked(svc.params, svc.rcfg, rays[:n_cmp], extras[:n_cmp],
@@ -3923,9 +3969,10 @@ def _check_bench_run(name: str, line: dict, launches: dict, plain: dict, heads: 
 
 
 def bench_phase(dev) -> dict:
-    """``satnerf_torch.bench.main()`` at the default configuration in full, in
-    this process (launch counters around it), one step of it against the
-    plain versions, and ``python -m satnerf_torch.bench`` as a user runs it."""
+    """``satnerf_torch.bench.main()`` at the default configuration with
+    BENCH_MAIN_STEPS steps a window, in this process (launch counters around
+    it), one step of it against the plain versions, and ``python -m
+    satnerf_torch.bench`` as a user runs it, in full."""
     import gc
 
     import torch
@@ -3934,8 +3981,8 @@ def bench_phase(dev) -> dict:
 
     t_phase = time.monotonic()
     with tool_env({}):
-        line, launches, plain, heads, secs = counted_run(bench.main)
-        steps = (1 + bench.WINDOWS) * bench.SCAN_STEPS
+        line, launches, plain, heads, secs = counted_run(lambda: bench.main(BENCH_MAIN_STEPS))
+        steps = (1 + bench.WINDOWS) * BENCH_MAIN_STEPS
         _check_bench_run("bench", line, launches, plain, heads, PER_STEP, steps)
         check(line["config"] == "batch8192/kernels/chunks0/bf16/sc2",
               f"bench config {line['config']}")
@@ -3956,7 +4003,8 @@ def bench_phase(dev) -> dict:
     check(cli["metric"] == "train_rays_per_sec_per_chip" and math.isfinite(cli["value"])
           and cli["value"] > 0 and cli["config"] == line["config"],
           f"bench CLI line {cli}")
-    out = {"phase": "bench", "line": line, "steps": steps, "launches": launches,
+    out = {"phase": "bench", "line": line, "steps_per_window": BENCH_MAIN_STEPS,
+           "steps": steps, "launches": launches,
            "launches_per_step": {k: v / steps for k, v in launches.items()},
            "k1_by_heads": heads, "plain_calls": plain, "main_seconds": secs,
            "plain_check": plain_err, "plain_check_tol": TOL_AUDIT["bfloat16"], "cli_line": cli, "cli_seconds": cli_s,
@@ -4074,6 +4122,26 @@ def _bwd_check(what: str, got: dict, ref: dict, dname: str, plain_f32, notes: li
     return worst
 
 
+def _fwd_check(what: str, got, ref, dname: str, bar: float, metric, ref64, notes: list) -> float:
+    """``metric`` (abs_err or rel_err) of a forward output ``got`` against its
+    plain version's ``ref``, checked against ``bar``; given ``ref64`` (trunks
+    past 512 wide), a bf16 output beyond it passes where the kernel lies no
+    farther from the plain version in f64 on the same inputs (``ref64()``)
+    than the plain bf16 version does, plus the bar (_bwd_check's rule: at K
+    past 512 a one-ulp flip of a bf16 activation, carried through the
+    layers, reaches past the bar), and is written to ``notes``."""
+    e = metric(got, ref)
+    if e <= bar:
+        return e
+    check(dname == "bfloat16" and ref64 is not None, f"{what} err {e}")
+    r64 = ref64()
+    d_k, d_p = metric(got, r64), metric(ref, r64)
+    notes.append({"check": what, "vs_plain": e, "kernel_vs_f64": d_k, "plain_vs_f64": d_p})
+    check(d_k <= d_p + bar, f"{what}: {e} from the plain version; from f64 {d_k} against "
+                            f"the plain bf16 version's {d_p}")
+    return e
+
+
 def _relu_agree_rows(what: str, spec, shared, aux, g_out, packed, notes: list):
     """The rows on which K2 and its plain version recompute the sky head's
     pre-activation (the one ReLU of the heads) with the same sign in every
@@ -4103,12 +4171,13 @@ def _relu_agree_rows(what: str, spec, shared, aux, g_out, packed, notes: list):
 
 
 def width_kernel_checks(key: str, spec, fused: bool, packed, inputs, dname: str,
-                        n: int, notes: list) -> dict:
+                        n: int, notes: list, k4: bool = True) -> dict:
     """On the first ``n`` of ``inputs``: K1 (both head variants) with K2 and
     K4 (both engines) on K1's residuals, or K3 (with and without the
-    pre-activations) with K4 (both engines), each against its plain version
-    within today's bars (_bwd_check, _relu_agree_rows) and run twice,
-    bitwise equal. -> {check: error}."""
+    pre-activations) with K4 (both engines; not with ``k4`` False), each
+    against its plain version within today's bars (_fwd_check, the bf16
+    yardstick on the forward outputs past 512 wide only; _bwd_check,
+    _relu_agree_rows) and run twice, bitwise equal. -> {check: error}."""
     import dataclasses
 
     import torch
@@ -4121,7 +4190,12 @@ def width_kernel_checks(key: str, spec, fused: bool, packed, inputs, dname: str,
     dt = packed["w0"].dtype
     x = ff.pack_x(spec, enc, dt)
     p32 = {k: v.float() for k, v in packed.items()}  # the same weights, for f32 yardsticks
+    p64 = {k: v.double() for k, v in packed.items()}  # and for f64 ones
     errs = {}
+
+    def fwd(what, got, ref, bar, metric, ref64):
+        return _fwd_check(what, got, ref, dname, bar, metric,
+                          ref64 if spec.feat > trunk.SMEM_MAX_FEAT else None, notes)
 
     def same(a: list, b: list) -> bool:
         return all((u is None and v is None) or torch.equal(u, v) for u, v in zip(a, b))
@@ -4137,11 +4211,18 @@ def width_kernel_checks(key: str, spec, fused: bool, packed, inputs, dname: str,
             check(same(*runs), f"{tag}: two runs differ")
             out, acts = runs[0]
             ref, ref_acts = trunk.fused_trunk_reference(spec, x, packed, emit)
-            errs[f"k3/acts_{emit}"] = float((out.float() - ref.float()).abs().max())
-            check(errs[f"k3/acts_{emit}"] <= TOL_FIELD[dname], f"{tag} err {errs}")
+
+            def k3_f64(i, emit=emit):
+                return trunk.fused_trunk_reference(spec, x.double(), p64, emit)[i]
+
+            errs[f"k3/acts_{emit}"] = fwd(f"{key} n{n} {dname} K3 acts={emit}", out, ref,
+                                          TOL_FIELD[dname], abs_err, lambda: k3_f64(0))
             if emit:
-                errs["k3/pre_activations_rel"] = rel_err(acts, ref_acts)
-                check(errs["k3/pre_activations_rel"] <= TOL_RESID[dname], f"{tag} err {errs}")
+                errs["k3/pre_activations_rel"] = fwd(
+                    f"{key} n{n} {dname} K3 pre-activations", acts, ref_acts,
+                    TOL_RESID[dname], rel_err, lambda: k3_f64(1))
+        if not k4:
+            return errs
         g = cot.to(dt)
         for bwd in ("recompute", "stored"):
             sb = dataclasses.replace(spec, trunk_bwd=bwd)
@@ -4164,9 +4245,10 @@ def width_kernel_checks(key: str, spec, fused: bool, packed, inputs, dname: str,
         runs = [ff.fused_field(sp, x, aux, packed) for _ in range(2)]
         torch.cuda.synchronize()
         check(torch.equal(*runs), f"{key} K1 {tag}: two runs differ")
-        errs[f"k1/{tag}"] = float((runs[0] - ff.fused_field_reference(sp, x, aux, packed))
-                                  .abs().max())
-        check(errs[f"k1/{tag}"] <= TOL_FIELD[dname], f"{key} K1 {tag} err {errs}")
+        errs[f"k1/{tag}"] = fwd(
+            f"{key} n{n} {dname} K1 {tag}", runs[0], ff.fused_field_reference(sp, x, aux, packed),
+            TOL_FIELD[dname], abs_err,
+            lambda sp=sp: ff.fused_field_reference(sp, x.double(), aux.double(), p64))
         for bwd in ("recompute", "stored"):
             sb = dataclasses.replace(sp, trunk_bwd=bwd)
             what = f"{key} n{n} {dname} {tag} {bwd}"
@@ -4183,9 +4265,16 @@ def width_kernel_checks(key: str, spec, fused: bool, packed, inputs, dname: str,
             _, rs, ra = ff._reference_forward(sb, x, aux, packed, True)
             rh = ff.heads_backward_reference(sb, shared, aux, g_out, packed)
             rt = trunk.trunk_backward_reference(sb, x, packed, acts, rh[0])
-            resid = [rel_err(shared, rs)] + ([rel_err(acts, ra)] if acts is not None else [])
+
+            def k1_f64(i, sb=sb):
+                return ff._reference_forward(sb, x.double(), aux.double(), p64, True)[i]
+
+            resid = [fwd(f"{what} K1 residual shared", shared, rs, TOL_RESID[dname], rel_err,
+                         lambda: k1_f64(1))]
+            if acts is not None:
+                resid.append(fwd(f"{what} K1 residual pre-activations", acts, ra,
+                                 TOL_RESID[dname], rel_err, lambda: k1_f64(2)))
             errs[f"k1_residuals/{tag}/{bwd}"] = max(resid)
-            check(max(resid) <= TOL_RESID[dname], f"{what} K1 residuals err {resid}")
 
             def k4_f32():
                 r = ff.heads_backward_reference(sb, shared.float(), aux.float(), g_out, p32)
@@ -4243,9 +4332,10 @@ def width_times(spec, fused: bool, packed, inputs, dname: str, only=None) -> dic
         before = read_counters()[0]
         t = device_time(fn, reps=reps, warmup=2, repeats=3)
         after = read_counters()[0]
-        ops_ms = op_bounds(2.0 * macs * n, dname)["ops_ms"]
+        bounds = op_bounds(2.0 * macs * n, dname)
+        ops_ms = bounds.pop("ops_ms")
         bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
-        rows[name] = {"ms": t["ms"], "host_issue_us": t["host_issue_us"],
+        rows[name] = {"ms": t["ms"], "host_issue_us": t["host_issue_us"], **bounds,
                       "bound_ms": max(ops_ms, bytes_ms),
                       "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                       "points": n, "timed_launches": {k: after[k] - before[k] for k in after
@@ -4459,7 +4549,7 @@ def k1_input_checks(key: str, spec, packed, inputs, dname: str) -> dict:
 
 def input_widths_phase(dev, vocab: int, turns: list | None) -> dict:
     """Encoded inputs past 64 wide (INPUT_FREQS: c_in 66, 72, 96, 126) at
-    every trunk width (FEAT_WIDTHS) in f32 and bf16, INPUT_POINTS points:
+    the trunk widths up to 512 (INPUT_FEAT_WIDTHS) in f32 and bf16, INPUT_POINTS points:
     K1 (k1_input_checks), K3 (with and without the pre-activations) and K4
     (both engines, gx included; width_kernel_checks) against their plain
     versions within today's bars; K1's, K3's and K4's device ms beside their
@@ -4479,7 +4569,7 @@ def input_widths_phase(dev, vocab: int, turns: list | None) -> dict:
     t_phase = time.monotonic()
     cells, notes, times = {}, [], {}
     before = read_counters()[0]
-    cases = [(f, w) for f in INPUT_FREQS for w in trunk.FEAT_WIDTHS]
+    cases = [(f, w) for f in INPUT_FREQS for w in INPUT_FEAT_WIDTHS]
     cases += [(f, 512) for f in INPUT_TIME_FREQS if f not in INPUT_FREQS]
     for n_freq, feat in cases:
         fl = feat // 2 if (feat, feat // 2) in KERNEL_WIDTHS else feat
@@ -4534,7 +4624,7 @@ def input_widths_phase(dev, vocab: int, turns: list | None) -> dict:
         check(all(bitwise.values()), f"K1-K4 at c_in 60 differ from the parent build's: "
                                      f"{bitwise}")
     line = {"phase": "input_widths", "freqs": INPUT_FREQS,
-            "c_in": [6 * f for f in INPUT_FREQS], "feat": trunk.FEAT_WIDTHS,
+            "c_in": [6 * f for f in INPUT_FREQS], "feat": INPUT_FEAT_WIDTHS,
             "points": INPUT_POINTS, "errors": cells, "notes": notes, "times_512": times,
             "check_launches": check_launches,
             "posenc_step": {"launches": step["launches"], "n_freq": POSENC_FREQ},
@@ -4608,6 +4698,33 @@ def head_widths_cli_run(dev, work: str) -> dict:
             "metrics_last": hist[-1]}
 
 
+def _head_cell(dev, feat: int, fl: int, tau: int, n_classes: int, n: int):
+    """(key, field, spec, inputs) of the rs_semantic TOML at (feat, fl)
+    with a t-embedding ``tau`` wide (at 62 the separate semantic one too)
+    and ``n_classes`` classes, heads past 16 columns on K1: seeded weights
+    and ``n`` seeded inputs for width_kernel_checks."""
+    import torch
+
+    from satnerf_torch.configs import load_render_config
+    from satnerf_torch.models.field import Field, fused_field_spec, use_fused_field
+
+    key = f"tau{tau}_c{n_classes}/{feat}x{fl}"
+    rcfg = load_render_config(PIPELINE_TOML, n_classes=n_classes, device=dev,
+                              trunk_impl="pallas", fc_units=feat,
+                              fc_use_full_features=fl == feat, t_embedding_tau=tau,
+                              use_tj_for_s=True, use_separate_tj_for_semantic=tau == 62)
+    fcfg = rcfg.field
+    spec = fused_field_spec(fcfg)
+    check(use_fused_field(fcfg) and fcfg.feat_last == fl and spec.tau == tau
+          and spec.n_classes == n_classes and spec.out_w > 16 and spec.aux_pad > 16,
+          f"{key} route")
+    field = Field(fcfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    inputs = _width_inputs(fcfg, n, tau + n_classes + feat, dev, spec.out_w)
+    inputs += (torch.randn(n, tau, generator=torch.Generator().manual_seed(tau))
+               .to(dev),)  # the separate semantic t-embedding
+    return key, field, spec, inputs
+
+
 def head_widths_phase(dev, vocab: int, turns: list | None) -> dict:
     """Head widths past 16 columns (HEAD_CASES: t-embeddings 7, 16 and 62
     wide, 8, 12 and 119 classes; at 62 the separate semantic t-embedding
@@ -4627,27 +4744,13 @@ def head_widths_phase(dev, vocab: int, turns: list | None) -> dict:
 
     import torch
 
-    from satnerf_torch.configs import load_render_config
-    from satnerf_torch.models.field import Field, fused_field_spec, use_fused_field
+    from satnerf_torch.models.field import fused_field_spec
 
     t_phase = time.monotonic()
     cells, notes, times = {}, [], {}
     before = read_counters()[0]
     for (feat, fl), (tau, n_classes) in [(p, c) for p in HEAD_PAIRS for c in HEAD_CASES]:
-        key = f"tau{tau}_c{n_classes}/{feat}x{fl}"
-        rcfg = load_render_config(PIPELINE_TOML, n_classes=n_classes, device=dev,
-                                  trunk_impl="pallas", fc_units=feat,
-                                  fc_use_full_features=fl == feat, t_embedding_tau=tau,
-                                  use_tj_for_s=True, use_separate_tj_for_semantic=tau == 62)
-        fcfg = rcfg.field
-        spec = fused_field_spec(fcfg)
-        check(use_fused_field(fcfg) and fcfg.feat_last == fl and spec.tau == tau
-              and spec.n_classes == n_classes and spec.out_w > 16 and spec.aux_pad > 16,
-              f"{key} route")
-        field = Field(fcfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
-        inputs = _width_inputs(fcfg, HEAD_POINTS, tau + n_classes + feat, dev, spec.out_w)
-        inputs += (torch.randn(HEAD_POINTS, tau, generator=torch.Generator().manual_seed(tau))
-                   .to(dev),)  # the separate semantic t-embedding
+        key, field, spec, inputs = _head_cell(dev, feat, fl, tau, n_classes, HEAD_POINTS)
         with torch.no_grad():
             for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
                 packed = field.packed(dt)
@@ -4693,6 +4796,123 @@ def head_widths_phase(dev, vocab: int, turns: list | None) -> dict:
             "seconds": time.monotonic() - t_phase,
             "tol": {"forward": TOL_FIELD, "backward": TOL_FIELD_BWD, "residuals": TOL_RESID,
                     "relu_kink": TOL_KINK}}
+    emit(line)
+    return line
+
+
+def wide_kernel_checks(key: str, spec, packed, inputs, dname: str, fused: bool,
+                       notes: list) -> dict:
+    """At each of WIDE_POINTS: K1 with K2 and K4 (fused widths) and K3 (every
+    width; with K4 where K1's residuals did not already feed it), each
+    against its plain version within today's bars and run twice, bitwise
+    equal (width_kernel_checks). -> {check: its largest error over the
+    points}."""
+    worst = {}
+    for n in WIDE_POINTS:
+        for route in ((True, False) if fused else (False,)):
+            for k, e in width_kernel_checks(key, spec, route, packed, inputs, dname, n,
+                                            notes, k4=not fused).items():
+                worst[k] = max(worst.get(k, 0.0), e)
+    return worst
+
+
+def wide_widths_phase(dev, vocab: int) -> dict:
+    """Trunks wider than 512 (WIDE_PAIRS, 640-1,024, the rs_semantic TOML's
+    8 layers, skip at 4), f32 and bf16, at WIDE_POINTS: K3 and K4 at every
+    width, K1 and K2 at the pairs the fused field takes, against their plain
+    versions within today's bars, two runs bitwise (wide_kernel_checks);
+    their device ms at 65,536 points beside the 3xTF32, FMA and bf16 bounds
+    (width_times); K1, K2 and K4 with heads past 16 columns at the fused
+    pairs (WIDE_HEAD_CASES at WIDE_HEAD_PAIRS, WIDE_HEAD_POINTS points); K4
+    with more skips than one launch takes products (WIDE_SKIPS); then the TOML at fc_units WIDE_STEP_UNITS in f32 and bf16:
+    five training steps (train_phase: K1, K2, K4 3 and K5, K5-bwd 2 a step,
+    no plain call, a 32-ray step against the CPU) and one 128 x 128 request
+    each; and one request at WIDE_K3_UNITS (K3, the heads layer by layer)."""
+    import torch
+
+    from satnerf_torch.configs import load_render_config
+    from satnerf_torch.models.field import (Field, FieldConfig, fused_field_spec,
+                                            use_fused_field, use_fused_trunk)
+    from satnerf_torch.train.state import init_params
+
+    t_phase = time.monotonic()
+    cells, notes, times = {}, [], {}
+    before = read_counters()[0]
+    for feat, fl in WIDE_PAIRS:
+        key = f"{feat}x{fl}"
+        rcfg = load_render_config(PIPELINE_TOML, device=dev, trunk_impl="pallas", fc_units=feat)
+        fcfg = rcfg.field
+        fused = use_fused_field(fcfg)
+        check(fcfg.feat_last == fl and (fused or use_fused_trunk(fcfg)), f"{key} route")
+        field = Field(fcfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+        spec = fused_field_spec(fcfg)
+        inputs = _width_inputs(fcfg, max(WIDE_POINTS), feat + fl, dev)
+        with torch.no_grad():
+            for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                packed = field.packed(dt)
+                cells.setdefault(key, {})[dname] = wide_kernel_checks(
+                    key, spec, packed, inputs, dname, fused, notes)
+                times.setdefault(key, {})[dname] = {
+                    **width_times(spec, False, packed, inputs, dname,
+                                  only=None if not fused else ("trunk_fwd",)),
+                    **(width_times(spec, True, packed, inputs, dname) if fused else {})}
+        del field, inputs
+        torch.cuda.empty_cache()
+    for (feat, fl), (tau, n_classes) in [(p, c) for p in WIDE_HEAD_PAIRS
+                                         for c in WIDE_HEAD_CASES]:
+        key, field, spec, inputs = _head_cell(dev, feat, fl, tau, n_classes, WIDE_HEAD_POINTS)
+        with torch.no_grad():
+            for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                cells.setdefault(key, {})[dname] = width_kernel_checks(
+                    key, spec, True, field.packed(dt), inputs, dname, WIDE_HEAD_POINTS, notes)
+        del field, inputs
+        torch.cuda.empty_cache()
+    for skips in WIDE_SKIPS:  # K4's gx launch chained past MAX_PRODS products
+        key = "skips" + "".join(map(str, skips))
+        fcfg = FieldConfig(variant="rs_semantic", layers=8, feat=256, skips=skips, mapping=True,
+                           trunk_impl="pallas")
+        field = Field(fcfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+        spec = fused_field_spec(fcfg)
+        inputs = _width_inputs(fcfg, max(WIDE_POINTS), len(skips), dev)
+        with torch.no_grad():
+            for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                cells.setdefault(key, {})[dname] = width_kernel_checks(
+                    key, spec, False, field.packed(dt), inputs, dname, max(WIDE_POINTS), notes)
+        del field, inputs
+    after = read_counters()[0]
+    check_launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    checks_s = time.monotonic() - t_phase
+
+    paths = {}
+    for units in WIDE_STEP_UNITS:
+        for dname in ("float32", "bfloat16"):
+            name = f"wide{units}_{dname}"
+            step = train_phase(dev, vocab, f"train_{name}",
+                               {"fc_units": units, "compute_dtype": dname}, PER_STEP,
+                               stored_check=False)
+            fcfg = step["scfg"].render.field
+            check(fcfg.feat == units and use_fused_field(fcfg), f"{name} field {fcfg.feat}")
+            serve = serve_variant_phase(f"serve_{name}", dev, step["scfg"].render,
+                                        step["params"], vocab,
+                                        {"field_fused": 1, "trunk_fwd": 0, "composite": 1,
+                                         "trunk_fwd_interleaved": 0}, n_cmp=WIDE_CPU_RAYS)
+            paths[name] = {"step_launches": step["launches"], "serve": serve}
+    rcfg = load_render_config(PIPELINE_TOML, device=dev, trunk_impl="pallas",
+                              fc_units=WIDE_K3_UNITS)
+    check(use_fused_trunk(rcfg.field), f"{WIDE_K3_UNITS} wide: the K3 route")
+    params = init_params(torch.Generator().manual_seed(0), rcfg.field, t_vocab=vocab, device=dev)
+    paths[f"serve_wide{WIDE_K3_UNITS}"] = serve_variant_phase(
+        f"serve_wide{WIDE_K3_UNITS}", dev, rcfg, params, vocab,
+        {"field_fused": 0, "trunk_fwd": 1, "composite": 1, "trunk_fwd_interleaved": 0},
+        n_cmp=WIDE_CPU_RAYS)
+    line = {"phase": "wide_widths", "pairs": WIDE_PAIRS, "points": WIDE_POINTS,
+            "head_cases": WIDE_HEAD_CASES, "head_pairs": WIDE_HEAD_PAIRS,
+            "head_points": WIDE_HEAD_POINTS, "skips": WIDE_SKIPS, "errors": cells, "notes": notes, "times": times,
+            "check_launches": check_launches, "paths": paths, "checks_seconds": checks_s,
+            "seconds": time.monotonic() - t_phase,
+            "tol": {"forward": TOL_FIELD, "backward": TOL_FIELD_BWD, "residuals": TOL_RESID,
+                    "relu_kink": TOL_KINK, "step_bf16": TOL_STEP_BF16,
+                    "serve_bf16": TOL_SERVE_CPU_BF16}}
     emit(line)
     return line
 
@@ -5059,6 +5279,11 @@ def main() -> int:
     # at tau 16 and 12 classes trained, served and run through the CLI ----
     head_widths = head_widths_phase(dev, vocab, turns)
     marks.append(("head_widths", time.monotonic()))
+    # ---- 13e. trunks 640-1,024 wide: K1-K4 against their plain versions, their
+    # times, K4 with 7 skips, the TOML at 1,024 and 768 trained and served in
+    # f32 and bf16, one request at 640 on K3 ----
+    wide = wide_widths_phase(dev, vocab)
+    marks.append(("wide_widths", time.monotonic()))
 
     # ---- 14-20. the training CLI on a generated scene, resume, serving its best;
     # the eval battery on that run; the run served by view name over HTTP; its
@@ -5119,6 +5344,12 @@ def main() -> int:
                 "train_heads_tau16_c12": head_widths["step"]["launches"][kernel],
                 "serve_heads_tau16_c12": head_widths["serve"]["launches"][kernel],
                 "head_widths_cli_tau16_c12": head_widths["cli"]["launches"][kernel],
+                **{f"train_{name}": p["step_launches"][kernel]
+                   for name, p in wide["paths"].items() if "step_launches" in p},
+                **{f"serve_{name}": p["serve"]["launches"][kernel]
+                   for name, p in wide["paths"].items() if "serve" in p},
+                f"serve_wide{WIDE_K3_UNITS}":
+                    wide["paths"][f"serve_wide{WIDE_K3_UNITS}"]["launches"][kernel],
                 "prep_scene_eval": prep["eval_launches"][kernel],
                 "quality_tools": quality["launches"][kernel],
                 "quality_tools_sin_swap": quality["sin_swap_launches"][kernel],
@@ -5273,6 +5504,16 @@ def main() -> int:
         by_case = {c: {d: {k: rows[entry["name"]][k] for k in ("ms", "bound_ms", "bound_by")}
                        for d, rows in per.items() if entry["name"] in rows}
                    for c, per in head_widths["times"].items()}
+        # device ms beside the bounds at each width past 512 (phase
+        # wide_widths), and the launches of its checks and timings
+        by_wide = {w: {d: {k: v for k, v in rows[entry["name"]].items()
+                           if k != "timed_launches"}
+                       for d, rows in per.items() if entry["name"] in rows}
+                   for w, per in wide["times"].items()}
+        if any(by_wide.values()):
+            entry["wide_widths"] = {
+                "check_launches": wide["check_launches"].get(entry["name"], 0),
+                "times": {w: v for w, v in by_wide.items() if v}}
         if any(by_case.values()):
             entry["head_widths"] = {
                 "check_launches": head_widths["check_launches"].get(entry["name"], 0),

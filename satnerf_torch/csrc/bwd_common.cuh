@@ -89,7 +89,12 @@ namespace bwd {
 using namespace satnerf::tile;
 
 constexpr int kMaxProds = 4;
-constexpr int kMaxK = 512;
+// K of a product: the tensor-core row GEMM stages K chunk by chunk, so its
+// K is bounded only by the widest layer (1,024, ops/trunk.py FEAT_WIDTHS);
+// the thin FMA row kernel stages all of K in shared memory (its K, the
+// heads' width, stays at most 512)
+constexpr int kMaxK = 1024;
+constexpr int kThinMaxK = 512;
 constexpr int kMaxJobs = 24;
 constexpr int kThinWidth = 16;  // the one width the FMA row kernel keeps
 
@@ -551,7 +556,8 @@ inline int check_row(const RowArgs& a) {
   // 16-byte staging: K a whole number of 16-byte pieces (4 f32, 8 bf16)
   const int per = a.bf16 ? 8 : 4;
   for (int j = 0; j < a.n_prod; ++j) {
-    if (a.k[j] <= 0 || a.k[j] > kMaxK || a.a[j] == nullptr || a.w[j] == nullptr)
+    if (a.k[j] <= 0 || a.k[j] > (thin ? kThinMaxK : kMaxK) || a.a[j] == nullptr ||
+        a.w[j] == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
     if (thin ? a.k[j] % 4 : (a.k[j] % per || a.lda[j] % per))
       return static_cast<int>(cudaErrorInvalidValue);

@@ -39,13 +39,15 @@
 // and the epilogue's sines run beside no MMAs.
 //
 // Widths: the (feat, feat_last) pairs of `admitted` below, every trunk width
-// the TPU kernel takes up to 512 (feat % 128 == 0, field_fused.py:96) with
-// the heads of field.py's rule (feat_last = feat or feat / 2, a multiple of
-// 128), and every encoded input it takes (c_in <= 128, trunk.py:83: 16 to 128
-// after padding, mapping_pos_n_freq up to 21). One kernel per dtype takes
-// them all: the widths are run-time values of the pass loop and of the x
-// tile (trunk_tc.cuh), and a 128- or 384-wide layer ends with a 128-column
-// pass.
+// the TPU kernel takes up to 1,024 (feat % 128 == 0) with the heads of
+// field.py's rule (feat_last = feat or feat / 2, a multiple of 128, at most
+// 512: field_fused.py:96), and every encoded input it takes (c_in <= 128,
+// trunk.py:83: 16 to 128 after padding, mapping_pos_n_freq up to 21). Two
+// kernels per dtype take them all: the widths are run-time values of the
+// pass loop and of the x tile (trunk_tc.cuh), a 128- or 384-wide layer ends
+// with a 128-column pass, and past 512 (768, 1,024) the activations live in
+// global memory (kGlobalH: feats and the sun-visibility chain in the block's
+// two buffers in turn, each in-place head layer writing the other buffer).
 //
 // Head widths: every output and aux block the TPU kernel takes (9 + n_classes
 // <= 128 and 3 + 2 tau <= 128, field_fused.py:97-98): out_w = 9 + n_classes
@@ -102,7 +104,9 @@ struct FieldArgs {
   const void* b_small;
   void* shared_out;  // (n, F) compute dtype or null (no residuals)
   void* acts_out;    // (L, n, F) compute dtype or null; needs shared_out
-  float* acc;        // (tiles, out_w / 16, 256, 8) f32: the output accumulators
+  float* acc;        // (blocks, out_w / 16, 256, 8) f32: the output accumulators
+  void* h_ws;        // feat > 512: (h_slots, 2, 64, feat) compute dtype, H (trunk_tc.cuh)
+  int h_slots;
   int n, layers, feat, fl, cx, aux_w, out_w, skip_mask, heads_on, has_beta,
       has_semantic, use_s_aux, sin_mode, bf16;
   float w0_scale;
@@ -126,7 +130,8 @@ enum HiddenBias { kRgb0 = 0, kSv0, kSv1, kSv2, kSky0, kB0, kS0 };
 bool admitted(const FieldArgs& a) {
   return (a.feat == 128 && a.fl == 128) || (a.feat == 256 && a.fl == 128) ||
          (a.feat == 256 && a.fl == 256) || (a.feat == 384 && a.fl == 384) ||
-         (a.feat == 512 && a.fl == 256) || (a.feat == 512 && a.fl == 512);
+         (a.feat == 512 && a.fl == 256) || (a.feat == 512 && a.fl == 512) ||
+         (a.feat == 768 && a.fl == 384) || (a.feat == 1024 && a.fl == 512);
 }
 
 // 16-column groups the semantic head projects onto (the others: group 0)
@@ -134,7 +139,7 @@ __host__ __device__ inline int sem_groups(const FieldArgs& a) {
   return a.heads_on && a.has_semantic ? a.out_w / 16 : 1;
 }
 
-// this block's accumulators of output group g
+// this block's accumulators of output group g (one tile's at a time)
 __device__ __forceinline__ float* acc_group(const FieldArgs& a, int g) {
   return a.acc + (static_cast<size_t>(blockIdx.x) * (a.out_w / 16) + g) * kAccGroup;
 }
@@ -165,17 +170,21 @@ __device__ __forceinline__ void project_all(const FieldArgs& a, const Plan& pl, 
   }
 }
 
+// the deepest trunk whose plan holds kMaxJobs B operands: passes(F) per
+// trunk layer and for each of sigma and feats, and per pass of the heads 7
+// hidden layers, 5 projections and the semantic head's further 16-column
+// groups
+int max_layers(const FieldArgs& a) {
+  return (kMaxJobs - (11 + sem_groups(a)) * passes(a.fl)) / passes(a.feat) - 2;
+}
+
 // the plan of B operands, in the order the kernel consumes them
 template <typename T>
 int build_plan(const FieldArgs& a, Plan& pl) {
   const size_t es = sizeof(T);
   const int F = a.feat, FL = a.fl, kx = round16(a.cx), ka = round16(a.aux_w);
   pl.njobs = 0;
-  // passes(F) per trunk layer and for each of sigma and feats, and per pass
-  // of the heads 7 hidden layers, 5 projections and the semantic head's
-  // further 16-column groups
-  if (passes(F) * (a.layers + 2) + (11 + sem_groups(a)) * passes(FL) > kMaxJobs)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.layers > max_layers(a)) return static_cast<int>(cudaErrorInvalidValue);
   add_trunk_jobs(pl, es, a.layers, F, kx, a.skip_mask, a.w0, a.w_mid, a.w_skip);
   add_proj_jobs(pl, es, F, a.w2_shared);
   add_layer_jobs(pl, es, F, a.w_feats, F);
@@ -194,44 +203,53 @@ int build_plan(const FieldArgs& a, Plan& pl) {
   return check_plan(pl);
 }
 
-template <typename T>
+template <typename T, bool kGlobalH>
 __global__ void __launch_bounds__(kThreads, 1)
     field_fused_kernel(const __grid_constant__ FieldArgs a, const __grid_constant__ Plan pl) {
   extern __shared__ unsigned char smem_raw[];
   using S = Smem<T>;
-  const int F = a.feat, FL = a.fl, ldh = S::ldh(F);
+  const int F = a.feat, FL = a.fl;
+  // the H tile's row stride: shared (padded against bank conflicts) or global
+  const int ldh = kGlobalH ? F : S::ldh(F);
   const int kx = round16(a.cx), ka = round16(a.aux_w), ldx = S::ldx(kx), lda = S::ldx(ka);
   unsigned char* smem = align_up(smem_raw, S::kAlign);
-  T* H = reinterpret_cast<T*>(smem);
-  T* X = H + kRows * ldh;
+  // H: the shared tile, or this block's two global buffers (trunk_tc.cuh)
+  T* H = kGlobalH ? static_cast<T*>(a.h_ws) + static_cast<size_t>(blockIdx.x) * 2 * kRows * F
+                  : reinterpret_cast<T*>(smem);
+  T* X = kGlobalH ? reinterpret_cast<T*>(smem) : H + kRows * ldh;
   T* AX = X;  // the aux tile takes the x tile's room once the trunk is done with x
-  const int row0 = blockIdx.x * kRows;
   const int mode = a.sin_mode;
 
-  Ring r = make_ring<T>(smem, F, kx, ka);
+  Ring r = make_ring<T>(smem, kGlobalH ? 0 : F, kx, ka);
+  const ATile<T> Xt{X, ldx}, At{AX, lda}, none{nullptr, 0};
+  for_tiles<kGlobalH>(a.n, r, [&](int row0) {
   produce<T>(pl, r);  // the first two chunks of the stream
   produce<T>(pl, r);
   load_tile(X, ldx, kx, static_cast<const T*>(a.x), a.cx, row0, a.n);
   // (the first layer's barrier publishes the tile)
 
-  const ATile<T> Xt{X, ldx}, Ht{H, ldh}, At{AX, lda}, none{nullptr, 0};
   // the trunk, sigma from h_{L-1} (into output group 0) and feats in place in
-  // H: jobs 0 .. passes(F) (L + 2) - 1
-  run_trunk<T, true>(a, pl, r, Xt, H, static_cast<T*>(a.acts_out),
-                     static_cast<T*>(a.shared_out), row0, acc_group(a, 0),
-                     static_cast<const float*>(a.b_feats));
+  // H (global: into buffer L % 2): jobs 0 .. passes(F) (L + 2) - 1
+  run_trunk<T, true, kGlobalH>(a, pl, r, Xt, H, static_cast<T*>(a.acts_out),
+                               static_cast<T*>(a.shared_out), row0, acc_group(a, 0),
+                               static_cast<const float*>(a.b_feats));
   // after the last read of x; the first head pass's barrier publishes the tile
   load_tile(AX, lda, ka, static_cast<const T*>(a.aux), a.aux_w, row0, a.n);
 
   // the FL-wide hidden layers in plan order: rgb, sky, beta, semantic (each
   // pass projected: onto output group 0, the semantic one onto each of its
   // groups in turn, the first pass starting groups 1 .. afresh: project_all),
-  // then the sun-visibility chain sv0, sv1 in place in H once feats is dead,
-  // and sv2 (projected). Each layer's passes: full(FL) of 256 columns, then
-  // tail(FL) of 128. One loop, not unrolled.
+  // then the sun-visibility chain sv0, sv1 in place in H once feats is dead
+  // (global H: sv0 into the other buffer, sv1 back), and sv2 (projected).
+  // Each layer's passes: full(FL) of 256 columns, then tail(FL) of 128. One
+  // loop, not unrolled.
   const int full = full_passes(FL), tail = tail_passes(FL);
   const float* bh = static_cast<const float*>(a.b_heads);
   int q = passes(F) * (a.layers + 2);
+  // the layers' input tile (feats, then the sun-visibility chain) and where
+  // an in-place layer writes: H itself, or the other global buffer
+  T* hin = kGlobalH ? H + (a.layers & 1) * kRows * F : H;
+  T* hout = kGlobalH ? H + ((a.layers + 1) & 1) * kRows * F : H;
   // a two-pass in-place head layer's first pass (FL 384, 512) waits in local
   // memory in both dtypes: as bf16 registers (Held) it would stay live through
   // every head layer of every width, and at (512, 256) that cost bf16 K1 5.5%
@@ -247,20 +265,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool with_aux = h == 2 || (h == 3 && a.use_s_aux) || h == 4;
     const int row = h == 0 ? kRgb0 : h == 1 ? kSky0 : h == 2 ? kB0 : h == 3 ? kS0
                   : h == 4 ? kSv0 : h == 5 ? kSv1 : kSv2;
+    const ATile<T> Ht{hin, ldh};
     const ATile<T> a0 = h == 1 ? At : Ht, a1 = with_aux ? At : none;
     const int act = h == 1 ? kRelu : kSine;
     const float* hb = bh + row * FL;
+    // global H: an in-place layer's passes go straight to the other buffer
+    T* direct = kGlobalH && in_place ? hout : nullptr;
 #pragma unroll 1
     for (int p = 0; p < full; ++p) {
       pass<T>(pl, r, q++, a0, a1, total);
       // in place, after the last pass's barrier (nothing reads H any more):
       // the first pass's values go first, so they are not live in its epilogue
-      if (in_place && p == 1) store_pass<T>(held, H, ldh);
-      epilogue<T>(total, hb + p * kPassCols, act, 1.0f, mode, nullptr, 0, nullptr, 0, nullptr,
-                  0, 0, 0);
+      if (!kGlobalH && in_place && p == 1) store_pass<T>(held, H, ldh);
+      epilogue<T>(total, hb + p * kPassCols, act, 1.0f, mode, nullptr, 0,
+                  direct != nullptr ? direct + p * kPassCols : nullptr, ldh, nullptr, 0, 0, 0);
       if (!in_place) {
         project_all<T>(a, pl, r, q, total, held);
-      } else if (p == 0 && full + tail == 2) {
+      } else if (!kGlobalH && p == 0 && full + tail == 2) {
 #pragma unroll
         for (int i = 0; i < kNW / 2; ++i) held[i] = total[i];
       }
@@ -269,15 +290,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int c0 = full * kPassCols;
       float part[kNW / 4];
       pass<T>(pl, r, q++, a0, a1, part);
-      if (in_place && full == 1) store_pass<T>(held, H, ldh);
-      epilogue<T>(part, hb + c0, act, 1.0f, mode, nullptr, 0, nullptr, 0, nullptr, 0, 0, 0);
+      if (!kGlobalH && in_place && full == 1) store_pass<T>(held, H, ldh);
+      epilogue<T>(part, hb + c0, act, 1.0f, mode, nullptr, 0,
+                  direct != nullptr ? direct + c0 : nullptr, ldh, nullptr, 0, 0, 0);
       if (!in_place) {
         project_all<T>(a, pl, r, q, part, held);
-      } else {
+      } else if (!kGlobalH) {
         store_pass<T>(part, H + c0, ldh);
       }
-    } else if (in_place) {
+    } else if (!kGlobalH && in_place) {
       store_pass<T>(total, H + (full - 1) * kPassCols, ldh);
+    }
+    if (kGlobalH && in_place) {  // the next layer reads what this one wrote
+      T* t = hin;
+      hin = hout;
+      hout = t;
     }
   }
 
@@ -307,21 +334,30 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
+  });
+}
+
+template <typename T, bool kGlobalH>
+int launch_t(const FieldArgs& a, const Plan& pl, cudaStream_t stream) {
+  const int smem = Smem<T>::bytes(kGlobalH ? 0 : a.feat, round16(a.cx), round16(a.aux_w));
+  auto kern = field_fused_kernel<T, kGlobalH>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid_blocks(a.n, a.feat, a.h_slots), kThreads, smem, stream>>>(a, pl);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const FieldArgs& a, cudaStream_t stream) {
   Plan pl;
   if (const int err = build_plan<T>(a, pl)) return err;
-  const int smem = Smem<T>::bytes(a.feat, round16(a.cx), round16(a.aux_w));
-  auto kern = field_fused_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<(a.n + kRows - 1) / kRows, kThreads, smem, stream>>>(a, pl);
-  return static_cast<int>(cudaGetLastError());
+  return global_h(a.feat) ? launch_t<T, true>(a, pl, stream) : launch_t<T, false>(a, pl, stream);
 }
 
 }  // namespace
+
+// the most trunk layers a launch at a's widths and outputs takes
+extern "C" int field_fused_max_layers(const FieldArgs* a) { return max_layers(*a); }
 
 extern "C" int field_fused_forward(const FieldArgs* a, cudaStream_t stream) {
   if (a->n <= 0) return 0;
@@ -331,5 +367,7 @@ extern "C" int field_fused_forward(const FieldArgs* a, cudaStream_t stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   if (a->acts_out != nullptr && a->shared_out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (!admitted(*a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (global_h(a->feat) && (a->h_ws == nullptr || a->h_slots < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   return a->bf16 ? launch<__nv_bfloat16>(*a, stream) : launch<float>(*a, stream);
 }

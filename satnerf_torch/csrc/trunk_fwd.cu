@@ -31,10 +31,11 @@
 // bit. It takes the prepared weights of K3 and, in f32, their tf32 hi and lo
 // parts (ops/trunk.py:tc_split_weights). It is off every path.
 //
-// Widths: K3 takes every trunk width the TPU kernel takes up to 512
+// Widths: K3 takes every trunk width the TPU kernel takes up to 1,024
 // (feat % 128 == 0, trunk.py:82) and every encoded input (c_in <= 128,
-// trunk.py:83), as run-time values of one kernel per dtype
-// (satnerf_torch/ops/trunk.py FEAT_WIDTHS, TC_MAX_K); K6 is built for feat
+// trunk.py:83), as run-time values of one kernel per dtype up to 512 and of
+// a second past it, whose activations live in global memory (kGlobalH,
+// trunk_tc.cuh; satnerf_torch/ops/trunk.py FEAT_WIDTHS, TC_MAX_K); K6 is built for feat
 // 512 alone (kIlFeat, ops/trunk.py IL_FEAT_WIDTHS) and at most 64 padded
 // inputs (ws::kMaxX, IL_MAX_K).
 #include <cuda_bf16.h>
@@ -57,6 +58,8 @@ struct TrunkArgs {
   const void* w0_lo;  // K6 in f32: the tf32 lo parts (tc_split_weights); else null
   const void* w_mid_lo;
   const void* w_skip_lo;
+  void* h_ws;  // K3 at feat > 512: (h_slots, 2, 64, feat) compute dtype, H (trunk_tc.cuh)
+  int h_slots;
 };
 
 namespace {
@@ -67,22 +70,28 @@ namespace fw = satnerf::fwd;
 namespace tc = satnerf::tc;
 namespace ws = satnerf::ws;
 
-template <typename T>
+// H: the shared tile, or (kGlobalH, feat > 512) this block's two global
+// buffers of h_ws, the block walking the tiles (trunk_tc.cuh)
+template <typename T, bool kGlobalH>
 __global__ void __launch_bounds__(fw::kThreads, 1)
     trunk_fwd_kernel(const __grid_constant__ TrunkArgs a, const __grid_constant__ fw::Plan pl) {
   extern __shared__ unsigned char smem_raw[];
   using S = fw::Smem<T>;
   const int kx = fw::round16(a.cx), ldx = S::ldx(kx);
   unsigned char* smem = fw::align_up(smem_raw, S::kAlign);
-  T* H = reinterpret_cast<T*>(smem);
-  T* X = H + fw::kRows * S::ldh(a.feat);
-  const int row0 = blockIdx.x * fw::kRows;
-  fw::Ring r = fw::make_ring<T>(smem, a.feat, kx, 0);
-  fw::produce<T>(pl, r);  // the first two chunks of the stream
-  fw::produce<T>(pl, r);
-  fw::load_tile(X, ldx, kx, static_cast<const T*>(a.x), a.cx, row0, a.n);
-  fw::run_trunk<T, false>(a, pl, r, fw::ATile<T>{X, ldx}, H, static_cast<T*>(a.acts_out),
-                          static_cast<T*>(a.out), row0, nullptr, nullptr);
+  T* H = kGlobalH
+             ? static_cast<T*>(a.h_ws) + static_cast<size_t>(blockIdx.x) * 2 * fw::kRows * a.feat
+             : reinterpret_cast<T*>(smem);
+  T* X = kGlobalH ? reinterpret_cast<T*>(smem) : H + fw::kRows * S::ldh(a.feat);
+  fw::Ring r = fw::make_ring<T>(smem, kGlobalH ? 0 : a.feat, kx, 0);
+  fw::for_tiles<kGlobalH>(a.n, r, [&](int row0) {
+    fw::produce<T>(pl, r);  // the first two chunks of the stream
+    fw::produce<T>(pl, r);
+    fw::load_tile(X, ldx, kx, static_cast<const T*>(a.x), a.cx, row0, a.n);
+    fw::run_trunk<T, false, kGlobalH>(a, pl, r, fw::ATile<T>{X, ldx}, H,
+                                      static_cast<T*>(a.acts_out), static_cast<T*>(a.out), row0,
+                                      nullptr, nullptr);
+  });
 }
 
 // K6: the producer warpgroup (threads 256 .. 383) streams the weights, the
@@ -116,21 +125,29 @@ __global__ void __launch_bounds__(ws::kThreads, 1)
   ws::consume<T, F>(a, wg, H, X, ring, full, empty, blockIdx.x * fw::kRows);
 }
 
+template <typename T, bool kGlobalH>
+int launch_t(const TrunkArgs& a, const fw::Plan& pl, cudaStream_t stream) {
+  const int smem = fw::Smem<T>::bytes(kGlobalH ? 0 : a.feat, fw::round16(a.cx), 0);
+  auto kern = trunk_fwd_kernel<T, kGlobalH>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<fw::grid_blocks(a.n, a.feat, a.h_slots), fw::kThreads, smem, stream>>>(a, pl);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const TrunkArgs& a, cudaStream_t stream) {
   fw::Plan pl;
   pl.njobs = 0;
   const int kx = fw::round16(a.cx);
-  if (!fw::width_ok(a.feat) || fw::passes(a.feat) * a.layers > fw::kMaxJobs || kx > fw::kMaxX)
+  if (!fw::width_ok(a.feat) || a.layers > fw::kMaxJobs / fw::passes(a.feat) || kx > fw::kMaxX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (fw::global_h(a.feat) && (a.h_ws == nullptr || a.h_slots < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   fw::add_trunk_jobs(pl, sizeof(T), a.layers, a.feat, kx, a.skip_mask, a.w0, a.w_mid, a.w_skip);
   if (const int err = fw::check_plan(pl)) return err;
-  const int smem = fw::Smem<T>::bytes(a.feat, kx, 0);
-  auto kern = trunk_fwd_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<(a.n + fw::kRows - 1) / fw::kRows, fw::kThreads, smem, stream>>>(a, pl);
-  return static_cast<int>(cudaGetLastError());
+  return fw::global_h(a.feat) ? launch_t<T, true>(a, pl, stream)
+                              : launch_t<T, false>(a, pl, stream);
 }
 
 template <typename T>
@@ -154,6 +171,12 @@ int check(const TrunkArgs& a) {
 }
 
 }  // namespace
+
+// the most layers K3's plan of kMaxJobs B operands takes at feat wide (0 at
+// a width it does not take)
+extern "C" int trunk_fwd_max_layers(int feat) {
+  return fw::width_ok(feat) ? fw::kMaxJobs / fw::passes(feat) : 0;
+}
 
 extern "C" int trunk_fwd_forward(const TrunkArgs* a, cudaStream_t stream) {
   if (const int err = check(*a)) return err;

@@ -3,16 +3,18 @@
 // the trunk-only kernel K3 (trunk_fwd.cu), so that one trunk exists:
 //   h_0 = sin(w0 * (x @ W0 + b0)),  h_i = sin(h_{i-1} @ W_i [+ x @ Ws_i] + b_i)
 //
-// A block of two warpgroups owns a 64-row tile of points. Its activations
-// stay in shared memory for the whole field: the (64, F) tile H in the
-// compute dtype, written in place by every layer, beside the x tile (as wide
-// as the padded input, 16 to 128) and, in K1 once the trunk is done with x,
-// the aux tile (16 to 128 wide). Every product runs on wgmma, in passes of
+// A block of two warpgroups owns a 64-row tile of points. Up to 512 wide its
+// activations stay in shared memory for the whole field: the (64, F) tile H
+// in the compute dtype, written in place by every layer, beside the x tile
+// (as wide as the padded input, 16 to 128) and, in K1 once the trunk is done
+// with x, the aux tile (16 to 128 wide). Wider trunks (640 to 1,024) keep H
+// in global memory instead (kGlobalH below). Every product runs on wgmma, in passes of
 // 256 output columns: warpgroup g computes columns [256 p + 128 g, 256 p + 128 (g + 1)) of pass
 // p for all 64 rows (m64n128), so a 512-wide layer takes two passes; a width
-// that is an odd multiple of 128 (128, 384) ends with a pass of 128 columns,
-// 64 per warpgroup (m64n64). Widths are run-time values (one kernel per
-// dtype serves every width in {128, 256, 384, 512}); only the pass's column
+// that is an odd multiple of 128 (128, 384, 640, 896) ends with a pass of
+// 128 columns, 64 per warpgroup (m64n64). Widths are run-time values (one
+// kernel per dtype serves every width in {128, 256, 384, 512}, a second one
+// every width in {640, 768, 896, 1024}); only the pass's column
 // count per warpgroup is a template (the accumulator's size). A comes
 // from registers: each thread loads its fragment of H (or x, aux) from
 // shared memory and, in f32, splits it into tf32 hi + lo (tc::split_tf32,
@@ -43,6 +45,22 @@
 // layer (384, 512) written in place holds its first pass's values until the
 // second pass has read all of H (Held); a one-pass layer (128, 256) writes
 // H after its pass's last barrier, when every warp has read H.
+//
+// Wider trunks (640 to 1,024, the JAX kernels' feat % 128 == 0 up to where
+// their VMEM holds the weights): in f32 the (64, F) tile alone takes 164,864
+// to 263,168 bytes beside the ring's 65,536, past the 232,448 a block may
+// have, and a 1,024-wide layer written in place would hold three passes'
+// values until its fourth had read H. So at these widths (kGlobalH) H lives
+// in global memory, two (64, F) buffers per block (FieldArgs / TrunkArgs
+// h_ws, h_slots slots of 2 x 64 x F elements): layer i reads one and writes
+// the other (ping-pong), each pass's epilogue storing straight to it, so no
+// pass's values wait. The A fragments come through L1/L2 instead of shared
+// memory; every sum keeps the order of the shared-memory loop. The grid is
+// at most h_slots persistent blocks, each walking the tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ... with its own buffers, so the workspace is
+// h_slots x 2 x 64 x F elements whatever the points; the ring's stream of
+// chunks starts again with each tile. Shared memory holds the x (aux) tile
+// and the ring alone.
 //
 // The slots carry one stream of chunks through the whole tile, in the order
 // of a plan the host builds from the argument struct (Plan): each job is a
@@ -80,7 +98,7 @@ namespace fwd {
 constexpr int kRows = 64;       // point rows per block
 constexpr int kThreads = 256;   // two warpgroups
 constexpr int kPart = 16384;    // bytes of one part (hi or lo) of a ring slot
-constexpr int kMaxJobs = 96;
+constexpr int kMaxJobs = 96;    // satnerf_torch.ops.trunk.TC_MAX_JOBS
 constexpr int kPassCols = 256;  // output columns of one pass, 128 per warpgroup
 constexpr int kNW = kPassCols / 2;
 constexpr int kTailCols = 128;  // the last pass of an odd multiple of 128: 64 per warpgroup
@@ -105,14 +123,18 @@ template <> struct Tc<__nv_bfloat16> {
 
 __host__ __device__ constexpr int round16(int k) { return (k + 15) / 16 * 16; }
 
-// the passes of an F-wide layer (F a multiple of 128, at most 512): F / 256
+// the passes of an F-wide layer (F a multiple of 128, at most 1,024): F / 256
 // of 256 columns, then one of 128 when F is an odd multiple of 128
 __host__ __device__ constexpr int full_passes(int F) { return F / kPassCols; }
 __host__ __device__ constexpr int tail_passes(int F) { return (F % kPassCols) / kTailCols; }
 __host__ __device__ constexpr int passes(int F) { return full_passes(F) + tail_passes(F); }
 // host: F is a width the loop takes; keep in sync with
 // satnerf_torch.ops.trunk.FEAT_WIDTHS
-inline bool width_ok(int F) { return F == 128 || F == 256 || F == 384 || F == 512; }
+// (one line: tests/test_torch_field_fused.py reads the list from it)
+inline bool width_ok(int F) { return F == 128 || F == 256 || F == 384 || F == 512 || F == 640 || F == 768 || F == 896 || F == 1024; }
+// the widest trunk whose H stays in shared memory; wider ones take kGlobalH
+constexpr int kSmemMaxF = 512;
+__host__ __device__ constexpr bool global_h(int F) { return F > kSmemMaxF; }
 
 // The B operand of one job (a pass or a projection): one or two products,
 // each the weight W^T (rows, K) in the layout of ops/trunk.py:tc_operand,
@@ -227,9 +249,12 @@ struct Smem {
   __host__ __device__ static constexpr int x_room(int kx, int ka) {
     return tile(kx) > tile(ka) ? tile(kx) : tile(ka);
   }
+  // F 0: H in global memory (kGlobalH), the x tile at the base
+  __host__ __device__ static constexpr int h_tile(int F) {
+    return F > 0 ? kRows * ldh(F) * static_cast<int>(sizeof(T)) : 0;
+  }
   __host__ __device__ static constexpr int ring(int F, int kx, int ka) {
-    return (kRows * ldh(F) * static_cast<int>(sizeof(T)) + x_room(kx, ka) + kAlign - 1) /
-           kAlign * kAlign;
+    return (h_tile(F) + x_room(kx, ka) + kAlign - 1) / kAlign * kAlign;
   }
   __host__ __device__ static constexpr int bars(int F, int kx, int ka) {
     return ring(F, kx, ka) + 2 * kSlot;
@@ -690,44 +715,63 @@ inline void add_trunk_jobs(Plan& pl, size_t esz, int layers, int F, int kx, int 
   }
 }
 
-// An F-wide layer from [A0, A1] in place in H: its passes (full_passes(F)
-// of 256 columns, then tail_passes(F) of 128); in a two-pass layer the
-// first pass's values wait (Held) until the second pass has read H. pre, G:
-// the pre-activations and activations to global (row stride F, rows < n);
-// then, with project_q >= 0, every pass projected by jobs project_q, ...
-// into keep. Jobs q .. q + passes(F) - 1.
-template <typename T, typename Args>
+// An F-wide layer from [A0, A1] into H (row stride ldh): its passes
+// (full_passes(F) of 256 columns, then tail_passes(F) of 128). In shared
+// memory (kGlobalH false) H is A0 itself, written in place: in a two-pass
+// layer the first pass's values wait (Held) until the second pass has read
+// H. With kGlobalH, H is the other global buffer and each pass's epilogue
+// stores to it at once. pre, G: the pre-activations and activations to
+// global (row stride F, rows < n); then, with project_q >= 0, every pass
+// projected by jobs project_q, ... into keep. Jobs q .. q + passes(F) - 1.
+template <typename T, bool kGlobalH, typename Args>
 __device__ __forceinline__ void wide_layer(const Args& a, const Plan& pl, Ring& r, int q, int F,
                                            ATile<T> a0, ATile<T> a1, const float* bias,
-                                           int act, float scale, T* pre, T* H, T* G,
+                                           int act, float scale, T* pre, T* H, int ldh, T* G,
                                            int row0, int project_q, float* keep) {
-  const int ldh = Smem<T>::ldh(F), full = full_passes(F), tail = tail_passes(F);
-  Held<T> held[kNW / 2];
+  const int full = full_passes(F), tail = tail_passes(F);
   float total[kNW / 2];
+  if constexpr (kGlobalH) {
 #pragma unroll 1
-  for (int p = 0; p < full; ++p) {
-    const int c0 = p * kPassCols;
-    pass<T>(pl, r, q + p, a0, a1, total);
-    // the second pass's last barrier: nothing reads H any more, so the
-    // first pass's values go first and are not live in its epilogue
-    if (p == 1) store_pass<T>(held, H, ldh);
-    epilogue<T>(total, bias + c0, act, scale, a.sin_mode, pre != nullptr ? pre + c0 : nullptr,
-                F, nullptr, 0, G != nullptr ? G + c0 : nullptr, F, row0, a.n);
-    if (p == 0 && full + tail == 2) {
-#pragma unroll
-      for (int i = 0; i < kNW / 2; ++i) held[i] = total[i];
+    for (int p = 0; p < full; ++p) {
+      const int c0 = p * kPassCols;
+      pass<T>(pl, r, q + p, a0, a1, total);
+      epilogue<T>(total, bias + c0, act, scale, a.sin_mode, pre != nullptr ? pre + c0 : nullptr,
+                  F, H + c0, ldh, G != nullptr ? G + c0 : nullptr, F, row0, a.n);
     }
-  }
-  if (tail == 0) {
-    store_pass<T>(total, H + (full - 1) * kPassCols, ldh);
-  } else {  // the 128-column pass, after the full one if any
-    const int c0 = full * kPassCols;
-    float part[kNW / 4];
-    pass<T>(pl, r, q + full, a0, a1, part);
-    if (full == 1) store_pass<T>(held, H, ldh);
-    epilogue<T>(part, bias + c0, act, scale, a.sin_mode, pre != nullptr ? pre + c0 : nullptr,
-                F, nullptr, 0, G != nullptr ? G + c0 : nullptr, F, row0, a.n);
-    store_pass<T>(part, H + c0, ldh);
+    if (tail != 0) {
+      const int c0 = full * kPassCols;
+      float part[kNW / 4];
+      pass<T>(pl, r, q + full, a0, a1, part);
+      epilogue<T>(part, bias + c0, act, scale, a.sin_mode, pre != nullptr ? pre + c0 : nullptr,
+                  F, H + c0, ldh, G != nullptr ? G + c0 : nullptr, F, row0, a.n);
+    }
+  } else {
+    Held<T> held[kNW / 2];
+#pragma unroll 1
+    for (int p = 0; p < full; ++p) {
+      const int c0 = p * kPassCols;
+      pass<T>(pl, r, q + p, a0, a1, total);
+      // the second pass's last barrier: nothing reads H any more, so the
+      // first pass's values go first and are not live in its epilogue
+      if (p == 1) store_pass<T>(held, H, ldh);
+      epilogue<T>(total, bias + c0, act, scale, a.sin_mode, pre != nullptr ? pre + c0 : nullptr,
+                  F, nullptr, 0, G != nullptr ? G + c0 : nullptr, F, row0, a.n);
+      if (p == 0 && full + tail == 2) {
+#pragma unroll
+        for (int i = 0; i < kNW / 2; ++i) held[i] = total[i];
+      }
+    }
+    if (tail == 0) {
+      store_pass<T>(total, H + (full - 1) * kPassCols, ldh);
+    } else {  // the 128-column pass, after the full one if any
+      const int c0 = full * kPassCols;
+      float part[kNW / 4];
+      pass<T>(pl, r, q + full, a0, a1, part);
+      if (full == 1) store_pass<T>(held, H, ldh);
+      epilogue<T>(part, bias + c0, act, scale, a.sin_mode, pre != nullptr ? pre + c0 : nullptr,
+                  F, nullptr, 0, G != nullptr ? G + c0 : nullptr, F, row0, a.n);
+      store_pass<T>(part, H + c0, ldh);
+    }
   }
   if (project_q >= 0) {  // from H (this thread's own values), so that neither pass's values stay live
 #pragma unroll 1
@@ -743,32 +787,66 @@ __device__ __forceinline__ void wide_layer(const Args& a, const Plan& pl, Ring& 
   }
 }
 
-// The trunk over the tile: L layers of width a.feat from the x tile X, in
-// place in H, the residuals as the TPU kernel writes them (pre: layer i's
-// pre-activations at acts + i * n * F, before the w0 scale of layer 0); with
-// G, h_{L-1} also goes to global rows < n (stride F). With P = passes(F):
-// jobs 0 .. P L - 1 of the plan. kField (K1): then the sigma projection of
-// h_{L-1} into `keep` (jobs P L ..) and the linear feats layer with bias
-// b_feats, in place in H (P (L + 1) ..). One loop (not unrolled) runs every
-// layer, so the kernel holds one copy of it.
-template <typename T, bool kField, typename Args>
+// The trunk over the tile: L layers of width a.feat from the x tile X, the
+// residuals as the TPU kernel writes them (pre: layer i's pre-activations at
+// acts + i * n * F, before the w0 scale of layer 0); with G, h_{L-1} also
+// goes to global rows < n (stride F). H: the shared tile, written in place
+// by every layer; with kGlobalH, the first of the block's two global
+// buffers (the second at H + 64 F), layer i writing buffer i % 2. With
+// P = passes(F): jobs 0 .. P L - 1 of the plan. kField (K1): then the sigma
+// projection of h_{L-1} into `keep` (jobs P L ..) and the linear feats layer
+// with bias b_feats (P (L + 1) ..), in place in H or into buffer L % 2. One
+// loop (not unrolled) runs every layer, so the kernel holds one copy of it.
+template <typename T, bool kField, bool kGlobalH, typename Args>
 __device__ __forceinline__ void run_trunk(const Args& a, const Plan& pl, Ring& r, ATile<T> X,
                                           T* H, T* acts, T* G, int row0, float* keep,
                                           const float* b_feats) {
   const int F = a.feat, P = passes(F);
+  const int ldh = kGlobalH ? F : Smem<T>::ldh(F);
   const float* b = static_cast<const float*>(a.b);
-  const ATile<T> Ht{H, Smem<T>::ldh(F)}, none{nullptr, 0};
+  const ATile<T> none{nullptr, 0};
 #pragma unroll 1
   for (int i = 0; i < a.layers + (kField ? 1 : 0); ++i) {
     const bool feats = kField && i == a.layers;
     const bool skip = i > 0 && !feats && ((a.skip_mask >> i) & 1);
     const bool last = i == a.layers - 1;
     T* pre = acts != nullptr && !feats ? acts + static_cast<size_t>(i) * a.n * F : nullptr;
-    wide_layer<T>(a, pl, r, feats ? P * (i + 1) : P * i, F, i == 0 ? X : Ht, skip ? X : none,
-                  feats ? b_feats : b + i * F, feats ? kLinear : kSine,
-                  i == 0 ? a.w0_scale : 1.0f, pre, H, last ? G : nullptr, row0,
-                  kField && last ? P * a.layers : -1, keep);
+    // the layer's input (shared: H itself) and output
+    T* in = kGlobalH ? H + ((i + 1) & 1) * kRows * F : H;
+    T* out = kGlobalH ? H + (i & 1) * kRows * F : H;
+    wide_layer<T, kGlobalH>(a, pl, r, feats ? P * (i + 1) : P * i, F,
+                            i == 0 ? X : ATile<T>{in, ldh}, skip ? X : none,
+                            feats ? b_feats : b + i * F, feats ? kLinear : kSine,
+                            i == 0 ? a.w0_scale : 1.0f, pre, out, ldh, last ? G : nullptr, row0,
+                            kField && last ? P * a.layers : -1, keep);
   }
+}
+
+// The tiles of this block: tile blockIdx.x alone (H in shared memory, one
+// block per tile), or, with kGlobalH, blockIdx.x, blockIdx.x + gridDim.x, ...
+// (h_slots persistent blocks). body(row0) runs one tile; the ring's stream of
+// chunks starts again with each (its counters run on, so the mbarriers'
+// phases stay in step).
+template <bool kGlobalH, typename Body>
+__device__ __forceinline__ void for_tiles(int n, Ring& r, Body&& body) {
+  if constexpr (kGlobalH) {
+    const int tiles = (n + kRows - 1) / kRows;
+#pragma unroll 1
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      r.pq = r.pc = 0;
+      body(t * kRows);
+      __syncthreads();  // the tile's last reads of the block's tiles and accumulators
+    }
+  } else {
+    body(static_cast<int>(blockIdx.x) * kRows);
+  }
+}
+
+// host: the grid of a launch over n points: a block per 64-row tile, or with
+// H in global memory at most h_slots persistent blocks
+inline int grid_blocks(int n, int F, int h_slots) {
+  const int tiles = (n + kRows - 1) / kRows;
+  return global_h(F) && h_slots < tiles ? h_slots : tiles;
 }
 
 }  // namespace fwd

@@ -147,6 +147,15 @@ def use_fused_trunk(cfg: FieldConfig) -> bool:
 
 
 def fused_field_spec(cfg: FieldConfig) -> ff.FieldSpec:
+    """The kernels' spec of ``cfg``. Where the fused field would take heads
+    wider than the JAX kernel's ``fl <= 512`` (satnerf_tpu/ops/pallas/
+    field_fused.py:96: fc_use_full_features past 512, or a trunk past 1,024),
+    raises ValueError, as the JAX package's FieldSpec asserts."""
+    if use_fused_field(cfg) and cfg.feat_last > ff.MAX_FL:
+        raise ValueError(
+            f"the fused field takes heads up to {ff.MAX_FL} wide (feat_last), got "
+            f"{cfg.feat_last} (feat {cfg.feat}, fc_use_full_features "
+            f"{cfg.fc_use_full_features}); its (feat, feat_last) pairs are {ff.KERNEL_WIDTHS}")
     return ff.FieldSpec(
         layers=cfg.layers, feat=cfg.feat, skips=tuple(cfg.skips),
         c_in=cfg.xyz_in, fl=cfg.feat_last, tau=cfg.t_embedding_tau,

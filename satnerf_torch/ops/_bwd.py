@@ -35,7 +35,8 @@ import torch
 from satnerf_torch.ops._build import check_launch, load_library
 
 MAX_PRODS = 4
-MAX_K = 512
+MAX_K = 1024  # K of a tensor-core product (csrc/bwd_common.cuh kMaxK)
+THIN_MAX_K = 512  # K of a product on the 16-wide FMA route (kThinMaxK)
 MAX_JOBS = 24
 THIN_WIDTH = 16  # the output width that stays on the FMA row kernel
 SPLIT_ROWS = 8192  # rows per partial sum of the reduction
@@ -175,8 +176,8 @@ def row_op(lib_name: str, fn_name: str, dt: torch.dtype, rows: int, width: int, 
         if thin:
             if isinstance(wt, Tf32Split):
                 raise ValueError("row_op: the 16-wide route takes the weight unsplit")
-            if k % 4 or k > MAX_K:
-                raise ValueError(f"row_op: K={k} must be a multiple of 4, <= {MAX_K}")
+            if k % 4 or k > THIN_MAX_K:
+                raise ValueError(f"row_op: K={k} must be a multiple of 4, <= {THIN_MAX_K}")
             hi, lo = wt.t().contiguous(), None  # the FMA kernel reads W (K, width)
             _rows2d(hi, k, width, f"W[{j}]", (dt,))
         else:

@@ -72,11 +72,15 @@ MAX_AUX_W = 128
 # rows of the hidden-bias stack ``b_heads`` (absent heads keep zero rows)
 HIDDEN_BIAS_ROWS = ("rgb0", "sv0", "sv1", "sv2", "sky0", "b0", "s0")
 # (feat, feat_last) pairs K1 takes (csrc/field_fused.cu ``admitted``): every
-# trunk width the TPU kernel takes up to 512 (feat % 128 == 0) with the heads
-# models/field.py sends to it (feat_last = feat / 2 or, with
-# fc_use_full_features, feat; a multiple of 128). (128, 64) and (384, 192)
-# take K3 and the plain heads, as in the JAX package.
-KERNEL_WIDTHS = ((128, 128), (256, 128), (256, 256), (384, 384), (512, 256), (512, 512))
+# trunk width the TPU kernel takes up to 1,024 (feat % 128 == 0) with the
+# heads models/field.py sends to it (feat_last = feat / 2 or, with
+# fc_use_full_features, feat; a multiple of 128, at most MAX_FL). (128, 64),
+# (384, 192), (640, 320) and (896, 448) take K3 and the plain heads, as in the
+# JAX package.
+KERNEL_WIDTHS = ((128, 128), (256, 128), (256, 256), (384, 384), (512, 256), (512, 512),
+                 (768, 384), (1024, 512))
+# the JAX fused field's widest heads (satnerf_tpu/ops/pallas/field_fused.py:96)
+MAX_FL = 512
 
 LAUNCHES = 0  # K1 launches made by fused_field (CUDA tensors only)
 LAUNCHES_BY_SIN = {m: 0 for m in SIN_MODES}  # the same launches, by the kernel's SinMode
@@ -553,20 +557,20 @@ _PTR_FIELDS = (
     "w_sv0_f", "w_sv0_aux", "w_sv1", "w_sv2", "w_rgb0", "w_sky0_aux",
     "w_b0_f", "w_b0_aux", "w_s0_f", "w_s0_aux", "w2_shared", "w2_sv",
     "w2_rgb", "w2_sky", "w2_beta", "w2_sem", "b_heads", "b_small",
-    "shared_out", "acts_out", "acc",
+    "shared_out", "acts_out", "acc", "h_ws",
 )
 _INT_FIELDS = (
-    "n", "layers", "feat", "fl", "cx", "aux_w", "out_w", "skip_mask", "heads_on",
+    "h_slots", "n", "layers", "feat", "fl", "cx", "aux_w", "out_w", "skip_mask", "heads_on",
     "has_beta", "has_semantic", "use_s_aux", "sin_mode", "bf16",
 )
 ACC_FLOATS = 256 * 8  # K1's output accumulators per 64-row tile and 16-column group
 
 
-def acc_workspace(spec: FieldSpec, n: int, device) -> torch.Tensor:
-    """K1's output accumulators in global memory: per 64-row tile and
-    16-column group of the output, 8 f32 for each of the block's 256 threads
-    (csrc/field_fused.cu)."""
-    return torch.empty((-(-n // 64) * (spec.out_w // 16) * ACC_FLOATS,),
+def acc_workspace(spec: FieldSpec, n: int, device, blocks: int | None = None) -> torch.Tensor:
+    """K1's output accumulators in global memory: per block (a 64-row tile,
+    or one of ``blocks`` persistent blocks) and 16-column group of the
+    output, 8 f32 for each of the block's 256 threads (csrc/field_fused.cu)."""
+    return torch.empty(((blocks or -(-n // 64)) * (spec.out_w // 16) * ACC_FLOATS,),
                        dtype=torch.float32, device=device)
 
 
@@ -601,11 +605,13 @@ def _launch(spec: FieldSpec, x, aux, packed, out, shared=None, acts=None) -> Non
     for name, key in keys.items():
         tensors[name] = prepared.get(key)
     tensors["shared_out"], tensors["acts_out"] = shared, acts
-    tensors["acc"] = acc_workspace(spec, x.shape[0], x.device)
+    tensors["h_ws"], slots = trunk.h_workspace(x.shape[0], spec.feat, dt, x.device)
+    tensors["acc"] = acc_workspace(spec, x.shape[0], x.device, slots)
     args = _FieldArgs()
     for name in _PTR_FIELDS:
         t = tensors[name]
         setattr(args, name, t.data_ptr() if t is not None else None)
+    args.h_slots = slots
     args.n = x.shape[0]
     args.layers = spec.layers
     args.feat = spec.feat
@@ -642,6 +648,13 @@ def _check_cuda(spec: FieldSpec, x: torch.Tensor, aux: torch.Tensor) -> None:
                          f"wide after padding to 16 (c_in <= 128, as the JAX kernels), "
                          f"{MAX_AUX_W} aux columns and {MAX_OUT_W} output columns, got "
                          f"{spec.cx} / {spec.aux_w} / {spec.out_w}")
+    most = load_library("field_fused").field_fused_max_layers(ctypes.byref(_FieldArgs(
+        feat=spec.feat, fl=spec.fl, out_w=spec.out_w, heads_on=int(spec.heads_on),
+        has_semantic=int(spec.has_semantic))))
+    if spec.layers > most:
+        raise ValueError(f"fused_field kernel's plan of weight passes takes at most {most} "
+                         f"layers at ({spec.feat}, {spec.fl}) with {spec.out_w} output "
+                         f"columns, got {spec.layers}")
     n = x.shape[0]
     if x.shape != (n, spec.cx) or aux.shape != (n, spec.aux_w):
         raise ValueError(

@@ -53,10 +53,13 @@ FWD_LAUNCHES = 0  # K3 launches made by fused_trunk (CUDA tensors only)
 FWD_PLAIN_CALLS = 0  # fused_trunk_reference calls
 INTERLEAVED_LAUNCHES = 0  # K6 launches made by fused_trunk_interleaved
 TC_PREPARATIONS = 0  # tc_gather calls: K1/K3 weight preparations (tc_cached misses)
-# trunk widths K3 and K4 take: every multiple of 128 up to 512, as the TPU
-# kernels (satnerf_tpu/ops/pallas/trunk.py:82); csrc/trunk_tc.cuh runs them
-# as run-time widths of one kernel per dtype
-FEAT_WIDTHS = (128, 256, 384, 512)
+# trunk widths K3 and K4 take: every multiple of 128 up to 1,024, as the TPU
+# kernels (satnerf_tpu/ops/pallas/trunk.py:82) up to where their VMEM holds
+# the weights; csrc/trunk_tc.cuh runs them as run-time widths of one kernel
+# per dtype up to SMEM_MAX_FEAT and of a second one (H in global memory) past
+# it
+FEAT_WIDTHS = (128, 256, 384, 512, 640, 768, 896, 1024)
+SMEM_MAX_FEAT = 512  # the widest trunk whose activations K1/K3 keep in shared memory
 IL_FEAT_WIDTHS = (512,)  # K6's one width (csrc/trunk_fwd.cu kIlFeat)
 GX_WIDTHS = (64, 128)  # padded input widths of the gx launch (csrc/trunk_bwd.cu)
 TRUNK_KEYS = ("w0", "w_mid", "w_skip", "b")
@@ -291,7 +294,20 @@ class _TrunkArgs(ctypes.Structure):
                                        "sin_mode", "bf16")]
         + [("w0_scale", ctypes.c_float)]
         + [(f"{k}_lo", ctypes.c_void_p) for k in TC_SPLIT_KEYS]
+        + [("h_ws", ctypes.c_void_p), ("h_slots", ctypes.c_int)]
     )
+
+
+def h_workspace(n: int, feat: int, dtype, device):
+    """(workspace, slots) of a K1/K3 launch over ``n`` points: past
+    SMEM_MAX_FEAT the two (64, feat) activation buffers of each of its
+    ``slots`` persistent blocks (csrc/trunk_tc.cuh kGlobalH; one block per
+    SM, as the kernels run, and at most one per 64-row tile); (None, 0) for
+    the shared-memory kernels, whose grid is a block per tile."""
+    if feat <= SMEM_MAX_FEAT:
+        return None, 0
+    slots = min(-(-n // 64), torch.cuda.get_device_properties(device).multi_processor_count)
+    return torch.empty((slots, 2, 64, feat), dtype=dtype, device=device), slots
 
 
 def _check_forward(name: str, spec, x, packed) -> None:
@@ -327,6 +343,8 @@ def _launch_forward(fn_name: str, spec, x, packed, out, acts) -> None:
     args.sin_mode = SIN_MODES.index(spec.sin_mode)
     args.bf16 = int(x.dtype == torch.bfloat16)
     args.w0_scale = spec.w0
+    h_ws, args.h_slots = h_workspace(x.shape[0], spec.feat, x.dtype, x.device)
+    args.h_ws = h_ws.data_ptr() if h_ws is not None else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     check_launch(lib, getattr(lib, fn_name)(ctypes.byref(args), ctypes.c_void_p(stream)),
                  fn_name)
@@ -343,6 +361,10 @@ def _forward(spec, x, packed, emit_acts: bool):
         raise ValueError(f"fused_trunk kernel takes encoded inputs up to {TC_MAX_K} wide "
                          f"after padding to 16 (c_in <= 128, as the JAX kernels), "
                          f"got {spec.cx}")
+    most = load_library("trunk_fwd").trunk_fwd_max_layers(spec.feat)
+    if spec.layers > most:
+        raise ValueError(f"fused_trunk kernel's plan of weight passes takes at most {most} "
+                         f"layers at feat {spec.feat}, got {spec.layers}")
     n, dev = x.shape[0], x.device
     out = torch.empty((n, spec.feat), dtype=x.dtype, device=dev)
     acts = (torch.empty((spec.layers, n, spec.feat), dtype=x.dtype, device=dev)
@@ -490,7 +512,9 @@ def _trunk_backward_cuda(spec, x, packed, acts, g_shared, need_gx: bool):
     forward layers and the packed (in, out) weight as it is for the sweep and
     gx; x and the rows of w0 / w_skip are padded with zeros to a multiple of
     16 once (c_in 60 -> 64, 72 -> 80; gx 64 or 128 wide). In f32 each weight is split into tf32 hi + lo
-    here, once per backward."""
+    here, once per backward. The gx launch takes at most ``_bwd.MAX_PRODS``
+    products (w0's and one per skip); more skips chain launches through an
+    f32 sum."""
     dt, L, F, n = x.dtype, spec.layers, spec.feat, x.shape[0]
     bf16 = dt == torch.bfloat16
     dev, f32 = x.device, torch.float32
@@ -553,7 +577,15 @@ def _trunk_backward_cuda(spec, x, packed, acts, g_shared, need_gx: bool):
         prods = [(ga[0], operand(rows_to(w0p)))]
         prods += [(ga[i], operand(rows_to(skips_p[s]))) for s, i in enumerate(spec.skips)]
         gx_pad = torch.empty((n, gw), dtype=dt, device=dev)
-        row(width=gw, prods=prods, mode=_bwd.PLAIN, out_dt=gx_pad)
+        # at most MAX_PRODS products a launch: more skips chain launches, each
+        # adding its products to the previous one's f32 sum (its ``add``)
+        acc = None
+        for g0 in range(0, len(prods), _bwd.MAX_PRODS):
+            last = g0 + _bwd.MAX_PRODS >= len(prods)
+            part = None if last else torch.empty((n, gw), dtype=f32, device=dev)
+            row(width=gw, prods=prods[g0:g0 + _bwd.MAX_PRODS], add=acc, mode=_bwd.PLAIN,
+                out_f32=part, out_dt=gx_pad if last else None)
+            acc = part
         gx = gx_pad[:, : spec.cx]
 
     gw0 = torch.empty(w0.shape, dtype=f32, device=dev)
@@ -587,8 +619,6 @@ def trunk_backward(spec, x, packed, acts, g_shared, need_gx: bool = True):
     if spec.feat not in FEAT_WIDTHS:
         raise ValueError(f"trunk_backward kernels are built for feat in "
                          f"{FEAT_WIDTHS}, got {spec.feat}")
-    if len(spec.skips) > _bwd.MAX_PRODS - 1:
-        raise ValueError(f"trunk_backward: at most {_bwd.MAX_PRODS - 1} skips")
     if x.shape != (n, spec.cx) or not x.is_contiguous():
         raise ValueError(f"trunk_backward: x {tuple(x.shape)}, expected ({n}, {spec.cx})")
     if acts is not None and (acts.shape != (spec.layers, n, spec.feat)
@@ -596,6 +626,10 @@ def trunk_backward(spec, x, packed, acts, g_shared, need_gx: bool = True):
         raise ValueError(f"trunk_backward: acts {tuple(acts.shape)} {acts.dtype}")
     if g_shared.shape != (n, spec.feat) or g_shared.device != x.device:
         raise ValueError(f"trunk_backward: g_shared {tuple(g_shared.shape)}")
+    if spec.layers + len(spec.skips) > _bwd.MAX_JOBS:
+        raise ValueError(f"trunk_backward reduces at most {_bwd.MAX_JOBS} weight gradients a "
+                         f"launch: layers + skips <= {_bwd.MAX_JOBS}, got {spec.layers} + "
+                         f"{len(spec.skips)}")
     out = _trunk_backward_cuda(spec, x, packed, acts, g_shared, need_gx)
     LAUNCHES += 1
     return out

@@ -13,6 +13,7 @@ that has only PyTorch (tests/conftest.py imports JAX, hence --noconftest):
 """
 
 import dataclasses
+import json
 
 import pytest
 import torch
@@ -747,10 +748,11 @@ def test_cuda_trainer_runs_the_kernels_and_resumes_bitwise(cuda_device, tmp_path
 
 @pytest.mark.cuda
 def test_cuda_unbuilt_width_raises(cuda_device):
-    """A pipeline TOML at a width the kernels are not built for (640 wide:
-    the JAX kernels admit it, the port's stop at 512) resolves to the kernels
-    on the card and raises at their launch with the widths that are built,
-    rather than running the layer-by-layer field."""
+    """A pipeline TOML at a width the kernels are not built for (1,152 wide,
+    heads 576: the JAX kernels admit it on their trunk kernel, the port's
+    stop at 1,024) resolves to the kernels on the card and raises at their
+    launch with the widths that are built, rather than running the
+    layer-by-layer field."""
     import os
 
     from satnerf_torch.configs import load_render_config
@@ -760,8 +762,8 @@ def test_cuda_unbuilt_width_raises(cuda_device):
 
     toml = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "configs", "pipelines", "rs_semantic.toml")
-    rcfg = load_render_config(toml, device=cuda_device, fc_units=640)
-    assert rcfg.field.trunk_impl == "pallas" and rcfg.field.feat == 640
+    rcfg = load_render_config(toml, device=cuda_device, fc_units=1152)
+    assert rcfg.field.trunk_impl == "pallas" and rcfg.field.feat == 1152
     params = init_params(torch.Generator().manual_seed(0), rcfg.field, t_vocab=4,
                          device=cuda_device)
     n = 64
@@ -772,7 +774,8 @@ def test_cuda_unbuilt_width_raises(cuda_device):
     sun = torch.nn.functional.normalize(torch.tensor([0.2, -0.1, 0.8]), dim=0)
     extras = torch.cat([sun.expand(n, 3), torch.full((n, 1), 3.0)], 1).to(cuda_device)
     before = fld.PLAIN_CALLS
-    with pytest.raises(ValueError, match=r"built for .*\(128, 256, 384, 512\)"):
+    built = r"built for .*\(128, 256, 384, 512, 640, 768, 896, 1024\)"
+    with pytest.raises(ValueError, match=built):
         render_rays(params, rcfg, rays, extras)
     assert fld.PLAIN_CALLS == before
 
@@ -803,9 +806,14 @@ def _input_width_case(cuda_device, n_freq, feat, n=1001):
     return field, fused_field_spec(cfg), [t.to(cuda_device) for t in (enc, sun, te, cot)]
 
 
+# the trunk widths with a fused field (heads half or all of the width, at
+# most 512 wide): 640 and 896 have none
+K1_FEATS = tuple(f for f in TRUNK_WIDTHS if (f, f // 2) in K1_WIDTHS or (f, f) in K1_WIDTHS)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("feat", TRUNK_WIDTHS)
+@pytest.mark.parametrize("feat", K1_FEATS)
 @pytest.mark.parametrize("n_freq", INPUT_FREQS)
 def test_cuda_input_widths_match_plain(cuda_device, n_freq, feat, dtype, record_property):
     """K1 (both head variants, with the "stored" residuals), K3 (with the
@@ -924,14 +932,15 @@ def _head_width_case(cuda_device, tau, n_classes, feat, fl, n=1001):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("feat,fl", [(256, 128), (512, 256), (512, 512)])
+@pytest.mark.parametrize("feat,fl", [(256, 128), (512, 256), (512, 512), (768, 384),
+                                     (1024, 512)])
 @pytest.mark.parametrize("tau,n_classes", HEAD_CASES)
 def test_cuda_head_widths_match_plain(cuda_device, tau, n_classes, feat, fl, dtype,
                                       record_property):
     """K1 (both head variants, with the residuals), K2 and K4 at t-embeddings
     7-62 wide and 8-119 classes against their plain versions on 1,001 points
     (ragged against the 64-row tile), at the bars of the tests above, and
-    bitwise repeatable."""
+    bitwise repeatable; at 768 and 1,024 wide too (H in global memory)."""
     from satnerf_torch.ops import field_fused as ff
     from satnerf_torch.ops import trunk
 
@@ -1303,6 +1312,93 @@ def _chip_smoke():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+# trunks past 512 wide (H in global memory, csrc/trunk_tc.cuh kGlobalH):
+# the TOML's 8 layers, heads feat / 2 (K1 and K2 at 768 and 1,024, K3 with
+# the heads layer by layer at 640 and 896)
+WIDE_FEATS = (640, 768, 896, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("feat", WIDE_FEATS)
+def test_cuda_wide_widths_match_plain(cuda_device, feat, dtype, record_property):
+    """K3 and K4 (both engines) at every width past 512, K1 (both head
+    variants, with its residuals) and K2 where the fused field takes the
+    width, against their plain versions at n = 1, 63, 65 and 65,537 within
+    chip_smoke.py's bars, each run twice bitwise equal
+    (``chip_smoke.width_kernel_checks``; a bf16 output past its bar held by
+    the bf16 yardstick, ``_fwd_check``). Prints the errors and the
+    yardstick's readings (``-rP`` shows them)."""
+    from satnerf_torch.configs import load_render_config
+    from satnerf_torch.models.field import Field, fused_field_spec, use_fused_field
+
+    smoke = _chip_smoke()
+    rcfg = load_render_config(smoke.PIPELINE_TOML, device=cuda_device, trunk_impl="pallas",
+                              fc_units=feat)
+    fcfg = rcfg.field
+    fused = use_fused_field(fcfg)
+    assert fused == (feat in (768, 1024)) and fcfg.feat_last == feat // 2
+    field = Field(fcfg, generator=torch.Generator().manual_seed(0)).to(cuda_device).eval()
+    spec = fused_field_spec(fcfg)
+    inputs = smoke._width_inputs(fcfg, 65_537, feat, cuda_device)
+    notes, errs = [], {}
+    with torch.no_grad():
+        packed = field.packed(getattr(torch, dtype))
+        for n in (1, 63, 65, 65_537):
+            for route in ((True, False) if fused else (False,)):
+                errs.update({f"n{n}/{k}": e for k, e in smoke.width_kernel_checks(
+                    f"{feat}", spec, route, packed, inputs, dtype, n, notes).items()})
+    record_property("errors", errs)
+    record_property("notes", notes)
+    print(json.dumps({"worst": max(errs.items(), key=lambda kv: kv[1]), "notes": notes}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("skips", [(1, 2, 3, 4, 5, 6, 7), (2, 5)], ids=["skips1-7", "skips2-5"])
+def test_cuda_k4_any_skip_set_matches_plain(cuda_device, skips, dtype, record_property):
+    """K3 and K4 (both engines, gx chained past MAX_PRODS products) at 8 x 256
+    with 7 and 2 skips against their plain versions, two runs bitwise."""
+    from satnerf_torch.models.field import Field, FieldConfig, fused_field_spec
+
+    smoke = _chip_smoke()
+    fcfg = FieldConfig(variant="rs_semantic", layers=8, feat=256, skips=skips, mapping=True,
+                       trunk_impl="pallas")
+    field = Field(fcfg, generator=torch.Generator().manual_seed(0)).to(cuda_device).eval()
+    inputs = smoke._width_inputs(fcfg, 4097, len(skips), cuda_device)
+    with torch.no_grad():
+        errs = smoke.width_kernel_checks("skips", fused_field_spec(fcfg), False,
+                                         field.packed(getattr(torch, dtype)), inputs, dtype,
+                                         4097, [])
+    record_property("errors", errs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat,layers,fused", [(1024, 25, False), (640, 33, False),
+                                               (1024, 17, True), (768, 23, True)])
+def test_cuda_trunk_past_the_plan_raises_naming_its_depth(cuda_device, feat, layers, fused):
+    """A trunk one layer deeper than K1's or K3's plan of 96 weight passes
+    holds at its width raises ValueError naming that depth (K3: 24 at 1,024,
+    32 at 640; K1 at 16 classes' worth of output: 16 at (1,024, 512), 22 at
+    (768, 384)), before any launch."""
+    from satnerf_torch.models.field import Field, FieldConfig, fused_field_spec
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    cfg = FieldConfig(variant="rs_semantic", layers=layers, feat=feat, skips=(2,), mapping=True,
+                      trunk_impl="pallas",
+                      **({} if fused else {"use_separate_beta_for_s": True}))
+    field = Field(cfg, generator=torch.Generator().manual_seed(0)).to(cuda_device).eval()
+    spec = fused_field_spec(cfg)
+    x = torch.zeros((70, spec.cx), device=cuda_device)
+    with torch.no_grad(), pytest.raises(ValueError, match=f"at most {layers - 1} layers"):
+        if fused:
+            aux = torch.zeros((70, spec.aux_w), device=cuda_device)
+            ff.fused_field(spec, x, aux, field.packed(torch.float32))
+        else:
+            trunk.fused_trunk(spec, x, field.packed(torch.float32))
 
 
 @pytest.mark.cuda

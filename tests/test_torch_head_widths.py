@@ -202,7 +202,7 @@ def test_head_width_limits_match_the_cuda_sources():
     k1, tc, bwd = _csrc("field_fused.cu"), _csrc("trunk_tc.cuh"), _csrc("bwd_common.cuh")
     assert _constant(k1, "kMaxOut") == tff.MAX_OUT_W == 128
     assert _constant(k1, "kMaxAux") == tff.MAX_AUX_W == 128
-    assert "(11 + sem_groups(a)) * passes(FL)" in k1
+    assert "(11 + sem_groups(a)) * passes(a.fl)" in k1
     passes = {128: 1, 256: 1, 384: 2, 512: 2}
     spec = tfield.fused_field_spec(tfield.FieldConfig(
         variant="rs_semantic", mapping=True, trunk_impl="pallas", fc_use_full_features=True,
