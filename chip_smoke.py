@@ -41,10 +41,12 @@ JSON line per phase:
    against "recompute"; CUDA-event times of each kernel at the training
    shapes, K2 and K4 in f32 and bf16 with their row-GEMM launches and
    reductions apart, beside both bounds and one torch.matmul per building
-   block (with ``--parent DIR``, an older checkout's K1-K4 in turns with
-   these, each in its own process, and K1/K3's f32 outputs held against
-   its within the field bars; K5's device times and flagship and Path B
-   step times in the same turns); phase ``composite_device_times``: K5 and
+   block, each building block alone at that matmul's shape, and K2 and K4
+   at 256x128 and 1,024x512 (with ``--parent DIR``, an older checkout's
+   K1-K4 in turns with these, each in its own process, and K1/K3's f32
+   outputs held against its within the field bars; K5's device times and
+   the flagship, Path B and bench-configuration step times in the same
+   turns); phase ``composite_device_times``: K5 and
    its backward beside the card's empty-kernel launch time, their byte
    bound and ``torch.profiler``'s device time; the K1/K3 weight preparations of every step (one per field);
    ``torch.profiler`` over two steady steps (kernels by device time, the
@@ -83,7 +85,8 @@ JSON line per phase:
    no plain version; the examples' 2 x 128 field in the flagship step config
    (K3, K4 and K5 every step, a 32-ray step against the CPU); with
    ``--parent``, the parent's build seconds and K1-K4's outputs at 512
-   bitwise equal to the parent build's (``port_times`` saves all four);
+   bitwise equal to the parent build's, K2/K4 in bf16 within
+   ``PARENT_BARS`` (``port_times`` saves all four);
 13c. ``input_widths``: encoded inputs past 64 wide (``INPUT_FREQS``: 11,
    12, 16 and 21 frequencies, c_in 66, 72, 96 and 126, 80 to 128 after
    padding) at every trunk width (128, 256, 384, 512; 8 layers, heads K1
@@ -95,7 +98,7 @@ JSON line per phase:
    frequencies trained five flagship steps (K1, K2, K4, K5 and K5's backward
    every step, no plain version, a 32-ray step against the CPU) and served
    one 128x128 request; with ``--parent``, K1-K4's outputs at c_in 60
-   bitwise equal to the parent build's, and their times in turns;
+   as at 512 (``parent_outputs_check``), and their times in turns;
 14. ``train_scene``: the training CLI end to end on a generated scene (4 + 1
    views, 96x96, 300 tie points): ``run.training.start_training`` on the
    flagship TOML as it is, 144 steps (the depth drop at step 36, the beta
@@ -1406,6 +1409,8 @@ def port_times(dev, save: str | None = None, reps: int = 3) -> dict:
                                                  need_gx=False))
                 del res, shared, acts
         spec = fused_field_spec(fcfg)
+        out.update(block_times(dev, n))
+        out.update(bwd_width_times(dev, n))
         for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             packed = field.packed(dt)
             x2 = ff.pack_x(spec, enc, dt)
@@ -1422,6 +1427,90 @@ def port_times(dev, save: str | None = None, reps: int = 3) -> dict:
     if save:
         torch.save({k: [t.cpu() for t in v] for k, v in saved.items()}, save)
     return out
+
+
+BLOCK_WIDTH = 512  # the building blocks alone: n x 512 x 512 products (bwd_times' yardsticks)
+BWD_TURN_PAIRS = ((256, 128), (1024, 512))  # K2 and K4 beside the flagship's, in turns
+
+
+def bwd_width_times(dev, n: int) -> dict:
+    """Device ms (``device_time``) of K2 and K4 ("recompute") at the
+    rs_semantic TOML's depth and the (feat, feat_last) of BWD_TURN_PAIRS
+    (the four-scene workflow's 256 x 128, the widest 1,024 x 512), f32 and
+    bf16, at n points, on seed-0 weights: {"heads_bwd@256x128/float32":
+    {"ms"}, ...}. Entry points every slice with trunks to 1,024 wide has, so ``--tree``
+    runs it on an older checkout too."""
+    import dataclasses
+
+    import torch
+
+    from satnerf_torch.configs import load_render_config
+    from satnerf_torch.core.encoding import positional_encoding
+    from satnerf_torch.models.field import Field, fused_field_spec
+    from satnerf_torch.ops import field_fused as ff
+    from satnerf_torch.ops import trunk
+
+    out = {}
+    for feat, fl in BWD_TURN_PAIRS:
+        fcfg = load_render_config(PIPELINE_TOML, device=dev, trunk_impl="pallas", fc_units=feat,
+                                  fc_use_full_features=fl == feat).field
+        field = Field(fcfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+        spec = dataclasses.replace(fused_field_spec(fcfg), trunk_bwd="recompute")
+        g = torch.Generator().manual_seed(11)
+        enc = positional_encoding(torch.rand(n, 3, generator=g) * 2 - 1,
+                                  fcfg.mapping_pos_n_freq).to(dev)
+        sun = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1).to(dev)
+        te = torch.randn(n, fcfg.t_embedding_tau, generator=g).to(dev)
+        g_out = torch.randn(n, out_cols(spec), generator=g).to(dev)
+        with torch.no_grad():
+            for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                packed = field.packed(dt)
+                x = ff.pack_x(spec, enc, dt)
+                aux = ff.pack_aux(spec, sun, te, None, dt)
+                shared = ff._forward(spec, x, aux, packed, resid=True)[1]
+                g_shared = ff.heads_backward(spec, shared, aux, g_out, packed)[0]
+                key = f"@{feat}x{fl}/{dname}"
+                out["heads_bwd" + key] = {"ms": device_time(
+                    lambda: ff.heads_backward(spec, shared, aux, g_out, packed), reps=2,
+                    warmup=1)["ms"]}
+                out["trunk_bwd_recompute" + key] = {"ms": device_time(
+                    lambda: trunk.trunk_backward(spec, x, packed, None, g_shared, need_gx=False),
+                    reps=2, warmup=1)["ms"]}
+                del shared, g_shared
+        del field
+        torch.cuda.empty_cache()
+    return out
+
+
+def block_times(dev, n: int, reps: int = 10) -> dict:
+    """CUDA-event ms of each building block of K2 and K4 alone at the
+    yardstick shapes, f32 and bf16: one row_op (A (n, 512) @ W (512, 512),
+    out in the compute dtype) and one reduce_op (A^T B, both (n, 512)), the
+    weight prepared once beforehand as the wrappers prepare it (a
+    ``row_weight``, or in an older checkout its tf32 split). ``ops/_bwd.py``
+    entry points only, so ``--tree`` runs it on an older checkout too."""
+    import torch
+
+    from satnerf_torch.ops import _bwd
+
+    g = torch.Generator().manual_seed(5)
+    times = {}
+    for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        a, b = (torch.randn(n, BLOCK_WIDTH, generator=g).to(dev).to(dt) for _ in range(2))
+        wt = torch.randn(BLOCK_WIDTH, BLOCK_WIDTH, generator=g).to(dev).to(dt)
+        if hasattr(_bwd, "row_weight"):
+            w = _bwd.row_weight(wt, dt)
+        else:
+            w = _bwd.tf32_split(wt) if dt == torch.float32 else wt
+        res = torch.empty((n, BLOCK_WIDTH), dtype=dt, device=dev)
+        gw = torch.empty((BLOCK_WIDTH, BLOCK_WIDTH), dtype=torch.float32, device=dev)
+        times[f"row_block/{dname}"] = {"ms": cuda_ms(lambda: _bwd.row_op(
+            "trunk_bwd", "trunk_bwd_row", dt, n, BLOCK_WIDTH, prods=[(a, w)], out_dt=res),
+            reps=reps, warmup=2)}
+        times[f"reduce_block/{dname}"] = {"ms": cuda_ms(lambda: _bwd.reduce_op(
+            "trunk_bwd", "trunk_bwd_reduce", dt, n, gemms=[(a, b, gw)]), reps=reps, warmup=2)}
+        del a, b, wt, w, res, gw
+    return times
 
 
 def run_turns(parent: str) -> list:
@@ -1463,6 +1552,7 @@ def bwd_times(dev, turns: list | None) -> tuple:
 
     import torch
 
+    from satnerf_torch.configs import load_render_config
     from satnerf_torch.models.field import fused_field_spec
     from satnerf_torch.ops import field_fused as ff
     from satnerf_torch.ops import trunk
@@ -1522,6 +1612,26 @@ def bwd_times(dev, turns: list | None) -> tuple:
     spec = fused_field_spec(fcfg)
     f4 = 4
     entries = {}
+    # the building blocks alone beside their bounds and the torch.matmul yardsticks
+    for dname in ("float32", "bfloat16"):
+        esz = f4 if dname == "float32" else 2
+        flops = 2.0 * n * BLOCK_WIDTH * BLOCK_WIDTH
+        tc_ms = (3.0 * flops / PEAK_TF32_FLOPS if dname == "float32"
+                 else flops / PEAK_BF16_FLOPS) * 1e3
+        for kind, nbytes, yk in (
+                ("row_block", (2 * n + BLOCK_WIDTH) * BLOCK_WIDTH * esz, f"row_{n}x512x512"),
+                ("reduce_block", 2 * n * BLOCK_WIDTH * esz + BLOCK_WIDTH ** 2 * f4,
+                 f"reduce_512x{n}x512")):
+            key = f"{kind}/{dname}"
+            bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+            e = {"ms": mine[key] if parent else times[key]["ms"],
+                 "bound_ms": max(tc_ms, bytes_ms),
+                 "bound_by": "operations" if tc_ms >= bytes_ms else "bytes",
+                 "library_ms": yard[f"{yk}/{dname}"], "shape": [n, BLOCK_WIDTH, BLOCK_WIDTH]}
+            if parent and key in theirs:
+                e["parent_ms"] = theirs[key]
+                e["turns_ms"] = [tr["times"][key]["ms"] for tr in turns if key in tr["times"]]
+            entries[key] = e
     for key, macs in (("heads_bwd", spec.heads_bwd_mac_per_point()),
                       ("trunk_bwd_recompute", dataclasses.replace(
                           spec, trunk_bwd="recompute").trunk_bwd_mac_per_point()),
@@ -1556,6 +1666,24 @@ def bwd_times(dev, turns: list | None) -> tuple:
                 e["parent_ms"] = theirs[f"{key}/{dname}"]
                 e["turns_ms"] = [tr["times"][f"{key}/{dname}"]["ms"] for tr in turns]
             entries[f"{key}/{dname}"] = e
+    # K2 and K4 at the other widths of BWD_TURN_PAIRS, beside their bounds
+    for feat, fl in BWD_TURN_PAIRS:
+        wspec = dataclasses.replace(fused_field_spec(load_render_config(
+            PIPELINE_TOML, device=dev, trunk_impl="pallas", fc_units=feat,
+            fc_use_full_features=fl == feat).field), trunk_bwd="recompute")
+        for key, macs in (("heads_bwd", wspec.heads_bwd_mac_per_point()),
+                          ("trunk_bwd_recompute", wspec.trunk_bwd_mac_per_point())):
+            for dname in ("float32", "bfloat16"):
+                k = f"{key}@{feat}x{fl}/{dname}"
+                bounds = op_bounds(2.0 * macs * n, dname)
+                e = {"ms": mine[k] if parent else times[k]["ms"],
+                     "bound_ms": bounds["bound_3xtf32_ms" if dname == "float32"
+                                        else "bound_bf16_ms"],
+                     "bound_by": "operations", "shape": [n, feat, fl]}
+                if parent and k in theirs:
+                    e["parent_ms"] = theirs[k]
+                    e["turns_ms"] = [tr["times"][k]["ms"] for tr in turns if k in tr["times"]]
+                entries[k] = e
     fwd = {}
     for k in times:
         if k.startswith(("field_fused", "trunk_fwd/")):
@@ -1614,8 +1742,8 @@ def profile_phase(dev, scfg, params, vocab: int) -> dict:
     state, _ = step(state, batch, gen)
     wall_ms, kernels = profiled(lambda: step(state, batch, gen), 2)
     busy = sum(k[1] for k in kernels)
-    groups = {"bwd row GEMM (K2+K4)": ("tc_row_kernel", "row_kernel<"),
-              "bwd reduction (K2+K4)": ("reduce_kernel", "finish_kernel"),
+    groups = {"bwd row GEMM (K2+K4)": ("row_ws_kernel", "row_kernel<", "prep_kernel"),
+              "bwd reduction (K2+K4)": ("reduce_ws_kernel", "finish_kernel"),
               "K1 field_fused": ("field_fused",), "K5 composite": ("composite",)}
     by_group = {name: sum(k[1] for k in kernels if any(p in k[0] for p in pats))
                 for name, pats in groups.items()}
@@ -1934,6 +2062,19 @@ def step_times(dev, steps: int = 5) -> dict:
     return out
 
 
+def bench_step_times(dev) -> dict:
+    """ms per replayed step of the JAX bench's configuration
+    (``satnerf_torch.bench.main`` at its defaults, BENCH_MAIN_STEPS steps a
+    window, over all its windows) and its rays/s, for the turns; an entry
+    point every slice with the bench's windowed ``main(steps)`` has."""
+    from satnerf_torch import bench
+
+    with tool_env({}):
+        line = bench.main(BENCH_MAIN_STEPS)
+    return {"step/bench": {"ms": line["ms_per_step_all_windows"],
+                           "rays_per_sec": line["rays_per_sec_all_windows"]}}
+
+
 def forward_builds(build) -> dict:
     """{library: {kernel: ptxas's registers and spills, and its SASS
     instruction count}} of K1's and K3's libraries as the ``_build`` module
@@ -1949,8 +2090,8 @@ def forward_builds(build) -> dict:
 
 
 def child_times(tree: str, save: str) -> int:
-    """``--tree DIR --save FILE``: port_times, composite_times, step_times
-    and k6_times on the checkout at DIR (its own package and kernels),
+    """``--tree DIR --save FILE``: port_times, composite_times, step_times,
+    bench_step_times and k6_times on the checkout at DIR (its own package and kernels),
     printing its build (seconds, forward_builds) and the times as the last
     line."""
     sys.path.insert(0, tree)
@@ -1969,7 +2110,7 @@ def child_times(tree: str, save: str) -> int:
                                       "forward_kernels": forward_builds(_build)}}), flush=True)
     dev = torch.device("cuda")
     print(json.dumps({**port_times(dev, save), **composite_times(dev), **step_times(dev),
-                      **k6_times(dev)}), flush=True)
+                      **bench_step_times(dev), **k6_times(dev)}), flush=True)
     return 0
 
 
@@ -4422,7 +4563,7 @@ def widths_phase(dev, vocab: int, turns: list | None, build_s: dict) -> dict:
     through the CLI (widths_cli_run) and the examples' 2 x 128 field in the
     flagship step config (train_phase: K3, K4 and K5 on every step, a 32-ray
     step against the CPU). With ``turns``, the parent's build seconds and
-    K1-K4's outputs at 512 against the parent build's: bitwise equal."""
+    K1-K4's outputs at 512 against the parent build's (parent_outputs_check)."""
     import shutil
     import tempfile
 
@@ -4473,16 +4614,15 @@ def widths_phase(dev, vocab: int, turns: list | None, build_s: dict) -> dict:
 
     parent = None
     if turns:
-        bitwise = parent_outputs_bitwise()
+        bitwise = parent_outputs_check("at 512")
         mine, theirs = turn_means(turns)
-        parent = {"outputs_bitwise_parent_512": bitwise,
+        parent = {"outputs_vs_parent_512": bitwise,
                   "build_seconds": {k: v for k, v in (turns[0].get("build") or {}).items()
                                     if k != "forward_kernels"},
                   "this_ms_512": {k: v for k, v in mine.items()
                                   if k.split("/")[0] in PARENT_KERNEL_KEYS},
                   "parent_ms_512": {k: v for k, v in theirs.items()
                                     if k.split("/")[0] in PARENT_KERNEL_KEYS}}
-        check(all(bitwise.values()), f"K1-K4 at 512 differ from the parent build's: {bitwise}")
     line = {"phase": "widths", "pairs": pairs, "points": WIDTH_POINTS, "notes": notes,
             "cli": cli, "examples_step": {"launches": examples["launches"],
                                           "field": EXAMPLES_FIELD},
@@ -4516,6 +4656,32 @@ def parent_outputs_bitwise() -> dict:
 
     a, b = (torch.load(os.path.join(REPO, "build", "turns", f"turn{i}.pt")) for i in (0, 1))
     return {k: all(torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a}
+
+
+# Outputs whose arithmetic the warp-specialised reduction changed by design:
+# in bf16 it sums the bias gradients (sum jobs) in chunks of kSplitRows rows
+# added in order, where the earlier reduction walked all rows in one block
+# per 64 columns. They are held against the parent build's at the backward
+# kernels' bar; every other output stays bitwise the parent build's.
+PARENT_BARS = {"k2/bfloat16": TOL_FIELD_BWD["bfloat16"],
+               "k4_recompute/bfloat16": TOL_FIELD_BWD["bfloat16"],
+               "k4_stored/bfloat16": TOL_FIELD_BWD["bfloat16"]}
+
+
+def parent_outputs_check(where: str) -> dict:
+    """parent_outputs_bitwise, checked: each output bitwise the parent
+    build's, or for the PARENT_BARS keys within their bar (each tensor's
+    rel_err against the parent's); -> {"bitwise", "rel_err" of those that
+    differ}."""
+    import torch
+
+    bitwise = parent_outputs_bitwise()
+    a, b = (torch.load(os.path.join(REPO, "build", "turns", f"turn{i}.pt")) for i in (0, 1))
+    errs = {k: max(rel_err(y, x) for x, y in zip(a[k], b[k])) for k, same in bitwise.items()
+            if not same}
+    check(all(k in PARENT_BARS and e <= PARENT_BARS[k] for k, e in errs.items()),
+          f"K1-K4 {where} differ from the parent build's: {bitwise}, {errs}")
+    return {"bitwise": bitwise, "rel_err": errs}
 
 
 def k1_input_checks(key: str, spec, packed, inputs, dname: str) -> dict:
@@ -4557,8 +4723,8 @@ def input_widths_phase(dev, vocab: int, turns: list | None) -> dict:
     POSENC_FREQ frequencies: five flagship training steps (train_phase: K1,
     K2, K4, K5 and its backward every step, no plain version, a 32-ray step
     against the CPU) and one 128 x 128 request (serve_variant_phase). With
-    ``turns``, K1-K4's outputs at c_in 60 against the parent build's: bitwise
-    equal."""
+    ``turns``, K1-K4's outputs at c_in 60 against the parent build's
+    (parent_outputs_check)."""
     import torch
 
     from satnerf_torch.configs import load_render_config
@@ -4612,17 +4778,15 @@ def input_widths_phase(dev, vocab: int, turns: list | None) -> dict:
                                  "trunk_fwd_interleaved": 0})
     parent = None
     if turns:
-        bitwise = parent_outputs_bitwise()
+        bitwise = parent_outputs_check("at c_in 60")
         mine, theirs = turn_means(turns)
-        parent = {"outputs_bitwise_parent_c_in_60": bitwise,
+        parent = {"outputs_vs_parent_c_in_60": bitwise,
                   "forward_kernels": {t["tree"]: t["build"].get("forward_kernels")
                                       for t in turns[:2]},
                   "this_ms_c_in_60": {k: v for k, v in mine.items()
                                       if k.split("/")[0] in PARENT_KERNEL_KEYS},
                   "parent_ms_c_in_60": {k: v for k, v in theirs.items()
                                         if k.split("/")[0] in PARENT_KERNEL_KEYS}}
-        check(all(bitwise.values()), f"K1-K4 at c_in 60 differ from the parent build's: "
-                                     f"{bitwise}")
     line = {"phase": "input_widths", "freqs": INPUT_FREQS,
             "c_in": [6 * f for f in INPUT_FREQS], "feat": INPUT_FEAT_WIDTHS,
             "points": INPUT_POINTS, "errors": cells, "notes": notes, "times_512": times,
@@ -4737,8 +4901,8 @@ def head_widths_phase(dev, vocab: int, turns: list | None) -> dict:
     its backward every step, no plain version, a 32-ray step against the
     CPU), one 128 x 128 request (serve_variant_phase) and the training CLI on
     a scene with HEAD_CLASSES labels (head_widths_cli_run). With ``turns``,
-    K1-K4's outputs at the flagship against the parent build's: bitwise
-    equal."""
+    K1-K4's outputs at the flagship against the parent build's
+    (parent_outputs_check)."""
     import shutil
     import tempfile
 
@@ -4779,15 +4943,13 @@ def head_widths_phase(dev, vocab: int, turns: list | None) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     parent = None
     if turns:
-        bitwise = parent_outputs_bitwise()
+        bitwise = parent_outputs_check("at the flagship")
         mine, theirs = turn_means(turns)
         keys = ("field_fused", "field_fused_serve", "heads_bwd")
-        parent = {"outputs_bitwise_parent_flagship": bitwise,
+        parent = {"outputs_vs_parent_flagship": bitwise,
                   "this_ms_flagship": {k: v for k, v in mine.items() if k.split("/")[0] in keys},
                   "parent_ms_flagship": {k: v for k, v in theirs.items()
                                          if k.split("/")[0] in keys}}
-        check(all(bitwise.values()), f"K1-K4 at the flagship differ from the parent build's: "
-                                     f"{bitwise}")
     line = {"phase": "head_widths", "cases": HEAD_CASES, "pairs": HEAD_PAIRS,
             "points": HEAD_POINTS, "errors": cells, "notes": notes, "times": times,
             "check_launches": check_launches,
@@ -4968,16 +5130,23 @@ def main() -> int:
     marks.append(("build", time.monotonic()))
     # the libraries on the tensor cores: HGMMA (wgmma) instructions in each
     # kernel's SASS, and ptxas's registers and spills
-    tc_libs = {"field_bwd": ("tc_row_kernel", "reduce_kernel"),
-               "trunk_bwd": ("tc_row_kernel", "reduce_kernel"),
+    tc_libs = {"field_bwd": ("row_ws_kernel", "reduce_ws_kernel"),
+               "trunk_bwd": ("row_ws_kernel", "reduce_ws_kernel"),
                "field_fused": ("field_fused_kernel",),
                "trunk_fwd": ("trunk_fwd_kernel", "trunk_fwd_il_kernel")}
     sass = {lib: _build.sass_counts(lib) for lib in tc_libs}
     ptxas = {lib: _build.ptxas_report(lib) for lib in tc_libs}
     k6_regs = {k: v.get("registers") for k, v in ptxas["trunk_fwd"].items()
                if "trunk_fwd_il_kernel" in k}
+    # ptxas's notes on the wgmma pipelines (serialised groups, injected waits)
+    notes = {}
+    for lib in tc_libs:
+        with open(os.path.join(_build.build_dir(), f"{lib}.log")) as f:
+            notes[lib] = sorted({ln.split("ptxas info    : ")[-1].split(" in the function")[0]
+                                 .split(" in function")[0].strip() + " | " + ln.split("'")[-2]
+                                 for ln in f if "(C75" in ln and "'" in ln})
     emit({"phase": "build_bwd_sass", "hgmma_per_kernel": sass, "ptxas": ptxas,
-          "k6_registers_per_thread": k6_regs})
+          "ptxas_wgmma_notes": notes, "k6_registers_per_thread": k6_regs})
     check(len(k6_regs) == 2, f"K6: {len(k6_regs)} instances in the ptxas report")
     for lib, names in tc_libs.items():
         check(isinstance(sass[lib], dict), f"{lib}: no SASS listing ({sass[lib]})")
@@ -5374,7 +5543,10 @@ def main() -> int:
         keys = ("ms", "row_ms", "reduce_ms", "bound_ms", "bound_by", "bound_f32_fma_ms",
                 "library_ms_blocks", "parent_ms")
         return {**{k: f[k] for k in timed + keys if k in f}, "library_ms": None,
-                "bf16": {k: b[k] for k in keys if k in b}}
+                "bf16": {k: b[k] for k in keys if k in b},
+                "blocks_alone": {f"{kind}/{d}": train_t[f"{kind}/{d}"]
+                                 for kind in ("row_block", "reduce_block")
+                                 for d in ("float32", "bfloat16")}}
     kernels = [
         {
             "name": "field_fused", "route": "cuda",

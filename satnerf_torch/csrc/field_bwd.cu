@@ -10,8 +10,10 @@
 //
 // What bounds it: operations, 2.77 M multiply-adds per point at the
 // flagship's widths (F 512, heads 256): 2.20 ms at 65,536 points on an H100's
-// tensor cores as 3xTF32 in f32, where the kernels take 8.85 ms (17.75 on the
-// f32 FMA units before). Every product runs on the tensor cores through the
+// tensor cores as 3xTF32 in f32 (0.37 in bf16), where the kernels take 7.74
+// ms (bf16 4.75; 10.61 / 5.54 before their redesign, 17.75 on the f32 FMA
+// units before that; an NVIDIA H100 80GB HBM3 at 700.00 W, chip_smoke.py in
+// turns with the parent). Every product runs on the tensor cores through the
 // two blocks of bwd_common.cuh (3xTF32 in f32, bf16 as it is), K 16 (the raw
 // columns, the aux block padded to 16) included; only
 // the 16-wide g_aux launch stays on the FMA row kernel, by the fixed rule
@@ -30,7 +32,9 @@
 //   heads_bwd_row     one head layer over all rows (18 launches with every
 //                     head on, 10 for the sigma + sun-visibility variant);
 //   heads_bwd_reduce  every head dW = A^T B and db = sum B, in 128x128
-//                     tiles over chunks of rows, then the chunks in order.
+//                     tiles over chunks of rows, then the chunks in order;
+//   heads_bwd_prep    a weight's tiles as the row GEMM's bulk copies read
+//                     them (once per weight and launch).
 // Keep in sync with ops/field_fused.py.
 #include "bwd_common.cuh"
 
@@ -42,4 +46,9 @@ extern "C" int heads_bwd_row(const RowArgs* a, cudaStream_t stream) {
 
 extern "C" int heads_bwd_reduce(const ReduceArgs* a, cudaStream_t stream) {
   return launch_reduce(*a, stream);
+}
+
+extern "C" int heads_bwd_prep(const void* w, int ld, int width, int k, int bn, int bf16,
+                              void* tiles, cudaStream_t stream) {
+  return prep_entry(w, ld, width, k, bn, bf16, tiles, stream);
 }

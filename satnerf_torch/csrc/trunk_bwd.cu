@@ -11,8 +11,11 @@
 //
 // What bounds it: operations, 5.69 M multiply-adds per point for
 // "recompute" (3.79 M "stored") at the flagship's 8x512: 4.52 / 3.01 ms at
-// 65,536 points on an H100's tensor cores as 3xTF32 in f32, where the kernels
-// take 15.48 / 11.37 ms (31.84 / 23.41 on the f32 FMA units before).
+// 65,536 points on an H100's tensor cores as 3xTF32 in f32 (0.754 / 0.503 in
+// bf16), where the kernels take 13.03 / 9.23 ms (bf16 8.69 / 7.03; 18.52 /
+// 12.84 and 9.78 / 7.83 before their redesign, 31.84 / 23.41 on the f32 FMA
+// units before that; an NVIDIA H100 80GB HBM3 at 700.00 W, chip_smoke.py in
+// turns with the parent).
 // Every product runs on the tensor cores through the two blocks of
 // bwd_common.cuh, which say how and what holds them above the bound: 3xTF32
 // in f32 (three passes, about 22 bits), one bf16 pass in bf16.
@@ -25,7 +28,9 @@
 //                     same launch) and one for gx (64 or 128 wide);
 //   trunk_bwd_reduce  every gW and gb: 128x128 tiles of dW over chunks of
 //                     rows, each gb folded into the pass that stages its ga
-//                     (f32), then the chunks added in order.
+//                     (f32), then the chunks added in order;
+//   trunk_bwd_prep    a weight's tiles as the row GEMM's bulk copies read
+//                     them (once per weight and backward).
 // Keep in sync with ops/trunk.py.
 #include "bwd_common.cuh"
 
@@ -37,4 +42,9 @@ extern "C" int trunk_bwd_row(const RowArgs* a, cudaStream_t stream) {
 
 extern "C" int trunk_bwd_reduce(const ReduceArgs* a, cudaStream_t stream) {
   return launch_reduce(*a, stream);
+}
+
+extern "C" int trunk_bwd_prep(const void* w, int ld, int width, int k, int bn, int bf16,
+                              void* tiles, cudaStream_t stream) {
+  return prep_entry(w, ld, width, k, bn, bf16, tiles, stream);
 }

@@ -31,10 +31,12 @@ NVCC_FLAGS = (
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "field_fused": {"field_fused_forward": [_vp, _vp], "field_fused_max_layers": [_vp]},
-    "field_bwd": {"heads_bwd_row": [_vp, _vp], "heads_bwd_reduce": [_vp, _vp]},
+    "field_bwd": {"heads_bwd_row": [_vp, _vp], "heads_bwd_reduce": [_vp, _vp],
+                  "heads_bwd_prep": [_vp, _i, _i, _i, _i, _i, _vp, _vp]},
     "trunk_fwd": {"trunk_fwd_forward": [_vp, _vp], "trunk_fwd_interleaved": [_vp, _vp],
                   "trunk_fwd_max_layers": [_i]},
-    "trunk_bwd": {"trunk_bwd_row": [_vp, _vp], "trunk_bwd_reduce": [_vp, _vp]},
+    "trunk_bwd": {"trunk_bwd_row": [_vp, _vp], "trunk_bwd_reduce": [_vp, _vp],
+                  "trunk_bwd_prep": [_vp, _i, _i, _i, _i, _i, _vp, _vp]},
     "composite": {"composite_forward": [_vp] * 4 + [_i, _vp, _i] + [_vp] * 5 + [_i, _i, _vp],
                   "composite_backward": [_vp] * 4 + [_i, _vp, _i] + [_vp] * 10
                                         + [_i, _i, _vp]},

@@ -7,18 +7,20 @@ Two primitives, each a ctypes call into a library built by ``ops/_build.py``
   ``v = sum_j A_j @ W_j [+ add] [+ bias]`` then one epilogue (``FWD_*`` for
   the recompute, ``BWD_*`` for the reverse sweep), written to workspaces in
   f32 and/or the compute dtype. Each product is given as ``(A, Wt)`` with
-  ``Wt = W^T`` stored (width, K), K-major as the tensor cores take it; in
-  f32 ``Wt`` may come with its 3xTF32 split (:func:`tf32_split`), which a
-  wrapper makes once per backward for a weight it uses often.
+  ``Wt = W^T`` stored (width, K), or as ``(A, RowWeight)``: the same weight
+  with its tiles prepared by :func:`row_weight` (the kernel's bulk copies
+  read B from them), which a wrapper makes once per backward for a weight
+  it uses often; a plain ``Wt`` is prepared at each launch.
 - :func:`reduce_op`: a batch of weight gradients ``A^T B`` and bias
   gradients ``sum_n B[n]``, deterministic: the kernel sums fixed chunks of
-  ``SPLIT_ROWS`` rows and a second launch adds the chunks in order. In f32 a
-  bias sum whose rows are some GEMM's B is folded into that GEMM's pass.
+  ``SPLIT_ROWS`` rows (weight and bias gradients alike) and a second launch
+  adds the chunks in order. In f32 a bias sum whose rows are some GEMM's B
+  is folded into that GEMM's pass.
 
 The wrappers of K2 (``ops/field_fused.py``) and K4 (``ops/trunk.py``) chain
 them; these helpers check shapes, pad K where a row is not a whole number of
-16-byte pieces, split f32 weights, allocate the partial sums and fill the
-argument structs.
+16-byte pieces, prepare the weights' tiles, allocate the partial sums and
+fill the argument structs.
 
 :func:`matmul_3xtf32` is the plain PyTorch emulation of the f32 products:
 tf32 rounding (:func:`tf32_round`, the kernels' ``tc::tf32_rna``), the
@@ -39,7 +41,9 @@ MAX_K = 1024  # K of a tensor-core product (csrc/bwd_common.cuh kMaxK)
 THIN_MAX_K = 512  # K of a product on the 16-wide FMA route (kThinMaxK)
 MAX_JOBS = 24
 THIN_WIDTH = 16  # the output width that stays on the FMA row kernel
-SPLIT_ROWS = 8192  # rows per partial sum of the reduction
+SPLIT_ROWS = 8192  # rows per partial sum of the reduction (kSplitRows)
+CHUNK_BYTES = 128  # K of one staged chunk: 32 f32 or 64 bf16 values (Tc::kKc)
+ROW_STAGES = 4  # the row GEMM's ring (kRowStages)
 
 # row_op epilogues (csrc/bwd_common.cuh RowMode)
 FWD_LINEAR, FWD_SINE, FWD_RELU, BWD_SINE, BWD_RELU, PLAIN = range(6)
@@ -63,17 +67,73 @@ def split_tf32(x: torch.Tensor):
     return hi, tf32_round(x - hi)
 
 
-class Tf32Split(NamedTuple):
-    """An f32 weight ``w`` beside its split ``(hi, lo)``, made once by a
-    wrapper that passes the weight to several launches."""
+def row_bn(width: int, dt: torch.dtype) -> int:
+    """Columns of the row GEMM's tiles at this output width (the fixed rule
+    on shape of csrc/bwd_common.cuh ``row_bn``): the widest of 256 (bf16
+    only), 128 and 64 that divides it."""
+    if width <= 0 or width % 64:
+        raise ValueError(f"row GEMM width {width}: a multiple of 64 (or {THIN_WIDTH})")
+    if dt == torch.bfloat16 and width % 256 == 0:
+        return 256
+    return 128 if width % 128 == 0 else 64
+
+
+def swizzle_tiles(w: torch.Tensor, bn: int) -> torch.Tensor:
+    """W^T (width, K) -> its tiles as the row GEMM's bulk copies read them:
+    (width / bn, chunks, bn, 8, 16 / element size), chunk c holding K columns
+    [c kc, c kc + kc) (kc: 128 bytes of values, zeros past K) of bn rows, each
+    row's 16-byte pieces swizzled (piece p at position p ^ (row % 8), the
+    layout of ``tc::sw128``)."""
+    width, k = w.shape
+    esz = w.element_size()
+    kc, per = CHUNK_BYTES // esz, 16 // esz
+    nkc = -(-k // kc)
+    t = pad_cols(w.contiguous(), nkc * kc).reshape(width // bn, bn, nkc, 8, per)
+    t = t.permute(0, 2, 1, 3, 4)
+    rows = torch.arange(bn, device=w.device)[:, None]
+    idx = torch.arange(8, device=w.device)[None, :] ^ (rows % 8)  # position p <- piece p ^ (r % 8)
+    return torch.gather(t, 3, idx[None, None, :, :, None].expand(t.shape)).contiguous()
+
+
+class RowWeight(NamedTuple):
+    """A product's ``Wt`` (width, K) beside its prepared tiles
+    (:func:`row_weight`), made once by a wrapper that passes the weight to
+    several launches."""
 
     w: torch.Tensor
-    hi: torch.Tensor
-    lo: torch.Tensor
+    tiles: torch.Tensor
+    bn: int
 
 
-def tf32_split(w: torch.Tensor) -> Tf32Split:
-    return Tf32Split(w, *split_tf32(w))
+_PREP = {"trunk_bwd": "trunk_bwd_prep", "field_bwd": "heads_bwd_prep"}
+
+
+def row_weight(wt: torch.Tensor, dt: torch.dtype, lib_name: str = "trunk_bwd") -> RowWeight:
+    """``Wt`` (width, K) in the compute dtype -> its :class:`RowWeight`: the
+    tiles of :func:`swizzle_tiles` at the width's :func:`row_bn`, in f32 the
+    tf32 hi part's then the lo part's chunk by chunk
+    ((width / bn, chunks, 2, bn, 8, 4)), in bf16 the weight's
+    ((width / bn, chunks, 1, bn, 8, 8)). A CUDA weight is prepared by one
+    launch of ``csrc/bwd_common.cuh``'s prep_kernel (from ``lib_name``); a
+    CPU one by that construction in torch, the kernel's plain version."""
+    if wt.dtype != dt:
+        raise ValueError(f"row_weight: {wt.dtype} weight for a {dt} launch")
+    bn = row_bn(wt.shape[0], dt)
+    if wt.device.type == "cpu":
+        parts = split_tf32(wt) if dt == torch.float32 else (wt,)
+        return RowWeight(wt, torch.stack([swizzle_tiles(p, bn) for p in parts], dim=2), bn)
+    width, k = wt.shape
+    ld = _rows2d(wt, width, k, "Wt", (dt,))
+    esz = wt.element_size()
+    parts = 2 if dt == torch.float32 else 1
+    tiles = torch.empty((width // bn, -(-k * esz // CHUNK_BYTES), parts, bn, 8, 16 // esz),
+                        dtype=dt, device=wt.device)
+    lib = load_library(lib_name)
+    fn = _PREP[lib_name]
+    stream = torch.cuda.current_stream().cuda_stream
+    check_launch(lib, getattr(lib, fn)(wt.data_ptr(), ld, width, k, bn, int(parts == 1),
+                                       tiles.data_ptr(), ctypes.c_void_p(stream)), fn)
+    return RowWeight(wt, tiles, bn)
 
 
 def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -92,7 +152,7 @@ class _RowArgs(ctypes.Structure):
     """Mirror of ``struct RowArgs`` in csrc/bwd_common.cuh."""
 
     _fields_ = [
-        ("a", _vp * MAX_PRODS), ("w", _vp * MAX_PRODS), ("w_lo", _vp * MAX_PRODS),
+        ("a", _vp * MAX_PRODS), ("w", _vp * MAX_PRODS),
         ("add", _vp), ("bias", _vp), ("pre", _vp), ("out_f32", _vp), ("out_dt", _vp),
         ("out2_dt", _vp), ("lda", _i * MAX_PRODS), ("k", _i * MAX_PRODS),
     ] + [(name, _i) for name in (
@@ -107,7 +167,7 @@ class _GemmJob(ctypes.Structure):
 
 
 class _SumJob(ctypes.Structure):
-    _fields_ = [("b", _vp), ("out", _vp), ("ldb", _i), ("m", _i), ("b_f32", _i)]
+    _fields_ = [("b", _vp), ("out", _vp), ("part", _vp), ("ldb", _i), ("m", _i), ("b_f32", _i)]
 
 
 class _ReduceArgs(ctypes.Structure):
@@ -148,23 +208,11 @@ def _aligned(t: torch.Tensor) -> bool:
     return t.shape[1] % per == 0 and t.stride(0) % per == 0 and t.data_ptr() % 16 == 0
 
 
-def _weight_parts(wt, dt: torch.dtype):
-    """(hi, lo) tensors of a product's ``Wt``: in f32 its tf32 split (made here
-    unless given), in bf16 the tensor and None."""
-    if isinstance(wt, Tf32Split):
-        if dt != torch.float32:
-            raise ValueError("row_op: a split weight is f32 only")
-        return wt.hi, wt.lo
-    if dt == torch.float32:
-        return split_tf32(wt)
-    return wt, None
-
-
 def row_op(lib_name: str, fn_name: str, dt: torch.dtype, rows: int, width: int, prods=(),
            add=None, bias=None, pre=None, mode: int = PLAIN, scale: float = 1.0,
            sin_mode: int = 0, out_f32=None, out_dt=None, out2_dt=None) -> None:
     """One launch of the row GEMM; ``prods`` is a list of (A (rows, K),
-    Wt (width, K) or its :class:`Tf32Split`) pairs."""
+    Wt (width, K) or its :class:`RowWeight`) pairs."""
     if len(prods) > MAX_PRODS:
         raise ValueError(f"row_op: {len(prods)} products, at most {MAX_PRODS}")
     f32 = torch.float32
@@ -174,31 +222,26 @@ def row_op(lib_name: str, fn_name: str, dt: torch.dtype, rows: int, width: int, 
     for j, (a, wt) in enumerate(prods):
         k = a.shape[1]
         if thin:
-            if isinstance(wt, Tf32Split):
-                raise ValueError("row_op: the 16-wide route takes the weight unsplit")
+            if isinstance(wt, RowWeight):
+                raise ValueError("row_op: the 16-wide route takes the weight unprepared")
             if k % 4 or k > THIN_MAX_K:
                 raise ValueError(f"row_op: K={k} must be a multiple of 4, <= {THIN_MAX_K}")
-            hi, lo = wt.t().contiguous(), None  # the FMA kernel reads W (K, width)
-            _rows2d(hi, k, width, f"W[{j}]", (dt,))
+            w = wt.t().contiguous()  # the FMA kernel reads W (K, width)
+            _rows2d(w, k, width, f"W[{j}]", (dt,))
         else:
-            hi, lo = _weight_parts(wt, dt)
+            rw = wt if isinstance(wt, RowWeight) else row_weight(wt, dt, lib_name)
+            _rows2d(rw.w, width, k, f"Wt[{j}]", (dt,))
+            if rw.bn != row_bn(width, dt) or not rw.tiles.is_contiguous():
+                raise ValueError(f"row_op: Wt[{j}]'s tiles are not this width's")
             if not _aligned(a):  # pad K with zeros to a multiple of 16
-                kp = padded_k(k)
-                a = pad_cols(a, kp)
-                hi = pad_cols(hi, kp)
-                lo = pad_cols(lo, kp) if lo is not None else None
-                k = kp
+                k = padded_k(k)
+                a = pad_cols(a, k)
             if k > MAX_K:
                 raise ValueError(f"row_op: K={k} > {MAX_K}")
-            for t, nm in ((hi, "Wt"), (lo, "Wt_lo")):
-                if t is not None:
-                    _rows2d(t, width, k, f"{nm}[{j}]", (dt,))
-                    if not t.is_contiguous():
-                        raise ValueError(f"row_op: {nm}[{j}] must be contiguous")
+            w = rw.tiles
         args.lda[j] = _rows2d(a, rows, k, f"A[{j}]", (dt,))
-        args.a[j], args.w[j], args.k[j] = a.data_ptr(), hi.data_ptr(), k
-        args.w_lo[j] = lo.data_ptr() if lo is not None else None
-        keep += [a, hi, lo]
+        args.a[j], args.w[j], args.k[j] = a.data_ptr(), w.data_ptr(), k
+        keep += [a, w]
     args.n_prod = len(prods)
     if add is not None:
         args.ld_add = _rows2d(add, rows, width, "add", (dt, f32))
@@ -285,8 +328,10 @@ def reduce_op(lib_name: str, fn_name: str, dt: torch.dtype, rows: int, gemms=(),
         job.ldb = _rows2d(b, rows, m, f"sum[{j}].B", (dt, f32))
         if tuple(out.shape) != (m,) or out.dtype != f32 or not out.is_contiguous():
             raise ValueError(f"reduce_op: sum[{j}] out {tuple(out.shape)} {out.dtype}")
-        job.b, job.out, job.m, job.b_f32 = (b.data_ptr(), out.data_ptr(), m,
-                                            int(b.dtype == f32))
+        part = torch.empty((n_split, m), dtype=f32, device=out.device)
+        job.b, job.out, job.part, job.m, job.b_f32 = (b.data_ptr(), out.data_ptr(),
+                                                      part.data_ptr(), m, int(b.dtype == f32))
+        keep.append(part)
     args.n_gemm, args.n_sum, args.rows = len(gemms), len(rest), rows
     args.bf16 = int(dt == torch.bfloat16)
     args.split_rows, args.n_split = SPLIT_ROWS, n_split

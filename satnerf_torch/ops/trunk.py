@@ -511,8 +511,9 @@ def _trunk_backward_cuda(spec, x, packed, acts, g_shared, need_gx: bool):
     reduction (csrc/trunk_bwd.cu). The row GEMM takes W^T (out, in) for the
     forward layers and the packed (in, out) weight as it is for the sweep and
     gx; x and the rows of w0 / w_skip are padded with zeros to a multiple of
-    16 once (c_in 60 -> 64, 72 -> 80; gx 64 or 128 wide). In f32 each weight is split into tf32 hi + lo
-    here, once per backward. The gx launch takes at most ``_bwd.MAX_PRODS``
+    16 once (c_in 60 -> 64, 72 -> 80; gx 64 or 128 wide). Each weight's tiles
+    (``_bwd.row_weight``: in f32 split into tf32 hi + lo) are prepared here,
+    once per backward. The gx launch takes at most ``_bwd.MAX_PRODS``
     products (w0's and one per skip); more skips chain launches through an
     f32 sum."""
     dt, L, F, n = x.dtype, spec.layers, spec.feat, x.shape[0]
@@ -523,8 +524,8 @@ def _trunk_backward_cuda(spec, x, packed, acts, g_shared, need_gx: bool):
     def row(**kw):
         _bwd.row_op("trunk_bwd", "trunk_bwd_row", dt, n, **kw)
 
-    def operand(w):  # a weight as the row GEMM takes it (split once in f32)
-        return w if bf16 else _bwd.tf32_split(w)
+    def operand(w):  # a weight as the row GEMM takes it, its tiles prepared once
+        return _bwd.row_weight(w, dt)
 
     def t(w):  # (in, out) -> W^T (out, in)
         return w.t().contiguous()
@@ -558,11 +559,10 @@ def _trunk_backward_cuda(spec, x, packed, acts, g_shared, need_gx: bool):
     ga = torch.empty((L, n, F), dtype=dt, device=dev)
     ga32 = torch.empty((L, n, F), dtype=f32, device=dev) if bf16 else ga
     g = g_shared.to(dt).contiguous()
-    w_mid_b = operand(w_mid)  # the sweep's B: the packed (in, out) weights
+    w_mid_b = [operand(w) for w in w_mid]  # the sweep's B: the packed (in, out) weights
     for i in range(L - 1, -1, -1):
         top = i == L - 1
-        wb = None if top else (w_mid_b[i] if bf16 else _bwd.Tf32Split(*(p[i] for p in w_mid_b)))
-        row(width=F, prods=[] if top else [(ga[i + 1], wb)],
+        row(width=F, prods=[] if top else [(ga[i + 1], w_mid_b[i])],
             add=g if top else None, pre=acts[i], mode=_bwd.BWD_SINE,
             scale=scale[i], sin_mode=mode, out_f32=ga32[i] if bf16 else None,
             out_dt=ga[i], out2_dt=hs[i] if (write_h and i < L - 1) else None)

@@ -446,7 +446,9 @@ def _block_inputs(dev, dtype, shapes, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,width", [(16, 512), (60, 256), (512, 512), (512, 16), (60, 64)])
+@pytest.mark.parametrize("k,width", [(16, 512), (60, 256), (512, 512), (512, 16), (60, 64),
+                                     (16, 128), (60, 384), (1024, 768), (1024, 1024),
+                                     (512, 192)])
 def test_cuda_row_gemm_block_matches_torch(cuda_device, dtype, k, width, record_property):
     """row_op: A (65,537, K) @ W (K, width) + an f32 addend + bias, both
     epilogue outputs, against torch in f64; two runs bit for bit equal."""
@@ -480,7 +482,26 @@ def test_cuda_row_gemm_block_matches_torch(cuda_device, dtype, k, width, record_
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,m", [(16, 256), (60, 512), (512, 512), (512, 16)])
+@pytest.mark.parametrize("width,k", [(64, 16), (128, 60), (192, 72), (512, 512), (768, 1024),
+                                     (1024, 40)])
+def test_cuda_row_weight_kernel_matches_torch(cuda_device, dtype, width, k):
+    """The row GEMM's weight tiles (ops/_bwd.py:row_weight) from the card's
+    prep_kernel bit for bit those of its torch construction on the CPU, on
+    a W^T view whose rows are k + 5 apart."""
+    from satnerf_torch.ops import _bwd
+
+    g = torch.Generator().manual_seed(width + k)
+    full = torch.randn(width, k + 5, generator=g).to(dtype)
+    got = _bwd.row_weight(full.to(cuda_device)[:, :k], dtype)
+    ref = _bwd.row_weight(full[:, :k], dtype)
+    torch.cuda.synchronize()
+    assert got.bn == ref.bn and torch.equal(got.tiles.cpu(), ref.tiles)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,m", [(16, 256), (60, 512), (512, 512), (512, 16), (1024, 64),
+                                 (128, 1024), (384, 768), (60, 128)])
 def test_cuda_reduce_block_matches_torch(cuda_device, dtype, k, m, record_property):
     """reduce_op: dW = A^T B over 65,537 rows (9 chunks) and the column sums
     of B (folded into the GEMM in f32, a separate job in bf16) against torch

@@ -170,23 +170,24 @@ def _emulated_row_op(lib_name, fn_name, dt, rows, width, prods=(), add=None,
                      bias=None, pre=None, mode=_bwd.PLAIN, scale=1.0, sin_mode=0,
                      out_f32=None, out_dt=None, out2_dt=None):
     """What csrc/bwd_common.cuh's row GEMM computes, in torch (f32 sums of the
-    f32 operands; a split weight by the weight it was split from). Checks the argument
-    layout: each product is (A (rows, K), W^T (width, K)), K a multiple of
-    16 on the tensor-core route, the f32 weights split into tf32 parts."""
+    f32 operands; a prepared weight by the weight it was prepared from).
+    Checks the argument layout: each product is (A (rows, K), W^T (width, K)
+    or its RowWeight), K a multiple of 16 on the tensor-core route after the
+    wrapper's padding, a RowWeight's tiles those of ops/_bwd.py:row_weight
+    at the width's tile columns (row_bn; the f32 ones split into tf32
+    parts)."""
     name = SIN_MODES[sin_mode]
     sin, cos = SINE_ENGINES[name], COSINE_ENGINES[name]
     thin = width == _bwd.THIN_WIDTH
     v = torch.zeros((rows, width), dtype=torch.float32)
     for a, wt in prods:
         assert a.dtype == dt and a.shape[0] == rows
-        if isinstance(wt, _bwd.Tf32Split):
-            assert dt == torch.float32 and not thin
-            hi, lo = _bwd.split_tf32(wt.w)
-            assert torch.equal(hi, wt.hi) and torch.equal(lo, wt.lo)
-            w = wt.w.float()
-        else:
-            assert wt.dtype == dt
-            w = wt.float()
+        if isinstance(wt, _bwd.RowWeight):
+            assert not thin and wt.bn == _bwd.row_bn(width, dt)
+            assert torch.equal(wt.tiles, _bwd.row_weight(wt.w, dt).tiles)
+            wt = wt.w
+        assert wt.dtype == dt
+        w = wt.float()
         assert w.shape == (width, a.shape[1]), (w.shape, width, a.shape)
         assert a.shape[1] % (4 if thin else 16) == 0
         v = v + a.float() @ w.t()
@@ -212,8 +213,9 @@ def _emulated_row_op(lib_name, fn_name, dt, rows, width, prods=(), add=None,
 
 def _emulated_reduce_op(lib_name, fn_name, dt, rows, gemms=(), sums=()):
     """What csrc/bwd_common.cuh's reduction computes, in torch: partial sums
-    over chunks of _bwd.SPLIT_ROWS rows, added in chunk order; in f32 the
-    bias sums whose rows are a GEMM's B ride along with that GEMM."""
+    (weight and bias gradients alike) over chunks of _bwd.SPLIT_ROWS rows,
+    added in chunk order; in f32 the bias sums whose rows are a GEMM's B
+    ride along with that GEMM."""
     folded, rest = _bwd.fold_sums(dt, gemms, sums)
     chunks = [(s * _bwd.SPLIT_ROWS, min(rows, (s + 1) * _bwd.SPLIT_ROWS))
               for s in range(_bwd.n_splits(rows))]
@@ -229,7 +231,7 @@ def _emulated_reduce_op(lib_name, fn_name, dt, rows, gemms=(), sums=()):
         if j in folded:
             folded[j].copy_(bias)
     for b, out in rest:
-        out.copy_(b.float().sum(0))
+        out.copy_(sum(b[s0:s1].float().sum(0) for s0, s1 in chunks))
 
 
 @contextlib.contextmanager
